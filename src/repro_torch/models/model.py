@@ -1,0 +1,128 @@
+"""ModelApi of the port: build / init / prefill / decode for the dense
+family (counterpart of the dense branch of ``repro.models.model``).
+
+Parameters are the JAX package's tree, as nested dicts of tensors with the
+same paths, shapes and ``x @ W`` orientation, and the layers stacked along
+a leading dimension. A Python loop over layers replaces ``lax.scan``.
+JAX's ``_cast`` casts every float32 parameter to the compute dtype on
+every call (fused away under ``jit``); eagerly that would copy the weights
+on every decode step, so the port casts once, in :meth:`ModelApi.load`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class ModelApi:
+    cfg: ModelConfig
+    parallel: ParallelConfig
+    defs: Any
+    device: torch.device
+
+    # ---- params ----------------------------------------------------------
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.parallel.compute_dtype] if \
+            self.cfg.dtype == "bfloat16" else DTYPES[self.cfg.dtype]
+
+    def init(self, seed: int = 0):
+        """Random parameters drawn on the device from ``seed`` at JAX's
+        scale, cast once for the forward pass."""
+        params = L.init_params(self.defs, seed=seed,
+                               dtype=DTYPES[self.parallel.param_dtype],
+                               device=self.device)
+        return self.load(params)
+
+    def load(self, params):
+        """Move a parameter tree to the device and cast its float leaves
+        to the compute dtype, once. For float32 leaves this is JAX's
+        per-call ``_cast``; a bfloat16 leaf under a float32 compute dtype
+        is widened, which is exactly JAX's type promotion at each use."""
+        cd = self.compute_dtype()
+
+        def one(path, a):
+            want = tuple(self._def_at(path).shape)
+            if tuple(a.shape) != want:
+                raise ValueError(f"param {'/'.join(path)}: shape "
+                                 f"{tuple(a.shape)}, expected {want}")
+            a = a.to(self.device)
+            return a.to(cd) if a.is_floating_point() else a
+        return L.tree_map(one, params)
+
+    def _def_at(self, path):
+        d = self.defs
+        for k in path:
+            d = d[k]
+        return d
+
+    def n_params(self) -> int:
+        return int(sum(torch.Size(d.shape).numel()
+                       for d in L.tree_leaves(self.defs)))
+
+    # ---- forward ----------------------------------------------------------
+    def _layer(self, blocks, i: int):
+        return L.tree_map(lambda _, a: a[i], blocks)
+
+    @torch.no_grad()
+    def prefill_fn(self, params, batch):
+        """batch["tokens"]: (B, S) int. Returns (logits (B, 1, V) f32,
+        caches {"k", "v"}: (L, B, S, Hkv, D))."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)[None, :]
+        ctx = T.Ctx(cfg=cfg, mode="prefill", positions=positions)
+        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, c = T.dense_block_apply(ctx, self._layer(params["blocks"], i),
+                                       x)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        x = T.final_norm(cfg, params, x)
+        logits = T.lm_logits(cfg, params, x[:, -1:, :])
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    @torch.no_grad()
+    def decode_fn(self, params, caches, tokens, pos):
+        """tokens: (B, 1) int; pos: (B,) position of the new token;
+        caches {"k", "v"}: (L, B, Smax, Hkv, D), updated in place.
+        Returns (logits (B, 1, V) f32, caches)."""
+        cfg = self.cfg
+        ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
+        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        for i in range(cfg.n_layers):
+            layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
+            x, _ = T.dense_block_apply(
+                ctx, self._layer(params["blocks"], i), x, layer_cache)
+        x = T.final_norm(cfg, params, x)
+        return T.lm_logits(cfg, params, x), caches
+
+
+# --------------------------------------------------------------------------
+# Construction
+# --------------------------------------------------------------------------
+def build_defs(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md, queue A); only 'dense' is")
+    return T.lm_defs(cfg, T.dense_block_defs)
+
+
+def build_model(cfg: ModelConfig, parallel: ParallelConfig,
+                device: Optional[str | torch.device] = None) -> ModelApi:
+    """``device`` defaults to ``cuda`` (see ``repro_torch.device``)."""
+    return ModelApi(cfg=cfg, parallel=parallel,
+                    defs=build_defs(cfg, parallel),
+                    device=resolve_device(device))
