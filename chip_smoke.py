@@ -6,37 +6,72 @@
 Drives the port in phases and exits non-zero if any fails:
 
   (a) device   needs CUDA; prints the card's name and power limit; TF32 off;
-  (b) build    builds the CUDA flash-attention kernel from
-               src/repro_torch/csrc with nvcc for sm_90a;
-  (c) kernel   holds the kernel against its plain PyTorch version on the
-               shapes of tests/test_kernels.py and on the serve path's
-               prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128), f32 and bf16,
+  (b) build    builds the CUDA flash-attention and grouped-matmul kernels
+               from src/repro_torch/csrc with nvcc for sm_90a, one nvcc per
+               source, started together; prints registers and spills;
+  (c) kernel   holds the flash kernel against its plain PyTorch version on
+               the shapes of tests/test_kernels.py and on the serve paths'
+               prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
+               Hq = Hkv = 16, D 128; causal, S 32/200/1024), f32 and bf16,
                tolerance 2e-5 (f32) / 3e-2 (bf16); times kernel, plain
                version and torch's scaled_dot_product_attention (a yardstick
                the port never calls) with CUDA events, beside the bound;
+  (c2) kernel  holds moe_gmm against its plain version on the shapes of
+               tests/test_kernels.py, two ragged ones, and olmoe-1b-7b's
+               serve shapes (decode C=8 with 32 of 64 experts in use, prefill
+               C=160 and C=48 with counts from routing 1024 and 300 random
+               tokens), f32 and bf16, inputs at the model's scale; tolerance
+               1e-4 (f32, TF32 off) / 3e-2 (bf16: output rounding); times
+               kernel, plain version and torch.bmm on the capacity buffer (a
+               yardstick the port never calls) beside the bound, which counts
+               the rows in use and the weights of the experts in use only;
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
                with the flash kernel as its prefill attention): 6 requests of
                mixed prompt lengths, 16 new tokens each; every request must
-               finish and the kernel's launch count over the run must be
-               n_layers x prefills;
+               finish and the launch counts over the run must be n_layers x
+               prefills (flash) and 0 (moe_gmm);
   (e) oracle   the engine's greedy tokens equal a greedy rollout that
                re-prefills the whole sequence each step (port against port),
                at full width in f32 on the same weights, where the two paths
-               agree to rounding and near-ties cannot flip the argmax.
+               agree to rounding and near-ties cannot flip the argmax;
+  (d2) serving olmoe-1b-7b (64 experts, top-8) at full width and depth in
+               bf16, the same way and the same 6 prompts: the flash kernel is
+               the prefill attention and moe_gmm the expert FFN; launch
+               counts must be n_layers x prefills (flash) and 3 x n_layers x
+               (prefills + decode steps) (moe_gmm);
+  (e2) oracle  the f32 engine's tokens equal a one-request-at-a-time rollout
+               through prefill_fn then decode_fn at batch 1. Not the
+               re-prefill oracle of (e): a re-prefill routes every earlier
+               token again under a capacity that grows with the sequence,
+               so the MoE layer may drop other (token, expert) pairs than the
+               engine did (JAX's semantics, not a fault); a decode step
+               routes at most B <= 8 tokens to an expert whose capacity is 8,
+               so it never drops, and the batch-1 rollout and the slot engine
+               compute the same function. Random weights give near-constant
+               greedy tokens, so the tokens alone check little: then the f32
+               logits through the kernels equal those through the kernels'
+               plain versions within 1e-3, at a prefill and at 4 decode steps
+               over 4 slots at different positions (capacity buffers of 8
+               rows, moe_gmm at C=8, in-place cache writes), and so do the
+               caches after them.
 
-Before the last line it prints one JSON object {"kernels": [...]} with each
-kernel's launches on the serve path, error, times and bound; the last line
-is {"ok": true, "device": {...}}. Details go to build/chip_smoke.json.
+Each serving phase sets the kernels' launch counts to 0 just before it
+drives the path and reads them just after. Before the last line it prints
+one JSON object {"kernels": [...]} with each kernel's launches on the serve
+paths, error, times and bound; the last line is {"ok": true, "device":
+{...}}. Details go to build/chip_smoke.json.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -50,8 +85,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
@@ -71,11 +109,40 @@ KERNEL_CASES = [
     (1, 256, 2, 2, 128, False, 0, torch.float32),
     (1, 128, 4, 2, 64, True, 0, torch.bfloat16),
 ]
-MAIN_SHAPES = [(1, S, 28, 4, 128, True, 0, dt)
+MAIN_SHAPES = [(1, S, Hq, Hkv, 128, True, 0, dt)
+               for Hq, Hkv in ((28, 4), (16, 16))      # qwen2-7b, olmoe-1b-7b
                for dt in (torch.bfloat16, torch.float32)
                for S in (32, 200, 1024)]
 WINDOW_CASE = (1, 1024, 28, 4, 128, True, 64, torch.bfloat16)
 REPORTED = (1, 1024, 28, 4, 128, True, 0, torch.bfloat16)
+
+# moe_gmm: (label, E, C, D, F, counts, dtype); counts "random" (uniform in
+# [0, C]), "decode" (32 of the 64 experts hold one row) or "route<T>" (the
+# rows T random tokens give each expert under top-8 routing, at most C)
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+GMM_CASES = [
+    ("test", 4, 32, 16, 24, "random", torch.float32),
+    ("test", 2, 64, 32, 32, "random", torch.float32),
+    ("test", 3, 16, 8, 8, "random", torch.bfloat16),
+    ("ragged", 5, 21, 37, 45, "random", torch.float32),
+    ("ragged", 3, 70, 50, 130, "random", torch.bfloat16),
+]
+GMM_SERVE = [(label, 64, C, D, F, counts, dt)
+             for dt in (torch.bfloat16, torch.float32)
+             for label, C, D, F, counts in (
+                 ("decode gate/up", 8, 2048, 1024, "decode"),
+                 ("decode down", 8, 1024, 2048, "decode"),
+                 ("prefill T=1024 gate/up", 160, 2048, 1024, "route1024"),
+                 ("prefill T=1024 down", 160, 1024, 2048, "route1024"),
+                 ("prefill T=300 gate/up", 48, 2048, 1024, "route300"))]
+GMM_REPORTED = GMM_SERVE[0]
+
+# f32 prefill and decode logits (and caches) through the kernels vs through
+# their plain versions, full width and depth: sums taken in another order,
+# nothing else
+PLAIN_PATH_TOL = 1e-3
+PLAIN_PATH_PROMPTS = (32, 20, 45, 9)      # one per slot: 4 decode positions
+PLAIN_PATH_STEPS = 4
 
 SERVE_PROMPTS = (32, 200, 1024, 77, 512, 300)
 SERVE_MAX_NEW = 16
@@ -188,6 +255,76 @@ def phase_kernel(dev, smi: str) -> list[dict]:
     return rows
 
 
+def gmm_counts(kind: str, E: int, C: int, gen, dev) -> torch.Tensor:
+    if kind == "random":
+        return torch.randint(0, C + 1, (E,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    if kind == "decode":
+        used = torch.randperm(E, generator=gen, device=dev)[:E // 2]
+        return torch.zeros((E,), dtype=torch.int32, device=dev).index_fill_(
+            0, used, 1)
+    T = int(kind.removeprefix("route"))
+    probs = torch.softmax(torch.randn((T, E), generator=gen, device=dev), -1)
+    tope = torch.topk(probs, 8, dim=-1).indices.reshape(-1)
+    return torch.bincount(tope, minlength=E).clamp(max=C).to(torch.int32)
+
+
+def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
+    """Least time for this call: 2 x (rows in use) x D x F operations over
+    the peak rate of the type, against the bytes it must move: the rows in
+    use of x, the weights of the experts in use, the whole output, the
+    counts; over the memory rate."""
+    rows = int(counts.sum())
+    used = int((counts > 0).sum())
+    elt = torch.tensor([], dtype=dt).element_size()
+    ops = 2 * rows * D * F
+    nbytes = elt * (rows * D + used * D * F + E * C * F) + 4 * E
+    t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_gmm(dev, smi: str) -> list[dict]:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for case in GMM_CASES + GMM_SERVE:
+        label, E, C, D, F, kind, dt = case
+        x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
+        w = (torch.randn((E, D, F), generator=gen, device=dev)
+             * D ** -0.5).to(dt)
+        counts = gmm_counts(kind, E, C, gen, dev)
+        out = gmm.grouped_matmul(x, w, counts)
+        torch.cuda.synchronize()
+        ref = gmm_reference(x, w, counts)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = GMM_TOL[dt]
+        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        name = (f"{label} E={E} C={C} D={D} F={F} {DT_NAME[dt]} "
+                f"rows in use {int(counts.sum())}, experts in use "
+                f"{int((counts > 0).sum())}")
+        row = {"case": name, "max_abs_err": err, "tol": tol, "ok": bool(ok)}
+        if case in GMM_SERVE:
+            bound_ms, bound_by = gmm_bound(E, C, D, F, counts, dt)
+            row.update(
+                ms=time_ms(lambda: gmm.grouped_matmul(x, w, counts)),
+                plain_ms=time_ms(lambda: gmm_reference(x, w, counts)),
+                library_ms=time_ms(lambda: torch.bmm(x, w)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                reported=case == GMM_REPORTED)
+            print(f"[gmm] {name}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bmm {row['library_ms']:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
+                  f"{err:.3g} [{smi}]")
+        else:
+            print(f"[gmm] {name}: max_abs_err {err:.3g}")
+        if not ok:
+            fail(f"moe_gmm disagrees with its plain version on {name}: "
+                 f"max_abs_err {err} > {tol}")
+        rows.append(row)
+    return rows
+
+
 def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
     """Greedy rollout by re-prefilling the whole sequence each step."""
     toks = list(int(t) for t in prompt)
@@ -201,15 +338,38 @@ def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
     return out
 
 
-def phase_serving(dev, smi: str) -> dict:
-    cfg = get_config("qwen2-7b")
+def rollout_oracle(api, params, prompt, n_new: int, dev,
+                   max_seq: int) -> list[int]:
+    """Greedy rollout of one request at batch 1: prefill_fn once, then
+    decode_fn on a max_seq cache, as the engine does for its slots."""
+    logits, pre = api.prefill_fn(
+        params, {"tokens": torch.tensor([[int(t) for t in prompt]],
+                                        device=dev)})
+    S_p = len(prompt)
+    caches = {}
+    for n in ("k", "v"):
+        shp = (pre[n].shape[0], 1, max_seq) + tuple(pre[n].shape[3:])
+        caches[n] = torch.zeros(shp, dtype=pre[n].dtype, device=dev)
+        caches[n][:, :, :S_p] = pre[n]
+    out = [int(torch.argmax(logits[0, -1]))]
+    for i in range(n_new - 1):
+        logits, caches = api.decode_fn(
+            params, caches, torch.tensor([[out[-1]]], device=dev),
+            torch.tensor([S_p + i], device=dev))
+        out.append(int(torch.argmax(logits[0, -1])))
+    return out
+
+
+def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
+    cfg = get_config(arch)
+    moe = cfg.family == "moe"
     parallel = ParallelConfig(param_dtype="bfloat16",
                               compute_dtype="bfloat16")
     api = build_model(cfg, parallel, dev)
     t0 = time.perf_counter()
     params = api.init(seed=0)
     torch.cuda.synchronize()
-    print(f"[serve] qwen2-7b full width, {cfg.n_layers} layers, "
+    print(f"[serve] {arch} full width, {cfg.n_layers} layers, "
           f"{api.n_params() / 1e9:.3f} B params bf16, drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -220,20 +380,25 @@ def phase_serving(dev, smi: str) -> dict:
         print(f"{line} [{smi}]")
 
     fa.reset_launches()
+    gmm.reset_launches()
     t0 = time.perf_counter()
     res = serve.run(cfg, parallel, device=dev, n_requests=len(SERVE_PROMPTS),
                     max_new=SERVE_MAX_NEW, prompt_lens=SERVE_PROMPTS,
-                    max_batch=4, max_seq=2048, duration=6.0, api=api,
+                    max_batch=4, max_seq=2048, duration=duration, api=api,
                     params=params, log=log)
-    launches = fa.launches
+    launches = {"flash_attention": fa.launches, "moe_gmm": gmm.launches}
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reqs = res["requests"]
     lat = res["latency_ms"]
     busy = res["busy_quantum_ms"]
-    prefills = len(reqs) + 1                    # + the warmup request
-    print(f"[serve] flash_attention launches {launches} "
-          f"(expected {cfg.n_layers} x {prefills} prefills); "
+    prefills = len(reqs) + 1                    # + the warm-up request
+    decode_steps = res["engine"].decode_steps + 1   # + the warm-up's step
+    expect = {"flash_attention": cfg.n_layers * prefills,
+              "moe_gmm": 3 * cfg.n_layers * (prefills + decode_steps)
+              if moe else 0}
+    print(f"[serve] {arch} launches {launches} (expected {expect}: "
+          f"{prefills} prefills, {decode_steps} decode steps); "
           f"decode quantum response p50 {np.percentile(lat, 50):.3f} ms, "
           f"p99 {np.percentile(lat, 99):.3f} ms over {len(lat)} quanta; "
           f"busy quanta (refill + decode) p50 "
@@ -245,11 +410,12 @@ def phase_serving(dev, smi: str) -> dict:
     not_done = [r.rid for r in reqs
                 if not r.done or len(r.out) != SERVE_MAX_NEW]
     if not_done:
-        fail(f"requests {not_done} did not finish with {SERVE_MAX_NEW} "
-             f"tokens")
-    if launches != cfg.n_layers * prefills:
-        fail(f"flash_attention launched {launches} times on the serve "
-             f"path, expected {cfg.n_layers * prefills}")
+        fail(f"{arch}: requests {not_done} did not finish with "
+             f"{SERVE_MAX_NEW} tokens")
+    for name, n in expect.items():
+        if launches[name] != n:
+            fail(f"{arch}: {name} launched {launches[name]} times on the "
+                 f"serve path, expected {n}")
     # the engine alone (no executor, no best-effort thread): one decode
     # step over 4 busy slots and one 1024-token prefill, host clock around
     # work that ends in a synchronize
@@ -277,18 +443,21 @@ def phase_serving(dev, smi: str) -> dict:
     del engine
     step_ms = float(np.median(steps[2:]))
     prefill_ms = float(np.median(pre[1:]))
-    print(f"[serve] engine alone: decode step (4 slots) median {step_ms:.3f} "
-          f"ms of {len(steps) - 2}, 1024-token prefill median "
+    print(f"[serve] {arch} engine alone: decode step (4 slots) median "
+          f"{step_ms:.3f} ms of {len(steps) - 2}, 1024-token prefill median "
           f"{prefill_ms:.3f} ms of {len(pre) - 1} [{smi}]")
     # bf16 oracle, reported only: bf16 rounding differs between the batched
-    # decode step and a re-prefill, so near-ties may flip (phase e checks)
+    # decode step and the oracle, so near-ties may flip (phase e/e2 checks)
     r0 = reqs[0]
-    o16 = greedy_oracle(api, params, r0.prompt, SERVE_MAX_NEW, dev)
+    o16 = rollout_oracle(api, params, r0.prompt, SERVE_MAX_NEW, dev, 2048) \
+        if moe else greedy_oracle(api, params, r0.prompt, SERVE_MAX_NEW, dev)
     agree = next((i for i, (a, b) in enumerate(zip(r0.out, o16)) if a != b),
                  SERVE_MAX_NEW)
-    print(f"[serve] bf16 request 0: first {agree}/{SERVE_MAX_NEW} tokens "
-          f"equal the bf16 re-prefill rollout (reported, not checked)")
+    kind = "batch-1 rollout" if moe else "re-prefill rollout"
+    print(f"[serve] {arch} bf16 request 0: first {agree}/{SERVE_MAX_NEW} "
+          f"tokens equal the bf16 {kind} (reported, not checked)")
     return {"api": api, "params": params, "launches": launches,
+            "prefills": prefills, "decode_steps": decode_steps,
             "decode_p50_ms": float(np.percentile(lat, 50)),
             "decode_p99_ms": float(np.percentile(lat, 99)),
             "decode_quanta": int(len(lat)),
@@ -296,12 +465,88 @@ def phase_serving(dev, smi: str) -> dict:
             "busy_p99_ms": float(np.percentile(busy, 99)),
             "busy_max_ms": float(busy.max()), "busy_quanta": int(len(busy)),
             "be_quanta": res["stats"]["be_quanta"], "peak_gb": peak_gb,
-            "decode_steps": res["engine"].decode_steps,
             "bf16_oracle_prefix": agree, "engine_decode_step_ms": step_ms,
             "engine_prefill_1024_ms": prefill_ms, "lines": lines}
 
 
-def phase_oracle(dev, api16, params16) -> None:
+def through_plain(fn):
+    """fn() run with each kernel's wrapper swapped for its plain version."""
+    saved = M.grouped_matmul, L.flash_attention
+    M.grouped_matmul, L.flash_attention = gmm_reference, naive_attention
+    try:
+        return fn()
+    finally:
+        M.grouped_matmul, L.flash_attention = saved
+
+
+def check_plain_path(api, params, dev, max_seq: int) -> dict:
+    """The f32 logits through the kernels equal those of the same calls with
+    each kernel's wrapper swapped for its plain version, within
+    PLAIN_PATH_TOL: a prefill, then PLAIN_PATH_STEPS decode steps over one
+    slot per prompt of PLAIN_PATH_PROMPTS, each slot at its own position,
+    on the same teacher-forced tokens; the caches after them too. The whole
+    model checked at full width, beyond what the greedy tokens of random
+    weights show."""
+    cfg = api.cfg
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(n,))
+               for n in PLAIN_PATH_PROMPTS]
+    feed = torch.as_tensor(rng.integers(
+        1, cfg.vocab_size, size=(PLAIN_PATH_STEPS, len(prompts), 1)),
+        device=dev)
+    lens = torch.tensor(PLAIN_PATH_PROMPTS, device=dev)
+    errs = {}
+
+    def check(what, got, want):
+        err = (got - want).abs().max().item()
+        errs[what] = max(errs.get(what, 0.0), err)
+        if not torch.allclose(got, want, atol=PLAIN_PATH_TOL,
+                              rtol=PLAIN_PATH_TOL):
+            fail(f"{cfg.name}: f32 {what} through the kernels differ from "
+                 f"the plain versions' by {err}")
+
+    batch = {"tokens": torch.as_tensor(prompts[0][None], device=dev)}
+    got, _ = api.prefill_fn(params, batch)
+    want, _ = through_plain(lambda: api.prefill_fn(params, batch))
+    check("prefill logits", got, want)
+    # slot caches filled by batch-1 prefills, as the engine fills them
+    caches = {}
+    for i, p in enumerate(prompts):
+        _, pre = api.prefill_fn(
+            params, {"tokens": torch.as_tensor(p[None], device=dev)})
+        for n in ("k", "v"):
+            if n not in caches:
+                caches[n] = torch.zeros(
+                    (pre[n].shape[0], len(prompts), max_seq)
+                    + tuple(pre[n].shape[3:]), dtype=pre[n].dtype,
+                    device=dev)
+            caches[n][:, i, :len(p)] = pre[n][:, 0]
+
+    def decode():
+        c = {n: t.clone() for n, t in caches.items()}
+        logits = []
+        for j in range(PLAIN_PATH_STEPS):
+            out, c = api.decode_fn(params, c, feed[j], lens + j)
+            logits.append(out)
+        return torch.stack(logits), c
+
+    got, got_c = decode()
+    want, want_c = through_plain(decode)
+    check("decode logits", got, want)
+    for n in ("k", "v"):
+        check("decode caches", got_c[n], want_c[n])
+    print(f"[oracle] {cfg.name} f32, kernels vs plain versions: max_abs_err "
+          + ", ".join(f"{w} {e:.3g}" for w, e in errs.items())
+          + f" (prefill, then {PLAIN_PATH_STEPS} decode steps over "
+          f"{len(prompts)} slots at positions {PLAIN_PATH_PROMPTS}; logits "
+          f"std {want.std().item():.3g}, tolerance {PLAIN_PATH_TOL})")
+    return errs
+
+
+def phase_oracle(dev, api16, params16) -> dict:
+    """(e) for the dense model: the re-prefill oracle; (e2) for MoE: the
+    batch-1 prefill + decode rollout (see the module docstring)."""
+    moe = api16.cfg.family == "moe"
     cfg = dataclasses.replace(api16.cfg, dtype="float32")
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
     api = build_model(cfg, parallel, dev)
@@ -313,16 +558,29 @@ def phase_oracle(dev, api16, params16) -> None:
             for i, (p, n) in enumerate(zip(prompts, (16, 8)))]
     engine = ServingEngine(api, params, max_batch=2, max_seq=128)
     engine.run_until_done(reqs, max_steps=100)
+    kind = "batch-1 rollout" if moe else "re-prefill"
     for r in reqs:
-        oracle = greedy_oracle(api, params, r.prompt, r.max_new, dev)
-        print(f"[oracle] f32 request {r.rid}: engine {r.out}")
-        print(f"[oracle] f32 request {r.rid}: re-prefill {oracle}")
+        oracle = rollout_oracle(api, params, r.prompt, r.max_new, dev, 128) \
+            if moe else greedy_oracle(api, params, r.prompt, r.max_new, dev)
+        print(f"[oracle] {cfg.name} f32 request {r.rid}: engine {r.out}")
+        print(f"[oracle] {cfg.name} f32 request {r.rid}: {kind} {oracle}")
         if not r.done or r.out != oracle:
-            fail(f"f32 engine tokens of request {r.rid} differ from the "
-                 f"re-prefill greedy oracle")
-    print("[oracle] f32 engine tokens equal the re-prefill oracle on both "
-          "requests")
+            fail(f"{cfg.name}: f32 engine tokens of request {r.rid} differ "
+                 f"from the {kind} greedy oracle")
+    print(f"[oracle] {cfg.name} f32 engine tokens equal the {kind} oracle on "
+          f"both requests")
+    errs = check_plain_path(api, params, dev, 128) if moe else {}
     del params
+    return errs
+
+
+def kernel_entry(name, source, replaces, launches, rep) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": rep["max_abs_err"],
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep["library_ms"]}
 
 
 def main() -> int:
@@ -339,36 +597,50 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    built = fa.build()
-    print(f"[build] flash_attention: nvcc {built.seconds:.1f} s -> "
-          f"{built.path.relative_to(ROOT)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:           # one nvcc per source
+        builds = dict(zip(("flash_attention", "moe_gmm"),
+                          pool.map(lambda m: m.build(), (fa, gmm))))
+    for name, built in builds.items():
+        print(f"[build] {name}: nvcc {built.seconds:.1f} s -> "
+              f"{built.path.relative_to(ROOT)}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
 
     rows = phase_kernel(dev, smi)
-    sv = phase_serving(dev, smi)
-    phase_oracle(dev, sv["api"], sv["params"])
+    gmm_rows = phase_gmm(dev, smi)
+    sv = phase_serving(dev, smi, "qwen2-7b", duration=6.0)
+    phase_oracle(dev, sv.pop("api"), sv.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()                      # qwen2-7b's weights go
+    sv2 = phase_serving(dev, smi, "olmoe-1b-7b", duration=12.0)
+    sv2["plain_path_err"] = phase_oracle(dev, sv2.pop("api"),
+                                         sv2.pop("params"))
 
     rep = next(r for r in rows if r.get("reported"))
-    kernels = [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",
-        "launches": sv["launches"], "max_abs_err": rep["max_abs_err"],
-        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        "library_ms": rep["library_ms"]}]
+    gmm_rep = next(r for r in gmm_rows if r.get("reported"))
+    by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"]}
+    kernels = [
+        kernel_entry("flash_attention",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/flash_attention.py:82",
+                     {p: n["flash_attention"] for p, n in by_path.items()},
+                     rep),
+        kernel_entry("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
+                     "src/repro/kernels/moe_gmm/moe_gmm.py:51",
+                     {p: n["moe_gmm"] for p, n in by_path.items()}, gmm_rep)]
     detail = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "build_s": built.seconds,
+              "cuda": torch.version.cuda,
+              "build_s": {n: b.seconds for n, b in builds.items()},
               "kernel_rows": rows, "reported_case": rep["case"],
-              "serve": {k: v for k, v in sv.items()
-                        if k not in ("api", "params")},
+              "gmm_rows": gmm_rows, "gmm_reported_case": gmm_rep["case"],
+              "serve": sv, "serve_olmoe": sv2,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
-    print(f"kernels: [flash_attention: pass ({len(rows)} shapes)]")
+    print(f"kernels: [flash_attention: pass ({len(rows)} shapes), moe_gmm: "
+          f"pass ({len(gmm_rows)} shapes)]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@ best-effort background work — the paper's deployment story end to end, on
 the GPU (PyTorch port of ``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch qwen2-7b --requests 6``
-(add ``--device cpu`` to run without a card)
+serves the reduced config of ``--arch`` (``olmoe-1b-7b`` for the MoE
+model); add ``--device cpu`` to run without a card. ``run()`` serves any
+config of a family the engine serves, at full size too.
 
 The decode step of the served model is the RT gang (priority 10); a
 background batch job (synthetic compute) is best-effort, throttled by the
@@ -129,8 +131,9 @@ def main(argv=None):
     cfg = reduced(get_config(args.arch))
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32",
                               q_block=64, kv_block=64)
-    run(cfg, parallel, device=args.device, n_requests=args.requests,
-        max_new=args.max_new, duration=args.duration, no_gang=args.no_gang)
+    return run(cfg, parallel, device=args.device, n_requests=args.requests,
+               max_new=args.max_new, duration=args.duration,
+               no_gang=args.no_gang)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""ModelApi of the port: build / init / prefill / decode for the dense
-family (counterpart of the dense branch of ``repro.models.model``).
+"""ModelApi of the port: build / init / prefill / decode for the dense and
+MoE families (counterpart of those branches of ``repro.models.model``).
 
 Parameters are the JAX package's tree, as nested dicts of tensors with the
 same paths, shapes and ``x @ W`` orientation, and the layers stacked along
@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -73,25 +74,52 @@ class ModelApi:
     def _layer(self, blocks, i: int):
         return L.tree_map(lambda _, a: a[i], blocks)
 
+    def _run_blocks(self, params, x, ctx, caches=None):
+        """The layer loop (JAX's ``_run_uniform`` / ``_run_moe``). Prefill
+        (``caches`` None) collects each layer's {"k", "v"} and returns
+        (x, caches (L, B, S, Hkv, D), aux); decode updates ``caches``
+        (L, B, Smax, Hkv, D) in place and returns (x, caches, {}). For MoE
+        at prefill, aux holds the layer means of the load-balance and
+        router-z losses."""
+        cfg = self.cfg
+        moe = cfg.family == "moe"
+        ks, vs = [], []
+        lb = rz = 0.0
+        for i in range(cfg.n_layers):
+            blk = self._layer(params["blocks"], i)
+            cache = None if caches is None else \
+                {"k": caches["k"][i], "v": caches["v"][i]}
+            if moe:
+                x, c, aux = M.moe_block_apply(ctx, blk, x, cache)
+                if aux:
+                    lb = lb + aux["load_balance"]
+                    rz = rz + aux["router_z"]
+            else:
+                x, c = T.dense_block_apply(ctx, blk, x, cache)
+            if caches is None:
+                ks.append(c["k"])
+                vs.append(c["v"])
+        if caches is not None:
+            return x, caches, {}
+        aux = {"load_balance": lb / cfg.n_layers,
+               "router_z": rz / cfg.n_layers} if moe else {}
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+
     @torch.no_grad()
     def prefill_fn(self, params, batch):
         """batch["tokens"]: (B, S) int. Returns (logits (B, 1, V) f32,
-        caches {"k", "v"}: (L, B, S, Hkv, D))."""
+        caches {"k", "v"}: (L, B, S, Hkv, D)); the MoE aux losses are
+        dropped, as in JAX."""
         cfg = self.cfg
         tokens = batch["tokens"]
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
         ctx = T.Ctx(cfg=cfg, mode="prefill", positions=positions)
         x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            x, c = T.dense_block_apply(ctx, self._layer(params["blocks"], i),
-                                       x)
-            ks.append(c["k"])
-            vs.append(c["v"])
+        x, caches, _ = self._run_blocks(params, x, ctx)
         x = T.final_norm(cfg, params, x)
         logits = T.lm_logits(cfg, params, x[:, -1:, :])
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits, caches
 
     @torch.no_grad()
     def decode_fn(self, params, caches, tokens, pos):
@@ -101,10 +129,7 @@ class ModelApi:
         cfg = self.cfg
         ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
         x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
-        for i in range(cfg.n_layers):
-            layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
-            x, _ = T.dense_block_apply(
-                ctx, self._layer(params["blocks"], i), x, layer_cache)
+        x, caches, _ = self._run_blocks(params, x, ctx, caches)
         x = T.final_norm(cfg, params, x)
         return T.lm_logits(cfg, params, x), caches
 
@@ -113,11 +138,13 @@ class ModelApi:
 # Construction
 # --------------------------------------------------------------------------
 def build_defs(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md, queue A); only 'dense' is")
-    return T.lm_defs(cfg, T.dense_block_defs)
+    if cfg.family == "dense":
+        return T.lm_defs(cfg, T.dense_block_defs)
+    if cfg.family == "moe":
+        return T.lm_defs(cfg, M.moe_block_defs)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to repro_torch yet "
+        f"(ROADMAP.md, queue A); 'dense' and 'moe' are")
 
 
 def build_model(cfg: ModelConfig, parallel: ParallelConfig,

@@ -65,8 +65,9 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def warmup(self, prompt_len: int):
         """Run one request through prefill and decode ahead of serving (on
-        the card this builds the flash kernel), then reset to fresh state
-        and wait for the device."""
+        the card this builds the model's kernels: flash attention, and the
+        grouped matmul of an MoE model), then reset to fresh state and
+        wait for the device."""
         dummy = Request(rid=-1, prompt=np.zeros((prompt_len,), np.int32),
                         max_new=1)
         self.add_request(dummy)
