@@ -6,9 +6,10 @@
 Drives the port in phases and exits non-zero if any fails:
 
   (a) device   needs CUDA; prints the card's name and power limit; TF32 off;
-  (b) build    builds the CUDA flash-attention and grouped-matmul kernels
-               from src/repro_torch/csrc with nvcc for sm_90a, one nvcc per
-               source, started together; prints registers and spills;
+  (b) build    builds the CUDA flash-attention, grouped-matmul and SSD-scan
+               kernels from src/repro_torch/csrc with nvcc for sm_90a, one
+               nvcc per source, started together; prints registers and
+               spills;
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
@@ -25,6 +26,16 @@ Drives the port in phases and exits non-zero if any fails:
                kernel, plain version and torch.bmm on the capacity buffer (a
                yardstick the port never calls) beside the bound, which counts
                the rows in use and the weights of the experts in use only;
+  (c3) kernel  holds ssd_scan (y and the final state h) against its plain
+               version (the chunked scan of the JAX model) on the shapes of
+               tests/test_kernels.py, two ragged ones (S not a chunk
+               multiple) and mamba2-1.3b's serve shapes (B=1, H 64, P 64,
+               N 128, chunk 256, S 32/200/300/1024), f32 and bf16, inputs at
+               the model's scale, TF32 off; tolerance atol 1e-3 (f32, as
+               tests/test_kernels.py) and for bf16 y also rtol 2^-8 (y is
+               rounded to bf16 once: half an ulp is 2^-9 of |y|); times
+               kernel and plain version beside the bound (no single PyTorch
+               call computes this function, so no library time);
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
@@ -55,10 +66,31 @@ Drives the port in phases and exits non-zero if any fails:
                plain versions within 1e-3, at a prefill and at 4 decode steps
                over 4 slots at different positions (capacity buffers of 8
                rows, moe_gmm at C=8, in-place cache writes), and so do the
-               caches after them.
+               caches after them;
+  (d3) gang    mamba2-1.3b (SSM) at full width and depth in bf16, random
+               weights from seed 0 drawn on the card, through ModelApi.
+               prefill_fn / decode_fn (the slot engine serves attention
+               caches only, as in JAX): the batched decode step over 4
+               sequences is the RT job of a GangExecutor (one step per
+               quantum on lane 0, through device.Lanes.on_lane) beside the
+               best-effort 512^2 matmul job on lanes 0 and 1, bound by
+               launch/serve.run_gang as serve.run binds the engine's step;
+               the first quantum prefills prompts of 32, 200, 1024
+               and 300 tokens at batch 1 and concatenates their state
+               caches; then each quantum decodes until every sequence has
+               16 new tokens. ssd_scan must launch n_layers x prefills
+               times, flash and moe_gmm never;
+  (e3) oracle  at full width in f32: the logits through the kernel equal
+               those of the same calls with ssd_scan swapped for its plain
+               version within 1e-3, at the 4 prefills and at 4 decode steps
+               over the 4 sequences, and so do the caches after them; each
+               sequence's batched greedy tokens equal its batch-1 rollout
+               (prefill_fn, then decode_fn); how far they equal a re-prefill
+               rollout is reported (they agree up to rounding).
 
 Each serving phase sets the kernels' launch counts to 0 just before it
-drives the path and reads them just after. Before the last line it prints
+drives the path and reads them just after; ssd_scan must launch 0 times on
+the qwen2-7b and olmoe-1b-7b paths. Before the last line it prints
 one JSON object {"kernels": [...]} with each kernel's launches on the serve
 paths, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Details go to build/chip_smoke.json.
@@ -87,8 +119,11 @@ from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -136,6 +171,28 @@ GMM_SERVE = [(label, 64, C, D, F, counts, dt)
                  ("prefill T=1024 down", 160, 1024, 2048, "route1024"),
                  ("prefill T=300 gate/up", 48, 2048, 1024, "route300"))]
 GMM_REPORTED = GMM_SERVE[0]
+
+# ssd_scan: (label, B, S, H, P, N, chunk, dtype); the first four are
+# tests/test_kernels.py's, the serve shapes mamba2-1.3b's prefills
+SSD_TOL = 1e-3
+SSD_BF16_RTOL = 2.0 ** -8
+SSD_CASES = [(label, *shape, dt)
+             for dt in (torch.float32, torch.bfloat16)
+             for label, shape in (("test", (2, 64, 3, 16, 32, 16)),
+                                  ("test", (1, 128, 2, 32, 16, 32)),
+                                  ("test", (2, 32, 1, 8, 8, 8)),
+                                  ("test", (1, 64, 4, 16, 16, 64)),
+                                  ("ragged", (2, 77, 3, 24, 40, 32)),
+                                  ("ragged", (1, 300, 2, 40, 128, 256)))]
+SSD_SERVE = [("serve", 1, S, 64, 64, 128, 256, dt)
+             for dt in (torch.float32, torch.bfloat16)
+             for S in (32, 200, 300, 1024)]
+SSD_REPORTED = ("serve", 1, 1024, 64, 64, 128, 256, torch.float32)
+
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_PROMPTS = (32, 200, 1024, 300)
+MAMBA_NEW = 16
+MAMBA_ORACLE_NEW = 8
 
 # f32 prefill and decode logits (and caches) through the kernels vs through
 # their plain versions, full width and depth: sums taken in another order,
@@ -325,6 +382,85 @@ def phase_gmm(dev, smi: str) -> list[dict]:
     return rows
 
 
+def ssd_inputs(B, S, H, P, N, dt, gen, dev):
+    """Inputs at mamba2's scale: x, B and C are silu of the causal conv's
+    output (std 0.5 under the model's init), dt is softplus of a unit
+    normal (dt_bias 0), A = -exp(A_log) with A_log uniform in [0, log 16]
+    (from -1, the init, to -16)."""
+    def act(shape):
+        return F.silu(0.5 * torch.randn(shape, generator=gen, device=dev))
+    x = act((B, S, H, P)).to(dt)
+    dtv = F.softplus(torch.randn((B, S, H), generator=gen,
+                                 device=dev)).to(dt)
+    Bm, Cm = act((B, S, N)).to(dt), act((B, S, N)).to(dt)
+    A = -torch.exp(torch.rand((H,), generator=gen, device=dev)
+                   * float(np.log(16.0)))
+    return x, dtv, Bm, Cm, A
+
+
+def ssd_bound(B, S, H, P, N, chunk, dt) -> tuple[float, str]:
+    """Least time for this call. Operations: per chunk of q tokens inside
+    the sequence, only the q (q + 1) / 2 pairs j <= i of the causal
+    triangle, C B^T once per (b, chunk) (B and C are shared across heads,
+    2 pairs N) and per head the intra-chunk product (2 pairs P), the
+    inter-chunk term and the state update (2 q N P each); over the peak
+    rate of the input type. Bytes: x, dt, B, C and A read once, y and the
+    final state written once; over the memory rate."""
+    Q = min(chunk, S)
+    elt = torch.tensor([], dtype=dt).element_size()
+    ops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        pairs = unmasked_pairs(q, q, True, 0)
+        ops += 2 * B * (pairs * N + H * (pairs * P + 2 * q * N * P))
+    nbytes = elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) \
+        + 4 * H + 4 * B * H * P * N
+    t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_ssd(dev, smi: str) -> list[dict]:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = []
+    for case in SSD_CASES + SSD_SERVE:
+        label, B, S, H, P, N, chunk, dt = case
+        args = ssd_inputs(B, S, H, P, N, dt, gen, dev)
+        y, h = ssd.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, hr = ssd_chunked_reference(*args, chunk=chunk)
+        rtol = SSD_BF16_RTOL if dt == torch.bfloat16 else 0.0
+        err = max((y.float() - yr).abs().max().item(),
+                  (h - hr).abs().max().item())
+        ok = (y.dtype == dt and h.dtype == torch.float32 and
+              torch.allclose(y.float(), yr, atol=SSD_TOL, rtol=rtol) and
+              torch.allclose(h, hr, atol=SSD_TOL, rtol=0.0))
+        name = (f"{label} B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
+                f"{DT_NAME[dt]}")
+        row = {"case": name, "max_abs_err": err, "tol": SSD_TOL,
+               "rtol": rtol, "ok": bool(ok)}
+        if case in SSD_SERVE:
+            bound_ms, bound_by = ssd_bound(B, S, H, P, N, chunk, dt)
+            row.update(
+                ms=time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
+                plain_ms=time_ms(lambda: ssd_chunked_reference(
+                    *args, chunk=chunk)),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                reported=case == SSD_REPORTED)
+            print(f"[ssd] {name}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library none, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
+                  f"[{smi}]")
+        else:
+            print(f"[ssd] {name}: max_abs_err {err:.3g}")
+        if not ok:
+            fail(f"ssd_scan disagrees with its plain version on {name}: "
+                 f"max_abs_err {err} (atol {SSD_TOL}, rtol {rtol})")
+        rows.append(row)
+    return rows
+
+
 def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
     """Greedy rollout by re-prefilling the whole sequence each step."""
     toks = list(int(t) for t in prompt)
@@ -341,16 +477,20 @@ def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
 def rollout_oracle(api, params, prompt, n_new: int, dev,
                    max_seq: int) -> list[int]:
     """Greedy rollout of one request at batch 1: prefill_fn once, then
-    decode_fn on a max_seq cache, as the engine does for its slots."""
+    decode_fn on a max_seq cache, as the engine does for its slots (an SSM
+    state cache is taken as prefill_fn returns it)."""
     logits, pre = api.prefill_fn(
         params, {"tokens": torch.tensor([[int(t) for t in prompt]],
                                         device=dev)})
     S_p = len(prompt)
-    caches = {}
-    for n in ("k", "v"):
-        shp = (pre[n].shape[0], 1, max_seq) + tuple(pre[n].shape[3:])
-        caches[n] = torch.zeros(shp, dtype=pre[n].dtype, device=dev)
-        caches[n][:, :, :S_p] = pre[n]
+    if "h" in pre:
+        caches = pre
+    else:
+        caches = {}
+        for n in ("k", "v"):
+            shp = (pre[n].shape[0], 1, max_seq) + tuple(pre[n].shape[3:])
+            caches[n] = torch.zeros(shp, dtype=pre[n].dtype, device=dev)
+            caches[n][:, :, :S_p] = pre[n]
     out = [int(torch.argmax(logits[0, -1]))]
     for i in range(n_new - 1):
         logits, caches = api.decode_fn(
@@ -381,12 +521,14 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
 
     fa.reset_launches()
     gmm.reset_launches()
+    ssd.reset_launches()
     t0 = time.perf_counter()
     res = serve.run(cfg, parallel, device=dev, n_requests=len(SERVE_PROMPTS),
                     max_new=SERVE_MAX_NEW, prompt_lens=SERVE_PROMPTS,
                     max_batch=4, max_seq=2048, duration=duration, api=api,
                     params=params, log=log)
-    launches = {"flash_attention": fa.launches, "moe_gmm": gmm.launches}
+    launches = {"flash_attention": fa.launches, "moe_gmm": gmm.launches,
+                "ssd_scan": ssd.launches}
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reqs = res["requests"]
@@ -396,7 +538,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     decode_steps = res["engine"].decode_steps + 1   # + the warm-up's step
     expect = {"flash_attention": cfg.n_layers * prefills,
               "moe_gmm": 3 * cfg.n_layers * (prefills + decode_steps)
-              if moe else 0}
+              if moe else 0, "ssd_scan": 0}
     print(f"[serve] {arch} launches {launches} (expected {expect}: "
           f"{prefills} prefills, {decode_steps} decode steps); "
           f"decode quantum response p50 {np.percentile(lat, 50):.3f} ms, "
@@ -469,14 +611,21 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
             "engine_prefill_1024_ms": prefill_ms, "lines": lines}
 
 
+def plain_ssd_scan(xh, dt, Bm, Cm, A, *, chunk):
+    """ssd_scan's plain version with the wrapper's interface."""
+    y, h = ssd_chunked_reference(xh, dt, Bm, Cm, A, chunk=chunk)
+    return y.to(xh.dtype), h
+
+
 def through_plain(fn):
     """fn() run with each kernel's wrapper swapped for its plain version."""
-    saved = M.grouped_matmul, L.flash_attention
-    M.grouped_matmul, L.flash_attention = gmm_reference, naive_attention
+    saved = M.grouped_matmul, L.flash_attention, MB.ssd_scan
+    M.grouped_matmul, L.flash_attention, MB.ssd_scan = \
+        gmm_reference, naive_attention, plain_ssd_scan
     try:
         return fn()
     finally:
-        M.grouped_matmul, L.flash_attention = saved
+        M.grouped_matmul, L.flash_attention, MB.ssd_scan = saved
 
 
 def check_plain_path(api, params, dev, max_seq: int) -> dict:
@@ -574,6 +723,210 @@ def phase_oracle(dev, api16, params16) -> dict:
     return errs
 
 
+def concat_states(caches) -> dict:
+    """Batch-1 SSM state caches (L, 1, ...) concatenated along the batch."""
+    return {n: torch.cat([c[n] for c in caches], dim=1)
+            for n in MB.CACHE_NAMES}
+
+
+def phase_mamba2(dev, smi: str, duration: float) -> dict:
+    """(d3): the batched decode step of mamba2-1.3b as the RT gang."""
+    cfg = get_config(MAMBA_ARCH)
+    parallel = ParallelConfig(param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    api = build_model(cfg, parallel, dev)
+    t0 = time.perf_counter()
+    params = api.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"[mamba2] {MAMBA_ARCH} full width, {cfg.n_layers} layers, "
+          f"{api.n_params() / 1e9:.3f} B params bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
+                               device=dev) for n in MAMBA_PROMPTS]
+    lens = torch.tensor(MAMBA_PROMPTS, device=dev)
+    # warm-up, outside the counted run: a prefill and a decode step
+    _, c = api.prefill_fn(params, {"tokens": prompts[0]})
+    api.decode_fn(params, c, prompts[0][:, :1], lens[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    state = {"caches": None, "tok": None}
+    out, busy_ms = [], []
+
+    def decode_quantum(lane, idx):
+        """The first quantum prefills the 4 prompts; each later one decodes
+        one token of all 4 sequences, until each has MAMBA_NEW."""
+        if len(out) == MAMBA_NEW:
+            return
+        t0 = time.perf_counter()
+        if state["caches"] is None:
+            pre = [api.prefill_fn(params, {"tokens": p}) for p in prompts]
+            state["caches"] = concat_states([c for _, c in pre])
+            state["tok"] = torch.cat([lg[:, -1].argmax(-1, keepdim=True)
+                                      for lg, _ in pre])
+        else:
+            logits, _ = api.decode_fn(params, state["caches"], state["tok"],
+                                      lens + len(out) - 1)
+            state["tok"] = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(state["tok"])
+        busy_ms.append((time.perf_counter() - t0) * 1e3)
+
+    fa.reset_launches()
+    gmm.reset_launches()
+    ssd.reset_launches()
+    t0 = time.perf_counter()
+    stats = serve.run_gang(decode_quantum, dev, duration)
+    launches = {"flash_attention": fa.launches, "moe_gmm": gmm.launches,
+                "ssd_scan": ssd.launches}
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lat = np.array(stats["response_times"].get("decode", [0.0])) * 1e3
+    busy = np.array(busy_ms)
+    expect = {"flash_attention": 0, "moe_gmm": 0,
+              "ssd_scan": cfg.n_layers * len(MAMBA_PROMPTS)}
+    print(f"[mamba2] gang: launches {launches} (expected {expect}: "
+          f"{len(MAMBA_PROMPTS)} prefills, {max(len(out) - 1, 0)} decode "
+          f"steps over {len(MAMBA_PROMPTS)} sequences); decode quantum "
+          f"response p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms over {len(lat)} quanta; busy "
+          f"quanta (prefill + decode) p50 {np.percentile(busy, 50):.3f} ms, "
+          f"p99 {np.percentile(busy, 99):.3f} ms, max {busy.max():.3f} ms "
+          f"over {len(busy)}; be_quanta {stats['be_quanta']}; peak memory "
+          f"{peak_gb:.2f} GB; run {wall:.1f} s [{smi}]")
+    if len(out) != MAMBA_NEW:
+        fail(f"{MAMBA_ARCH}: the gang made {len(out)} of {MAMBA_NEW} tokens "
+             f"per sequence in {duration} s")
+    for name, n in expect.items():
+        if launches[name] != n:
+            fail(f"{MAMBA_ARCH}: {name} launched {launches[name]} times on "
+                 f"the gang path, expected {n}")
+    tokens = torch.cat(out, dim=1)
+    if tokens.shape != (len(MAMBA_PROMPTS), MAMBA_NEW) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"{MAMBA_ARCH}: gang tokens of shape {tuple(tokens.shape)} "
+             f"out of range")
+    # alone (no executor, no best-effort thread): one decode step over the
+    # 4 sequences and one 1024-token prefill, host clock around work that
+    # ends in a synchronize
+    caches = {n: t.clone() for n, t in state["caches"].items()}
+    steps = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_fn(params, caches, state["tok"], lens + MAMBA_NEW + i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    p1024 = prompts[MAMBA_PROMPTS.index(1024)]
+    pre = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill_fn(params, {"tokens": p1024})
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(steps[2:]))
+    prefill_ms = float(np.median(pre[1:]))
+    print(f"[mamba2] alone: decode step (4 sequences) median {step_ms:.3f} "
+          f"ms of {len(steps) - 2}, 1024-token prefill median "
+          f"{prefill_ms:.3f} ms of {len(pre) - 1} [{smi}]")
+    return {"api": api, "params": params, "launches": launches,
+            "prefills": len(MAMBA_PROMPTS), "decode_steps": len(out) - 1,
+            "decode_p50_ms": float(np.percentile(lat, 50)),
+            "decode_p99_ms": float(np.percentile(lat, 99)),
+            "decode_quanta": int(len(lat)),
+            "busy_p50_ms": float(np.percentile(busy, 50)),
+            "busy_p99_ms": float(np.percentile(busy, 99)),
+            "busy_max_ms": float(busy.max()), "busy_quanta": int(len(busy)),
+            "be_quanta": stats["be_quanta"], "peak_gb": peak_gb,
+            "decode_step_ms": step_ms, "prefill_1024_ms": prefill_ms,
+            "tokens": tokens.tolist()}
+
+
+def phase_mamba2_oracle(dev, api16, params16) -> dict:
+    """(e3): f32 at full width on the gang's weights."""
+    cfg = dataclasses.replace(api16.cfg, dtype="float32")
+    parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg, parallel, dev)
+    params = api.load(L.tree_map(lambda _, a: a.float(), params16))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(n,))
+               for n in MAMBA_PROMPTS]
+    feed = torch.as_tensor(rng.integers(
+        1, cfg.vocab_size, size=(PLAIN_PATH_STEPS, len(prompts), 1)),
+        device=dev)
+    lens = torch.tensor(MAMBA_PROMPTS, device=dev)
+    errs = {}
+
+    def check(what, got, want):
+        err = (got - want).abs().max().item()
+        errs[what] = max(errs.get(what, 0.0), err)
+        if not torch.allclose(got, want, atol=PLAIN_PATH_TOL,
+                              rtol=PLAIN_PATH_TOL):
+            fail(f"{cfg.name}: f32 {what} through the kernel differ from "
+                 f"the plain version's by {err}")
+
+    def run():
+        """The 4 prefills, then PLAIN_PATH_STEPS teacher-forced decode
+        steps over the 4 sequences: (prefill logits, decode logits,
+        caches)."""
+        pre = [api.prefill_fn(params, {"tokens": torch.as_tensor(
+            p[None], device=dev)}) for p in prompts]
+        caches = concat_states([c for _, c in pre])
+        logits = []
+        for j in range(PLAIN_PATH_STEPS):
+            out, caches = api.decode_fn(params, caches, feed[j], lens + j)
+            logits.append(out)
+        return (torch.cat([lg for lg, _ in pre]), torch.stack(logits),
+                caches)
+
+    ssd.reset_launches()
+    got = run()
+    if ssd.launches != cfg.n_layers * len(prompts):
+        fail(f"{cfg.name}: f32 prefills launched ssd_scan {ssd.launches} "
+             f"times, expected {cfg.n_layers * len(prompts)}")
+    want = through_plain(run)
+    check("prefill logits", got[0], want[0])
+    check("decode logits", got[1], want[1])
+    for n in MB.CACHE_NAMES:
+        check(f"caches {n}", got[2][n], want[2][n])
+    print(f"[oracle] {cfg.name} f32, kernel vs plain version: max_abs_err "
+          + ", ".join(f"{w} {e:.3g}" for w, e in errs.items())
+          + f" (prefills of {MAMBA_PROMPTS} tokens, then {PLAIN_PATH_STEPS} "
+          f"decode steps over the {len(prompts)} sequences; logits std "
+          f"{want[1].std().item():.3g}, tolerance {PLAIN_PATH_TOL})")
+
+    # batched greedy decode == each sequence's batch-1 rollout
+    pre = [api.prefill_fn(params, {"tokens": torch.as_tensor(
+        p[None], device=dev)}) for p in prompts]
+    caches = concat_states([c for _, c in pre])
+    tok = torch.cat([lg[:, -1].argmax(-1, keepdim=True) for lg, _ in pre])
+    batched = [tok]
+    for i in range(MAMBA_ORACLE_NEW - 1):
+        logits, caches = api.decode_fn(params, caches, tok, lens + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        batched.append(tok)
+    batched = torch.cat(batched, dim=1).tolist()
+    reprefill = []
+    for i, p in enumerate(prompts):
+        alone = rollout_oracle(api, params, p, MAMBA_ORACLE_NEW, dev, 0)
+        print(f"[oracle] {cfg.name} f32 sequence {i}: batched {batched[i]}")
+        print(f"[oracle] {cfg.name} f32 sequence {i}: batch-1 rollout "
+              f"{alone}")
+        if batched[i] != alone:
+            fail(f"{cfg.name}: f32 batched greedy tokens of sequence {i} "
+                 f"differ from its batch-1 rollout")
+        again = greedy_oracle(api, params, p, MAMBA_ORACLE_NEW, dev)
+        reprefill.append(next((k for k, (a, b) in enumerate(
+            zip(batched[i], again)) if a != b), MAMBA_ORACLE_NEW))
+    print(f"[oracle] {cfg.name} f32 batched tokens equal the batch-1 rollout "
+          f"on all {len(prompts)} sequences; they equal a re-prefill rollout "
+          f"for the first {reprefill} of {MAMBA_ORACLE_NEW} tokens "
+          f"(reported, not checked)")
+    del params
+    return {"plain_path_err": errs, "reprefill_prefix": reprefill}
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -597,9 +950,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    with ThreadPoolExecutor(2) as pool:           # one nvcc per source
-        builds = dict(zip(("flash_attention", "moe_gmm"),
-                          pool.map(lambda m: m.build(), (fa, gmm))))
+    with ThreadPoolExecutor(3) as pool:           # one nvcc per source
+        builds = dict(zip(("flash_attention", "moe_gmm", "ssd_scan"),
+                          pool.map(lambda m: m.build(), (fa, gmm, ssd))))
     for name, built in builds.items():
         print(f"[build] {name}: nvcc {built.seconds:.1f} s -> "
               f"{built.path.relative_to(ROOT)}")
@@ -609,6 +962,7 @@ def main() -> int:
 
     rows = phase_kernel(dev, smi)
     gmm_rows = phase_gmm(dev, smi)
+    ssd_rows = phase_ssd(dev, smi)
     sv = phase_serving(dev, smi, "qwen2-7b", duration=6.0)
     phase_oracle(dev, sv.pop("api"), sv.pop("params"))
     gc.collect()
@@ -616,10 +970,16 @@ def main() -> int:
     sv2 = phase_serving(dev, smi, "olmoe-1b-7b", duration=12.0)
     sv2["plain_path_err"] = phase_oracle(dev, sv2.pop("api"),
                                          sv2.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()                      # olmoe's weights go
+    sv3 = phase_mamba2(dev, smi, duration=6.0)
+    sv3.update(phase_mamba2_oracle(dev, sv3.pop("api"), sv3.pop("params")))
 
     rep = next(r for r in rows if r.get("reported"))
     gmm_rep = next(r for r in gmm_rows if r.get("reported"))
-    by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"]}
+    ssd_rep = next(r for r in ssd_rows if r.get("reported"))
+    by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"],
+               MAMBA_ARCH: sv3["launches"]}
     kernels = [
         kernel_entry("flash_attention",
                      "src/repro_torch/csrc/flash_attention.cu",
@@ -628,19 +988,24 @@ def main() -> int:
                      rep),
         kernel_entry("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
                      "src/repro/kernels/moe_gmm/moe_gmm.py:51",
-                     {p: n["moe_gmm"] for p, n in by_path.items()}, gmm_rep)]
+                     {p: n["moe_gmm"] for p, n in by_path.items()}, gmm_rep),
+        kernel_entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/ssd_scan.py:74",
+                     {p: n["ssd_scan"] for p, n in by_path.items()}, ssd_rep)]
     detail = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "build_s": {n: b.seconds for n, b in builds.items()},
               "kernel_rows": rows, "reported_case": rep["case"],
               "gmm_rows": gmm_rows, "gmm_reported_case": gmm_rep["case"],
-              "serve": sv, "serve_olmoe": sv2,
+              "ssd_rows": ssd_rows, "ssd_reported_case": ssd_rep["case"],
+              "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"kernels: [flash_attention: pass ({len(rows)} shapes), moe_gmm: "
-          f"pass ({len(gmm_rows)} shapes)]")
+          f"pass ({len(gmm_rows)} shapes), ssd_scan: pass ({len(ssd_rows)} "
+          f"shapes)]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

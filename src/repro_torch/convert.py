@@ -4,7 +4,9 @@ The one place where the two layouts meet. The port keeps the JAX tree as
 it is — the same paths (``embed``, ``lm_head``, ``final_ln``,
 ``blocks/attn/{ln,wq,wk,wv,wo,bq,bk,bv}``, ``blocks/mlp/{ln,wg,wu,wd}``
 for the dense family, ``blocks/moe/{ln,router,wg,wu,wd}`` for MoE, with
-the expert weights (L, E, D, F) / (L, E, F, D)), the layers stacked along
+the expert weights (L, E, D, F) / (L, E, F, D), and ``blocks/{ln,in_x,
+in_z,in_B,in_C,in_dt,conv_x,conv_B,conv_C,dt_bias,A_log,D_skip,gn,out}``
+for SSM (Mamba2), the conv weights (L, W, C)), the layers stacked along
 the leading dimension, and the ``x @ W`` orientation — so conversion is a
 copy of each leaf.
 """

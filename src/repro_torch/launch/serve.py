@@ -61,29 +61,6 @@ def run(cfg: ModelConfig, parallel: ParallelConfig, *,
                     max_new=max_new)
             for i in range(n_requests)]
     pending = list(reqs)
-
-    # best-effort background job: memory-heavy matmul batches
-    bg_arr = torch.ones((512, 512), dtype=torch.float32, device=dev)
-
-    def bg(lane):
-        return float((bg_arr @ bg_arr.T).sum())
-
-    ex = GangExecutor(n_lanes=2, enabled=not no_gang,
-                      regulation_interval_s=0.02)
-    lanes = Lanes(dev, ex.n_lanes)
-    errors = []
-
-    def quantum(fn):
-        """Run ``fn`` on its lane's stream; an exception, which would end
-        only the lane's worker thread, is kept and raised after the run."""
-        def q(lane, *args):
-            try:
-                return fn(lane, *args)
-            except BaseException as e:
-                errors.append(e)
-                raise
-        return lanes.on_lane(q)
-
     busy_ms = []        # wall time of the quanta that had work to do
 
     def decode_quantum(lane, idx):
@@ -95,15 +72,7 @@ def run(cfg: ModelConfig, parallel: ParallelConfig, *,
         if work:
             busy_ms.append((time.perf_counter() - t0) * 1e3)
 
-    ex.submit_rt(RTJob(name="decode", fn=quantum(decode_quantum),
-                       lanes=(0,), prio=10, period_s=0.01, budget_bytes=2e6,
-                       n_jobs=int(duration / 0.01)))
-    ex.submit_be(BEJob(name="bg-batch", fn=quantum(bg),
-                       lanes=(0, 1), bytes_per_quantum=1e6))
-
-    stats = ex.run(duration)
-    if errors:
-        raise errors[0]
+    stats = run_gang(decode_quantum, dev, duration, no_gang=no_gang)
     lat = np.array(stats["response_times"].get("decode", [0.0])) * 1e3
     done = sum(r.done for r in reqs)
     log(f"[serve] gang={'off' if no_gang else 'on'} "
@@ -116,6 +85,45 @@ def run(cfg: ModelConfig, parallel: ParallelConfig, *,
     return {"requests": reqs, "engine": engine, "stats": stats,
             "latency_ms": lat, "busy_quantum_ms": np.array(busy_ms),
             "api": api, "params": params}
+
+
+def run_gang(rt_quantum: Callable, device: torch.device, duration: float,
+             no_gang: bool = False) -> dict:
+    """Run ``rt_quantum(lane, idx)`` as the RT gang (job "decode": priority
+    10, a 10 ms period, lane 0, a 2 MB byte budget) beside the best-effort
+    background job (memory-heavy 512² f32 matmul batches, 1 MB a quantum)
+    on lanes 0 and 1, for ``duration`` seconds. Every quantum runs on its
+    lane's stream and ends when that stream has drained. Returns the
+    executor's stats; an exception in a quantum, which would end only the
+    lane's worker thread, is kept and raised after the run."""
+    bg_arr = torch.ones((512, 512), dtype=torch.float32, device=device)
+
+    def bg(lane):
+        return float((bg_arr @ bg_arr.T).sum())
+
+    ex = GangExecutor(n_lanes=2, enabled=not no_gang,
+                      regulation_interval_s=0.02)
+    lanes = Lanes(device, ex.n_lanes)
+    errors = []
+
+    def quantum(fn):
+        def q(lane, *args):
+            try:
+                return fn(lane, *args)
+            except BaseException as e:
+                errors.append(e)
+                raise
+        return lanes.on_lane(q)
+
+    ex.submit_rt(RTJob(name="decode", fn=quantum(rt_quantum),
+                       lanes=(0,), prio=10, period_s=0.01, budget_bytes=2e6,
+                       n_jobs=int(duration / 0.01)))
+    ex.submit_be(BEJob(name="bg-batch", fn=quantum(bg),
+                       lanes=(0, 1), bytes_per_quantum=1e6))
+    stats = ex.run(duration)
+    if errors:
+        raise errors[0]
+    return stats
 
 
 def main(argv=None):

@@ -1,5 +1,6 @@
-"""ModelApi of the port: build / init / prefill / decode for the dense and
-MoE families (counterpart of those branches of ``repro.models.model``).
+"""ModelApi of the port: build / init / prefill / decode for the dense,
+MoE and SSM (Mamba2) families (counterpart of those branches of
+``repro.models.model``).
 
 Parameters are the JAX package's tree, as nested dicts of tensors with the
 same paths, shapes and ``x @ W`` orientation, and the layers stacked along
@@ -18,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
@@ -76,40 +78,45 @@ class ModelApi:
 
     def _run_blocks(self, params, x, ctx, caches=None):
         """The layer loop (JAX's ``_run_uniform`` / ``_run_moe``). Prefill
-        (``caches`` None) collects each layer's {"k", "v"} and returns
-        (x, caches (L, B, S, Hkv, D), aux); decode updates ``caches``
-        (L, B, Smax, Hkv, D) in place and returns (x, caches, {}). For MoE
-        at prefill, aux holds the layer means of the load-balance and
-        router-z losses."""
+        (``caches`` None) collects each layer's cache leaves and returns
+        (x, caches stacked along a leading layer dimension, aux): {"k",
+        "v"} (L, B, S, Hkv, D) for attention, {"conv_x", "conv_B",
+        "conv_C", "h"} (L, B, ...) for SSM. Decode updates ``caches`` in
+        place and returns (x, caches, {}). For MoE at prefill, aux holds
+        the layer means of the load-balance and router-z losses."""
         cfg = self.cfg
-        moe = cfg.family == "moe"
-        ks, vs = [], []
+        fam = cfg.family
+        names = mamba2.CACHE_NAMES if fam == "ssm" else ("k", "v")
+        collected = {n: [] for n in names}
         lb = rz = 0.0
         for i in range(cfg.n_layers):
             blk = self._layer(params["blocks"], i)
             cache = None if caches is None else \
-                {"k": caches["k"][i], "v": caches["v"][i]}
-            if moe:
+                {n: caches[n][i] for n in names}
+            if fam == "moe":
                 x, c, aux = M.moe_block_apply(ctx, blk, x, cache)
                 if aux:
                     lb = lb + aux["load_balance"]
                     rz = rz + aux["router_z"]
+            elif fam == "ssm":
+                x, c = mamba2.ssm_block_apply(ctx, blk, x, cache)
             else:
                 x, c = T.dense_block_apply(ctx, blk, x, cache)
             if caches is None:
-                ks.append(c["k"])
-                vs.append(c["v"])
+                for n in names:
+                    collected[n].append(c[n])
         if caches is not None:
             return x, caches, {}
         aux = {"load_balance": lb / cfg.n_layers,
-               "router_z": rz / cfg.n_layers} if moe else {}
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+               "router_z": rz / cfg.n_layers} if fam == "moe" else {}
+        return x, {n: torch.stack(v) for n, v in collected.items()}, aux
 
     @torch.no_grad()
     def prefill_fn(self, params, batch):
         """batch["tokens"]: (B, S) int. Returns (logits (B, 1, V) f32,
-        caches {"k", "v"}: (L, B, S, Hkv, D)); the MoE aux losses are
-        dropped, as in JAX."""
+        caches): {"k", "v"} (L, B, S, Hkv, D), or for SSM {"conv_x",
+        "conv_B", "conv_C"} (L, B, W-1, C) in the compute dtype and {"h"}
+        (L, B, H, P, N) f32; the MoE aux losses are dropped, as in JAX."""
         cfg = self.cfg
         tokens = batch["tokens"]
         S = tokens.shape[1]
@@ -124,8 +131,9 @@ class ModelApi:
     @torch.no_grad()
     def decode_fn(self, params, caches, tokens, pos):
         """tokens: (B, 1) int; pos: (B,) position of the new token;
-        caches {"k", "v"}: (L, B, Smax, Hkv, D), updated in place.
-        Returns (logits (B, 1, V) f32, caches)."""
+        caches {"k", "v"}: (L, B, Smax, Hkv, D), or for SSM the state
+        leaves of ``prefill_fn``, updated in place. Returns (logits
+        (B, 1, V) f32, caches)."""
         cfg = self.cfg
         ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
         x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
@@ -142,9 +150,11 @@ def build_defs(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None):
         return T.lm_defs(cfg, T.dense_block_defs)
     if cfg.family == "moe":
         return T.lm_defs(cfg, M.moe_block_defs)
+    if cfg.family == "ssm":
+        return T.lm_defs(cfg, mamba2.ssm_block_defs)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md, queue A); 'dense' and 'moe' are")
+        f"(ROADMAP.md, queue A); 'dense', 'moe' and 'ssm' are")
 
 
 def build_model(cfg: ModelConfig, parallel: ParallelConfig,

@@ -29,12 +29,12 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 PERTURB = ("ln", "bq", "bk", "bv", "final_ln")
 
 
-def _perturb(tree, rng):
+def _perturb(tree, rng, keys=PERTURB):
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = _perturb(v, rng)
-        elif k in PERTURB:
+            out[k] = _perturb(v, rng, keys)
+        elif k in keys:
             out[k] = v + jnp.asarray(0.1 * rng.normal(size=v.shape), v.dtype)
         else:
             out[k] = v
