@@ -6,14 +6,16 @@
 Drives the port in phases and exits non-zero if any fails:
 
   (a) device   needs CUDA; prints the card's name and power limit; TF32 off;
-  (b) build    builds the CUDA flash-attention, grouped-matmul and SSD-scan
-               kernels from src/repro_torch/csrc with nvcc for sm_90a, one
-               nvcc per source, started together; prints registers and
-               spills;
+  (b) build    builds the CUDA flash-attention, grouped-matmul, SSD-scan and
+               RG-LRU-scan kernels from src/repro_torch/csrc with nvcc for
+               sm_90a, one nvcc per source, started together; prints each
+               kernel's registers and spills;
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
-               Hq = Hkv = 16, D 128; causal, S 32/200/1024), f32 and bf16,
+               Hq = Hkv = 16, D 128; causal, S 32/200/1024; recurrentgemma-
+               9b: Hq 16, Hkv 1, D 256, window 2048, S 32/200/300/1024, and
+               a window of 256 that binds at S 1024), f32 and bf16,
                tolerance 2e-5 (f32) / 3e-2 (bf16); times kernel, plain
                version and torch's scaled_dot_product_attention (a yardstick
                the port never calls) with CUDA events, beside the bound;
@@ -36,6 +38,15 @@ Drives the port in phases and exits non-zero if any fails:
                rounded to bf16 once: half an ulp is 2^-9 of |y|); times
                kernel and plain version beside the bound (no single PyTorch
                call computes this function, so no library time);
+  (c4) kernel  holds rglru_scan (every h and the last, f32) against its
+               plain version (the sequential recurrence in f32) on the shapes
+               of tests/test_kernels.py (strong decay included), two ragged
+               ones with an initial state, and recurrentgemma-9b's serve
+               shapes (B=1, C 4096, S 32/200/300/1024, log_a and gx at the
+               model's scale), f32 and bf16; tolerance atol 1e-5 (as
+               tests/test_kernels.py) and for bf16 h also rtol 2^-8 (h is
+               rounded to bf16 once); times kernel and plain version beside
+               the bound (no single PyTorch call computes this recurrence);
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
@@ -79,18 +90,29 @@ Drives the port in phases and exits non-zero if any fails:
                and 300 tokens at batch 1 and concatenates their state
                caches; then each quantum decodes until every sequence has
                16 new tokens. ssd_scan must launch n_layers x prefills
-               times, flash and moe_gmm never;
+               times, the other kernels never;
   (e3) oracle  at full width in f32: the logits through the kernel equal
                those of the same calls with ssd_scan swapped for its plain
                version within 1e-3, at the 4 prefills and at 4 decode steps
                over the 4 sequences, and so do the caches after them; each
                sequence's batched greedy tokens equal its batch-1 rollout
                (prefill_fn, then decode_fn); how far they equal a re-prefill
-               rollout is reported (they agree up to rounding).
+               rollout is reported (they agree up to rounding);
+  (d4) gang    recurrentgemma-9b (RG-LRU + local attention hybrid, 38
+               layers: 12 groups of (rec, rec, attn) and 2 rec) at full
+               width and depth in bf16, the same way and the same prompts;
+               the attention layers' k/v go into (12, 4, 2048, 1, 256)
+               buffers at rows [0, len), zeros beyond, the rec caches are
+               concatenated. rglru_scan must launch 26 x 4 times, flash
+               12 x 4, moe_gmm and ssd_scan never;
+  (e4) oracle  as (e3) at full width in f32, with both scans' and the flash
+               kernel's plain versions, every cache leaf after the prefills
+               and after the decode steps checked.
 
 Each serving phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after; ssd_scan must launch 0 times on
-the qwen2-7b and olmoe-1b-7b paths. Before the last line it prints
+the qwen2-7b, olmoe-1b-7b and recurrentgemma-9b paths, rglru_scan on all
+but recurrentgemma-9b's. Before the last line it prints
 one JSON object {"kernels": [...]} with each kernel's launches on the serve
 paths, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Details go to build/chip_smoke.json.
@@ -119,12 +141,15 @@ from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rg  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models import rglru as RG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
@@ -149,6 +174,13 @@ MAIN_SHAPES = [(1, S, Hq, Hkv, 128, True, 0, dt)
                for dt in (torch.bfloat16, torch.float32)
                for S in (32, 200, 1024)]
 WINDOW_CASE = (1, 1024, 28, 4, 128, True, 64, torch.bfloat16)
+# recurrentgemma-9b's local attention (Hq 16, Hkv 1, D 256, window 2048,
+# which never binds at these lengths), then a window that binds at D 256
+HYBRID_SHAPES = [(1, S, 16, 1, 256, True, 2048, dt)
+                 for dt in (torch.bfloat16, torch.float32)
+                 for S in (32, 200, 300, 1024)]
+HYBRID_WINDOW_CASE = (1, 1024, 16, 1, 256, True, 256, torch.bfloat16)
+TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE]
 REPORTED = (1, 1024, 28, 4, 128, True, 0, torch.bfloat16)
 
 # moe_gmm: (label, E, C, D, F, counts, dtype); counts "random" (uniform in
@@ -189,10 +221,33 @@ SSD_SERVE = [("serve", 1, S, 64, 64, 128, 256, dt)
              for S in (32, 200, 300, 1024)]
 SSD_REPORTED = ("serve", 1, 1024, 64, 64, 128, 256, torch.float32)
 
+# rglru_scan: (label, B, S, C, scale, h0, dtype); the first four are
+# tests/test_kernels.py's (scale 8: strong decay), "model" draws log_a and
+# gx at recurrentgemma-9b's scale (log_a = -8 softplus(1) r, down to -10.5
+# a step), the serve shapes are its prefills (B=1, lru_width 4096)
+RG_TOL = 1e-5
+RG_BF16_RTOL = 2.0 ** -8
+RG_CASES = [(label, *shape, dt)
+            for dt in (torch.float32, torch.bfloat16)
+            for label, shape in (("test", (2, 64, 16, 2.0, False)),
+                                 ("test", (1, 128, 32, 2.0, False)),
+                                 ("test", (3, 32, 8, 8.0, False)),
+                                 ("test", (1, 256, 16, 8.0, False)),
+                                 ("ragged", (2, 77, 45, 2.0, True)),
+                                 ("ragged", (1, 300, 130, 2.0, True)))]
+RG_SERVE = [("serve", 1, S, 4096, "model", False, dt)
+            for dt in (torch.float32, torch.bfloat16)
+            for S in (32, 200, 300, 1024)]
+RG_REPORTED = ("serve", 1, 1024, 4096, "model", False, torch.float32)
+
+# the gang runs of the state-cache families: batch-1 prefills of these
+# prompts in the first quantum, then the batched decode step as the RT job
+GANG_PROMPTS = (32, 200, 1024, 300)
+GANG_NEW = 16
+GANG_ORACLE_NEW = 8
 MAMBA_ARCH = "mamba2-1.3b"
-MAMBA_PROMPTS = (32, 200, 1024, 300)
-MAMBA_NEW = 16
-MAMBA_ORACLE_NEW = 8
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_MAX_SEQ = 2048
 
 # f32 prefill and decode logits (and caches) through the kernels vs through
 # their plain versions, full width and depth: sums taken in another order,
@@ -267,7 +322,7 @@ def phase_kernel(dev, smi: str) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
-    for case in KERNEL_CASES + MAIN_SHAPES + [WINDOW_CASE]:
+    for case in KERNEL_CASES + TIMED:
         B, S, Hq, Hkv, D, causal, window, dt = case
         q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
@@ -280,7 +335,7 @@ def phase_kernel(dev, smi: str) -> list[dict]:
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
         row = {"case": case_name(case), "max_abs_err": err, "tol": tol,
                "ok": bool(ok)}
-        if case in MAIN_SHAPES or case == WINDOW_CASE:
+        if case in TIMED:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             if window:
                 i = torch.arange(S, device=dev)
@@ -461,6 +516,110 @@ def phase_ssd(dev, smi: str) -> list[dict]:
     return rows
 
 
+def rglru_inputs(B, S, C, scale, with_h0, dt, gen, dev):
+    """log_a = -|N(0,1)| x scale and gx = N(0,1), as tests/test_kernels.py
+    draws them; or, for scale "model", at recurrentgemma-9b's scale:
+    log_a = -8 softplus(lam) r with lam = 1 (the init) and r = sigmoid(N),
+    gx = sqrt(1 - a^2) i x with i = sigmoid(N), x = N (the mixer's
+    formulas). An optional f32 initial state."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    if scale == "model":
+        log_a = -8.0 * float(F.softplus(torch.tensor(1.0))) * torch.sigmoid(
+            randn(B, S, C))
+        gx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                    min=1e-12)) * torch.sigmoid(
+            randn(B, S, C)) * randn(B, S, C)
+    else:
+        log_a = -randn(B, S, C).abs() * scale
+        gx = randn(B, S, C)
+    h0 = randn(B, C) if with_h0 else None
+    return log_a.to(dt), gx.to(dt), h0
+
+
+def rglru_bound(B, S, C, with_h0, dt) -> tuple[float, str]:
+    """Least time for this call: log_a and gx read once, h written once in
+    the input type, h0 read and the last h written in f32, over the memory
+    rate; against an exp and an FMA (3 operations) per element at the f32
+    rate (the arithmetic is f32 in either type)."""
+    elt = torch.tensor([], dtype=dt).element_size()
+    nbytes = elt * 3 * B * S * C + 4 * B * C * (2 if with_h0 else 1)
+    ops = 3 * B * S * C
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_rglru(dev, smi: str) -> list[dict]:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rows = []
+    for case in RG_CASES + RG_SERVE:
+        label, B, S, C, scale, with_h0, dt = case
+        log_a, gx, h0 = rglru_inputs(B, S, C, scale, with_h0, dt, gen, dev)
+        y, h = rg.rglru_scan(log_a, gx, h0)
+        torch.cuda.synchronize()
+        # the plain version in f32 on the same widened inputs: a bf16 h is
+        # rounded once, half an ulp, at most 2^-8 of |h|
+        yr, hr = rglru_scan_reference(log_a.float(), gx.float(), h0)
+        rtol = RG_BF16_RTOL if dt == torch.bfloat16 else 0.0
+        err = max((y.float() - yr).abs().max().item(),
+                  (h - hr).abs().max().item())
+        ok = (y.dtype == dt and h.dtype == torch.float32 and
+              torch.allclose(y.float(), yr, atol=RG_TOL, rtol=rtol) and
+              torch.allclose(h, hr, atol=RG_TOL, rtol=0.0))
+        name = (f"{label} B={B} S={S} C={C} log_a scale {scale}"
+                f"{' h0' if with_h0 else ''} {DT_NAME[dt]}")
+        row = {"case": name, "max_abs_err": err, "tol": RG_TOL,
+               "rtol": rtol, "ok": bool(ok)}
+        if case in RG_SERVE:
+            bound_ms, bound_by = rglru_bound(B, S, C, with_h0, dt)
+            row.update(
+                ms=time_ms(lambda: rg.rglru_scan(log_a, gx, h0)),
+                plain_ms=time_ms(lambda: rglru_scan_reference(log_a, gx, h0),
+                                 iters=3, warmup=1),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                reported=case == RG_REPORTED)
+            print(f"[rglru] {name}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library none, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
+                  f"[{smi}]")
+        else:
+            print(f"[rglru] {name}: max_abs_err {err:.3g}")
+        if not ok:
+            fail(f"rglru_scan disagrees with its plain version on {name}: "
+                 f"max_abs_err {err} (atol {RG_TOL}, rtol {rtol})")
+        rows.append(row)
+    return rows
+
+
+def batch_caches(caches, lens, max_seq: int) -> dict:
+    """Batch-1 prefill caches -> one batched decode cache, as the engine
+    fills its slots: every attention leaf ("k", "v": (L, 1, S_i, Hkv, D))
+    zero-padded into an (L, B, max_seq, Hkv, D) buffer at rows [0, S_i),
+    every state leaf concatenated along the batch. Rows past a sequence's
+    length are never read (decode_attention masks kpos > pos)."""
+    def walk(name, leaves):
+        if isinstance(leaves[0], dict):
+            return {k: walk(k, [c[k] for c in leaves]) for k in leaves[0]}
+        if name in ("k", "v"):
+            a = leaves[0]
+            out = a.new_zeros((a.shape[0], len(leaves), max_seq)
+                              + tuple(a.shape[3:]))
+            for i, (c, n) in enumerate(zip(leaves, lens)):
+                out[:, i, :n] = c[:, 0]
+            return out
+        return torch.cat(leaves, dim=1)
+    return walk(None, list(caches))
+
+
+def leaves(tree, path=()):
+    """(path, leaf) pairs of a nested dict."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in leaves(v, path + (k,))]
+    return [("/".join(path), tree)]
+
+
 def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
     """Greedy rollout by re-prefilling the whole sequence each step."""
     toks = list(int(t) for t in prompt)
@@ -477,20 +636,13 @@ def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
 def rollout_oracle(api, params, prompt, n_new: int, dev,
                    max_seq: int) -> list[int]:
     """Greedy rollout of one request at batch 1: prefill_fn once, then
-    decode_fn on a max_seq cache, as the engine does for its slots (an SSM
-    state cache is taken as prefill_fn returns it)."""
+    decode_fn on a max_seq attention cache, as the engine does for its
+    slots (state leaves are taken as prefill_fn returns them)."""
     logits, pre = api.prefill_fn(
         params, {"tokens": torch.tensor([[int(t) for t in prompt]],
                                         device=dev)})
     S_p = len(prompt)
-    if "h" in pre:
-        caches = pre
-    else:
-        caches = {}
-        for n in ("k", "v"):
-            shp = (pre[n].shape[0], 1, max_seq) + tuple(pre[n].shape[3:])
-            caches[n] = torch.zeros(shp, dtype=pre[n].dtype, device=dev)
-            caches[n][:, :, :S_p] = pre[n]
+    caches = batch_caches([pre], [S_p], max_seq)
     out = [int(torch.argmax(logits[0, -1]))]
     for i in range(n_new - 1):
         logits, caches = api.decode_fn(
@@ -498,6 +650,19 @@ def rollout_oracle(api, params, prompt, n_new: int, dev,
             torch.tensor([S_p + i], device=dev))
         out.append(int(torch.argmax(logits[0, -1])))
     return out
+
+
+KERNELS = {"flash_attention": fa, "moe_gmm": gmm, "ssd_scan": ssd,
+           "rglru_scan": rg}
+
+
+def reset_launches() -> None:
+    for m in KERNELS.values():
+        m.reset_launches()
+
+
+def read_launches() -> dict:
+    return {name: m.launches for name, m in KERNELS.items()}
 
 
 def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
@@ -519,16 +684,13 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
         lines.append(line)
         print(f"{line} [{smi}]")
 
-    fa.reset_launches()
-    gmm.reset_launches()
-    ssd.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     res = serve.run(cfg, parallel, device=dev, n_requests=len(SERVE_PROMPTS),
                     max_new=SERVE_MAX_NEW, prompt_lens=SERVE_PROMPTS,
                     max_batch=4, max_seq=2048, duration=duration, api=api,
                     params=params, log=log)
-    launches = {"flash_attention": fa.launches, "moe_gmm": gmm.launches,
-                "ssd_scan": ssd.launches}
+    launches = read_launches()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reqs = res["requests"]
@@ -538,7 +700,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     decode_steps = res["engine"].decode_steps + 1   # + the warm-up's step
     expect = {"flash_attention": cfg.n_layers * prefills,
               "moe_gmm": 3 * cfg.n_layers * (prefills + decode_steps)
-              if moe else 0, "ssd_scan": 0}
+              if moe else 0, "ssd_scan": 0, "rglru_scan": 0}
     print(f"[serve] {arch} launches {launches} (expected {expect}: "
           f"{prefills} prefills, {decode_steps} decode steps); "
           f"decode quantum response p50 {np.percentile(lat, 50):.3f} ms, "
@@ -619,13 +781,14 @@ def plain_ssd_scan(xh, dt, Bm, Cm, A, *, chunk):
 
 def through_plain(fn):
     """fn() run with each kernel's wrapper swapped for its plain version."""
-    saved = M.grouped_matmul, L.flash_attention, MB.ssd_scan
-    M.grouped_matmul, L.flash_attention, MB.ssd_scan = \
-        gmm_reference, naive_attention, plain_ssd_scan
+    saved = M.grouped_matmul, L.flash_attention, MB.ssd_scan, RG.rglru_scan
+    M.grouped_matmul, L.flash_attention, MB.ssd_scan, RG.rglru_scan = \
+        gmm_reference, naive_attention, plain_ssd_scan, rglru_scan_reference
     try:
         return fn()
     finally:
-        M.grouped_matmul, L.flash_attention, MB.ssd_scan = saved
+        M.grouped_matmul, L.flash_attention, MB.ssd_scan, \
+            RG.rglru_scan = saved
 
 
 def check_plain_path(api, params, dev, max_seq: int) -> dict:
@@ -659,17 +822,10 @@ def check_plain_path(api, params, dev, max_seq: int) -> dict:
     want, _ = through_plain(lambda: api.prefill_fn(params, batch))
     check("prefill logits", got, want)
     # slot caches filled by batch-1 prefills, as the engine fills them
-    caches = {}
-    for i, p in enumerate(prompts):
-        _, pre = api.prefill_fn(
-            params, {"tokens": torch.as_tensor(p[None], device=dev)})
-        for n in ("k", "v"):
-            if n not in caches:
-                caches[n] = torch.zeros(
-                    (pre[n].shape[0], len(prompts), max_seq)
-                    + tuple(pre[n].shape[3:]), dtype=pre[n].dtype,
-                    device=dev)
-            caches[n][:, i, :len(p)] = pre[n][:, 0]
+    caches = batch_caches(
+        [api.prefill_fn(params, {"tokens": torch.as_tensor(
+            p[None], device=dev)})[1] for p in prompts],
+        PLAIN_PATH_PROMPTS, max_seq)
 
     def decode():
         c = {n: t.clone() for n, t in caches.items()}
@@ -723,31 +879,39 @@ def phase_oracle(dev, api16, params16) -> dict:
     return errs
 
 
-def concat_states(caches) -> dict:
-    """Batch-1 SSM state caches (L, 1, ...) concatenated along the batch."""
-    return {n: torch.cat([c[n] for c in caches], dim=1)
-            for n in MB.CACHE_NAMES}
+def gang_expect(cfg, n_prefills: int) -> dict:
+    """Kernel launches of a gang run: per prefill, one scan for each
+    recurrent layer (ssd_scan for Mamba2, rglru_scan for RG-LRU) and one
+    flash for each attention layer; a decode step launches no kernel."""
+    kinds = cfg.layer_kinds()
+    return {"flash_attention": kinds.count("attn") * n_prefills,
+            "moe_gmm": 0, "ssd_scan": kinds.count("ssm") * n_prefills,
+            "rglru_scan": kinds.count("rec") * n_prefills}
 
 
-def phase_mamba2(dev, smi: str, duration: float) -> dict:
-    """(d3): the batched decode step of mamba2-1.3b as the RT gang."""
-    cfg = get_config(MAMBA_ARCH)
+def phase_gang(dev, smi: str, arch: str, duration: float,
+               max_seq: int) -> dict:
+    """(d3) / (d4): the batched decode step of a state-cache model
+    (mamba2-1.3b, recurrentgemma-9b) as the RT gang."""
+    cfg = get_config(arch)
     parallel = ParallelConfig(param_dtype="bfloat16",
                               compute_dtype="bfloat16")
     api = build_model(cfg, parallel, dev)
     t0 = time.perf_counter()
     params = api.init(seed=0)
     torch.cuda.synchronize()
-    print(f"[mamba2] {MAMBA_ARCH} full width, {cfg.n_layers} layers, "
+    print(f"[{arch}] full width, {cfg.n_layers} layers, "
           f"{api.n_params() / 1e9:.3f} B params bf16, drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
-                               device=dev) for n in MAMBA_PROMPTS]
-    lens = torch.tensor(MAMBA_PROMPTS, device=dev)
+                               device=dev) for n in GANG_PROMPTS]
+    lens = torch.tensor(GANG_PROMPTS, device=dev)
     # warm-up, outside the counted run: a prefill and a decode step
     _, c = api.prefill_fn(params, {"tokens": prompts[0]})
-    api.decode_fn(params, c, prompts[0][:, :1], lens[:1])
+    api.decode_fn(params, batch_caches([c], GANG_PROMPTS[:1], max_seq),
+                  prompts[0][:, :1], lens[:1])
+    del c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -756,13 +920,14 @@ def phase_mamba2(dev, smi: str, duration: float) -> dict:
 
     def decode_quantum(lane, idx):
         """The first quantum prefills the 4 prompts; each later one decodes
-        one token of all 4 sequences, until each has MAMBA_NEW."""
-        if len(out) == MAMBA_NEW:
+        one token of all 4 sequences, until each has GANG_NEW."""
+        if len(out) == GANG_NEW:
             return
         t0 = time.perf_counter()
         if state["caches"] is None:
             pre = [api.prefill_fn(params, {"tokens": p}) for p in prompts]
-            state["caches"] = concat_states([c for _, c in pre])
+            state["caches"] = batch_caches([c for _, c in pre], GANG_PROMPTS,
+                                           max_seq)
             state["tok"] = torch.cat([lg[:, -1].argmax(-1, keepdim=True)
                                       for lg, _ in pre])
         else:
@@ -772,52 +937,49 @@ def phase_mamba2(dev, smi: str, duration: float) -> dict:
         out.append(state["tok"])
         busy_ms.append((time.perf_counter() - t0) * 1e3)
 
-    fa.reset_launches()
-    gmm.reset_launches()
-    ssd.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     stats = serve.run_gang(decode_quantum, dev, duration)
-    launches = {"flash_attention": fa.launches, "moe_gmm": gmm.launches,
-                "ssd_scan": ssd.launches}
+    launches = read_launches()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lat = np.array(stats["response_times"].get("decode", [0.0])) * 1e3
     busy = np.array(busy_ms)
-    expect = {"flash_attention": 0, "moe_gmm": 0,
-              "ssd_scan": cfg.n_layers * len(MAMBA_PROMPTS)}
-    print(f"[mamba2] gang: launches {launches} (expected {expect}: "
-          f"{len(MAMBA_PROMPTS)} prefills, {max(len(out) - 1, 0)} decode "
-          f"steps over {len(MAMBA_PROMPTS)} sequences); decode quantum "
+    expect = gang_expect(cfg, len(GANG_PROMPTS))
+    print(f"[{arch}] gang: launches {launches} (expected {expect}: "
+          f"{len(GANG_PROMPTS)} prefills, {max(len(out) - 1, 0)} decode "
+          f"steps over {len(GANG_PROMPTS)} sequences); decode quantum "
           f"response p50 {np.percentile(lat, 50):.3f} ms, p99 "
           f"{np.percentile(lat, 99):.3f} ms over {len(lat)} quanta; busy "
           f"quanta (prefill + decode) p50 {np.percentile(busy, 50):.3f} ms, "
           f"p99 {np.percentile(busy, 99):.3f} ms, max {busy.max():.3f} ms "
           f"over {len(busy)}; be_quanta {stats['be_quanta']}; peak memory "
           f"{peak_gb:.2f} GB; run {wall:.1f} s [{smi}]")
-    if len(out) != MAMBA_NEW:
-        fail(f"{MAMBA_ARCH}: the gang made {len(out)} of {MAMBA_NEW} tokens "
-             f"per sequence in {duration} s")
+    if len(out) != GANG_NEW:
+        fail(f"{arch}: the gang made {len(out)} of {GANG_NEW} tokens per "
+             f"sequence in {duration} s")
     for name, n in expect.items():
         if launches[name] != n:
-            fail(f"{MAMBA_ARCH}: {name} launched {launches[name]} times on "
-                 f"the gang path, expected {n}")
+            fail(f"{arch}: {name} launched {launches[name]} times on the "
+                 f"gang path, expected {n}")
     tokens = torch.cat(out, dim=1)
-    if tokens.shape != (len(MAMBA_PROMPTS), MAMBA_NEW) or \
+    if tokens.shape != (len(GANG_PROMPTS), GANG_NEW) or \
             not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        fail(f"{MAMBA_ARCH}: gang tokens of shape {tuple(tokens.shape)} "
-             f"out of range")
+        fail(f"{arch}: gang tokens of shape {tuple(tokens.shape)} out of "
+             f"range")
     # alone (no executor, no best-effort thread): one decode step over the
     # 4 sequences and one 1024-token prefill, host clock around work that
     # ends in a synchronize
-    caches = {n: t.clone() for n, t in state["caches"].items()}
+    caches = L.tree_map(lambda _, t: t.clone(), state["caches"])
     steps = []
     for i in range(12):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        api.decode_fn(params, caches, state["tok"], lens + MAMBA_NEW + i)
+        api.decode_fn(params, caches, state["tok"], lens + GANG_NEW + i)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
-    p1024 = prompts[MAMBA_PROMPTS.index(1024)]
+    del caches
+    p1024 = prompts[GANG_PROMPTS.index(1024)]
     pre = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -827,11 +989,11 @@ def phase_mamba2(dev, smi: str, duration: float) -> dict:
         pre.append((time.perf_counter() - t0) * 1e3)
     step_ms = float(np.median(steps[2:]))
     prefill_ms = float(np.median(pre[1:]))
-    print(f"[mamba2] alone: decode step (4 sequences) median {step_ms:.3f} "
+    print(f"[{arch}] alone: decode step (4 sequences) median {step_ms:.3f} "
           f"ms of {len(steps) - 2}, 1024-token prefill median "
           f"{prefill_ms:.3f} ms of {len(pre) - 1} [{smi}]")
     return {"api": api, "params": params, "launches": launches,
-            "prefills": len(MAMBA_PROMPTS), "decode_steps": len(out) - 1,
+            "prefills": len(GANG_PROMPTS), "decode_steps": len(out) - 1,
             "decode_p50_ms": float(np.percentile(lat, 50)),
             "decode_p99_ms": float(np.percentile(lat, 99)),
             "decode_quanta": int(len(lat)),
@@ -843,19 +1005,23 @@ def phase_mamba2(dev, smi: str, duration: float) -> dict:
             "tokens": tokens.tolist()}
 
 
-def phase_mamba2_oracle(dev, api16, params16) -> dict:
-    """(e3): f32 at full width on the gang's weights."""
+def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
+    """(e3) / (e4): f32 at full width on the gang's weights (the bf16 copy
+    is let go once the f32 one exists)."""
     cfg = dataclasses.replace(api16.cfg, dtype="float32")
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
     api = build_model(cfg, parallel, dev)
     params = api.load(L.tree_map(lambda _, a: a.float(), params16))
+    del params16
+    gc.collect()
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, size=(n,))
-               for n in MAMBA_PROMPTS]
+               for n in GANG_PROMPTS]
     feed = torch.as_tensor(rng.integers(
         1, cfg.vocab_size, size=(PLAIN_PATH_STEPS, len(prompts), 1)),
         device=dev)
-    lens = torch.tensor(MAMBA_PROMPTS, device=dev)
+    lens = torch.tensor(GANG_PROMPTS, device=dev)
     errs = {}
 
     def check(what, got, want):
@@ -863,65 +1029,71 @@ def phase_mamba2_oracle(dev, api16, params16) -> dict:
         errs[what] = max(errs.get(what, 0.0), err)
         if not torch.allclose(got, want, atol=PLAIN_PATH_TOL,
                               rtol=PLAIN_PATH_TOL):
-            fail(f"{cfg.name}: f32 {what} through the kernel differ from "
-                 f"the plain version's by {err}")
+            fail(f"{cfg.name}: f32 {what} through the kernels differ from "
+                 f"the plain versions' by {err}")
 
     def run():
         """The 4 prefills, then PLAIN_PATH_STEPS teacher-forced decode
-        steps over the 4 sequences: (prefill logits, decode logits,
-        caches)."""
+        steps over the 4 sequences: (prefill logits, caches after the
+        prefills, decode logits, caches after the decode steps)."""
         pre = [api.prefill_fn(params, {"tokens": torch.as_tensor(
             p[None], device=dev)}) for p in prompts]
-        caches = concat_states([c for _, c in pre])
+        caches = batch_caches([c for _, c in pre], GANG_PROMPTS, max_seq)
+        first = L.tree_map(lambda _, t: t.clone(), caches)
         logits = []
         for j in range(PLAIN_PATH_STEPS):
             out, caches = api.decode_fn(params, caches, feed[j], lens + j)
             logits.append(out)
-        return (torch.cat([lg for lg, _ in pre]), torch.stack(logits),
-                caches)
+        return (torch.cat([lg for lg, _ in pre]), first,
+                torch.stack(logits), caches)
 
-    ssd.reset_launches()
+    reset_launches()
     got = run()
-    if ssd.launches != cfg.n_layers * len(prompts):
-        fail(f"{cfg.name}: f32 prefills launched ssd_scan {ssd.launches} "
-             f"times, expected {cfg.n_layers * len(prompts)}")
+    expect = gang_expect(cfg, len(prompts))
+    if read_launches() != expect:
+        fail(f"{cfg.name}: f32 prefills launched {read_launches()}, "
+             f"expected {expect}")
     want = through_plain(run)
     check("prefill logits", got[0], want[0])
-    check("decode logits", got[1], want[1])
-    for n in MB.CACHE_NAMES:
-        check(f"caches {n}", got[2][n], want[2][n])
-    print(f"[oracle] {cfg.name} f32, kernel vs plain version: max_abs_err "
+    check("decode logits", got[2], want[2])
+    for what, i in (("prefill caches", 1), ("decode caches", 3)):
+        for (path, g), (_, w) in zip(leaves(got[i]), leaves(want[i])):
+            check(f"{what} {path}", g, w)
+    del got, want
+    print(f"[oracle] {cfg.name} f32, kernels vs plain versions: max_abs_err "
           + ", ".join(f"{w} {e:.3g}" for w, e in errs.items())
-          + f" (prefills of {MAMBA_PROMPTS} tokens, then {PLAIN_PATH_STEPS} "
-          f"decode steps over the {len(prompts)} sequences; logits std "
-          f"{want[1].std().item():.3g}, tolerance {PLAIN_PATH_TOL})")
+          + f" (prefills of {GANG_PROMPTS} tokens, then {PLAIN_PATH_STEPS} "
+          f"decode steps over the {len(prompts)} sequences; tolerance "
+          f"{PLAIN_PATH_TOL})")
 
     # batched greedy decode == each sequence's batch-1 rollout
     pre = [api.prefill_fn(params, {"tokens": torch.as_tensor(
         p[None], device=dev)}) for p in prompts]
-    caches = concat_states([c for _, c in pre])
+    caches = batch_caches([c for _, c in pre], GANG_PROMPTS, max_seq)
     tok = torch.cat([lg[:, -1].argmax(-1, keepdim=True) for lg, _ in pre])
+    del pre
     batched = [tok]
-    for i in range(MAMBA_ORACLE_NEW - 1):
+    for i in range(GANG_ORACLE_NEW - 1):
         logits, caches = api.decode_fn(params, caches, tok, lens + i)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         batched.append(tok)
+    del caches
     batched = torch.cat(batched, dim=1).tolist()
     reprefill = []
     for i, p in enumerate(prompts):
-        alone = rollout_oracle(api, params, p, MAMBA_ORACLE_NEW, dev, 0)
+        alone = rollout_oracle(api, params, p, GANG_ORACLE_NEW, dev, max_seq)
         print(f"[oracle] {cfg.name} f32 sequence {i}: batched {batched[i]}")
         print(f"[oracle] {cfg.name} f32 sequence {i}: batch-1 rollout "
               f"{alone}")
         if batched[i] != alone:
             fail(f"{cfg.name}: f32 batched greedy tokens of sequence {i} "
                  f"differ from its batch-1 rollout")
-        again = greedy_oracle(api, params, p, MAMBA_ORACLE_NEW, dev)
+        again = greedy_oracle(api, params, p, GANG_ORACLE_NEW, dev)
         reprefill.append(next((k for k, (a, b) in enumerate(
-            zip(batched[i], again)) if a != b), MAMBA_ORACLE_NEW))
+            zip(batched[i], again)) if a != b), GANG_ORACLE_NEW))
     print(f"[oracle] {cfg.name} f32 batched tokens equal the batch-1 rollout "
           f"on all {len(prompts)} sequences; they equal a re-prefill rollout "
-          f"for the first {reprefill} of {MAMBA_ORACLE_NEW} tokens "
+          f"for the first {reprefill} of {GANG_ORACLE_NEW} tokens "
           f"(reported, not checked)")
     del params
     return {"plain_path_err": errs, "reprefill_prefix": reprefill}
@@ -950,62 +1122,82 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    with ThreadPoolExecutor(3) as pool:           # one nvcc per source
-        builds = dict(zip(("flash_attention", "moe_gmm", "ssd_scan"),
-                          pool.map(lambda m: m.build(), (fa, gmm, ssd))))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
+        builds = dict(zip(KERNELS, pool.map(lambda m: m.build(),
+                                            KERNELS.values())))
     for name, built in builds.items():
         print(f"[build] {name}: nvcc {built.seconds:.1f} s -> "
               f"{built.path.relative_to(ROOT)}")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
                 print(f"[build]   {line.strip()}")
+    phase_s = {}
 
-    rows = phase_kernel(dev, smi)
-    gmm_rows = phase_gmm(dev, smi)
-    ssd_rows = phase_ssd(dev, smi)
-    sv = phase_serving(dev, smi, "qwen2-7b", duration=6.0)
-    phase_oracle(dev, sv.pop("api"), sv.pop("params"))
-    gc.collect()
-    torch.cuda.empty_cache()                      # qwen2-7b's weights go
-    sv2 = phase_serving(dev, smi, "olmoe-1b-7b", duration=12.0)
-    sv2["plain_path_err"] = phase_oracle(dev, sv2.pop("api"),
-                                         sv2.pop("params"))
-    gc.collect()
-    torch.cuda.empty_cache()                      # olmoe's weights go
-    sv3 = phase_mamba2(dev, smi, duration=6.0)
-    sv3.update(phase_mamba2_oracle(dev, sv3.pop("api"), sv3.pop("params")))
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] phase {name}: {phase_s[name]:.1f} s")
+        return out
 
-    rep = next(r for r in rows if r.get("reported"))
-    gmm_rep = next(r for r in gmm_rows if r.get("reported"))
-    ssd_rep = next(r for r in ssd_rows if r.get("reported"))
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rows = timed("c", phase_kernel, dev, smi)
+    gmm_rows = timed("c2", phase_gmm, dev, smi)
+    ssd_rows = timed("c3", phase_ssd, dev, smi)
+    rg_rows = timed("c4", phase_rglru, dev, smi)
+    sv = timed("d", phase_serving, dev, smi, "qwen2-7b", duration=6.0)
+    timed("e", phase_oracle, dev, sv.pop("api"), sv.pop("params"))
+    free()                                        # qwen2-7b's weights go
+    sv2 = timed("d2", phase_serving, dev, smi, "olmoe-1b-7b", duration=12.0)
+    sv2["plain_path_err"] = timed("e2", phase_oracle, dev, sv2.pop("api"),
+                                  sv2.pop("params"))
+    free()                                        # olmoe's weights go
+    sv3 = timed("d3", phase_gang, dev, smi, MAMBA_ARCH, duration=6.0,
+                max_seq=0)
+    sv3.update(timed("e3", phase_gang_oracle, dev, sv3.pop("api"),
+                     sv3.pop("params"), max_seq=0))
+    free()                                        # mamba2's weights go
+    sv4 = timed("d4", phase_gang, dev, smi, HYBRID_ARCH, duration=6.0,
+                max_seq=HYBRID_MAX_SEQ)
+    sv4.update(timed("e4", phase_gang_oracle, dev, sv4.pop("api"),
+                     sv4.pop("params"), max_seq=HYBRID_MAX_SEQ))
+
+    reported = {
+        "flash_attention": next(r for r in rows if r.get("reported")),
+        "moe_gmm": next(r for r in gmm_rows if r.get("reported")),
+        "ssd_scan": next(r for r in ssd_rows if r.get("reported")),
+        "rglru_scan": next(r for r in rg_rows if r.get("reported"))}
     by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"],
-               MAMBA_ARCH: sv3["launches"]}
-    kernels = [
-        kernel_entry("flash_attention",
-                     "src/repro_torch/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention/flash_attention.py:82",
-                     {p: n["flash_attention"] for p, n in by_path.items()},
-                     rep),
-        kernel_entry("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
-                     "src/repro/kernels/moe_gmm/moe_gmm.py:51",
-                     {p: n["moe_gmm"] for p, n in by_path.items()}, gmm_rep),
-        kernel_entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan/ssd_scan.py:74",
-                     {p: n["ssd_scan"] for p, n in by_path.items()}, ssd_rep)]
+               MAMBA_ARCH: sv3["launches"], HYBRID_ARCH: sv4["launches"]}
+    replaces = {
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:82",
+        "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:51",
+        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
+        "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:55"}
+    kernels = [kernel_entry(name, f"src/repro_torch/csrc/{name}.cu",
+                            replaces[name],
+                            {p: n[name] for p, n in by_path.items()},
+                            reported[name]) for name in KERNELS]
     detail = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "build_s": {n: b.seconds for n, b in builds.items()},
-              "kernel_rows": rows, "reported_case": rep["case"],
-              "gmm_rows": gmm_rows, "gmm_reported_case": gmm_rep["case"],
-              "ssd_rows": ssd_rows, "ssd_reported_case": ssd_rep["case"],
+              "kernel_rows": rows, "gmm_rows": gmm_rows,
+              "ssd_rows": ssd_rows, "rglru_rows": rg_rows,
+              "reported_cases": {n: r["case"] for n, r in reported.items()},
               "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
+              "gang_recurrentgemma": sv4, "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"kernels: [flash_attention: pass ({len(rows)} shapes), moe_gmm: "
           f"pass ({len(gmm_rows)} shapes), ssd_scan: pass ({len(ssd_rows)} "
-          f"shapes)]")
+          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

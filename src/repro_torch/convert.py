@@ -6,9 +6,13 @@ it is — the same paths (``embed``, ``lm_head``, ``final_ln``,
 for the dense family, ``blocks/moe/{ln,router,wg,wu,wd}`` for MoE, with
 the expert weights (L, E, D, F) / (L, E, F, D), and ``blocks/{ln,in_x,
 in_z,in_B,in_C,in_dt,conv_x,conv_B,conv_C,dt_bias,A_log,D_skip,gn,out}``
-for SSM (Mamba2), the conv weights (L, W, C)), the layers stacked along
-the leading dimension, and the ``x @ W`` orientation — so conversion is a
-copy of each leaf.
+for SSM (Mamba2), the conv weights (L, W, C); for the hybrid
+(RecurrentGemma) ``groups/rec<i>/mix/{ln,w_gate_branch,w_x_branch,conv,
+w_a,b_a,w_i,b_i,lam,w_out}``, ``groups/rec<i>/mlp/...``,
+``groups/attn<i>/{attn,mlp}/...`` stacked over the groups, with the
+block-diagonal gates (G, nb, bw, bw), and ``tail/{mix,mlp}/...`` stacked
+over the tail layers), the layers stacked along the leading dimension,
+and the ``x @ W`` orientation — so conversion is a copy of each leaf.
 """
 from __future__ import annotations
 

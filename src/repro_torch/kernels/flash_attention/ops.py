@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels.flash_attention.ref import naive_attention
 
 SOURCES = ("flash_attention.cu",)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (plain-version calls do not count)

@@ -4,7 +4,8 @@ On the CPU the port's wrapper takes the plain version
 (``repro_torch.kernels.flash_attention.ref``), which is held against the
 Pallas kernel in interpret mode and against ``naive_attention`` on the
 five shapes of ``tests/test_kernels.py``. Ragged lengths, which the Pallas
-kernel does not take, are held against ``naive_attention`` only. The CUDA
+kernel does not take, and recurrentgemma-9b's head dim of 256 are held
+against ``naive_attention`` only. The CUDA
 kernel is held against the plain version on the card (``gpu`` marker).
 
 Tolerances are the repo's own: 2e-5 in f32, 3e-2 in bf16.
@@ -27,6 +28,10 @@ CASES = [  # B, S, Hq, Hkv, D, causal, window, dtype (tests/test_kernels.py)
 RAGGED = [
     (1, 100, 4, 2, 64, True, 0, "float32"),
     (2, 100, 6, 3, 32, True, 24, "bfloat16"),
+]
+HEAD_DIM_256 = [  # recurrentgemma-9b's heads (16 over 1 kv head, D 256)
+    (1, 77, 16, 1, 256, True, 0, "float32"),
+    (1, 100, 16, 1, 256, True, 24, "bfloat16"),
 ]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,7 +78,8 @@ def test_plain_matches_pallas_interpret(B, S, Hq, Hkv, D, causal, window,
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,dtype", CASES + RAGGED)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,dtype",
+                         CASES + RAGGED + HEAD_DIM_256)
 def test_plain_matches_naive_attention(B, S, Hq, Hkv, D, causal, window,
                                        dtype):
     jnp, _, jnaive = _jax_side()
@@ -110,7 +116,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,dtype", CASES + RAGGED)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,dtype",
+                         CASES + RAGGED + HEAD_DIM_256)
 def test_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, causal, window,
                                       dtype):
     q, k, v = _inputs(3, B, S, Hq, Hkv, D)

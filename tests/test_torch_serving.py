@@ -105,6 +105,6 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--duration", "0.1"])
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, family="hybrid"), parallel,
+        build_model(dataclasses.replace(cfg, family="audio"), parallel,
                     device="cpu")
     assert build_model(cfg, parallel, device="cpu").device.type == "cpu"
