@@ -9,25 +9,35 @@ Drives the port in phases and exits non-zero if any fails:
   (b) build    builds the CUDA flash-attention, grouped-matmul, SSD-scan and
                RG-LRU-scan kernels from src/repro_torch/csrc with nvcc for
                sm_90a, one nvcc per source, started together; prints each
-               kernel's registers and spills;
+               kernel's registers, static shared memory and spills (fails
+               on a spill in a bf16 tensor-core kernel), and the dynamic
+               shared memory a block of flash and moe_gmm takes per dtype
+               (bf16 runs on the tensor cores, f32 on the FMA kernels);
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
                Hq = Hkv = 16, D 128; causal, S 32/200/1024; recurrentgemma-
                9b: Hq 16, Hkv 1, D 256, window 2048, S 32/200/300/1024, and
-               a window of 256 that binds at S 1024), f32 and bf16,
-               tolerance 2e-5 (f32) / 3e-2 (bf16); times kernel, plain
-               version and torch's scaled_dot_product_attention (a yardstick
-               the port never calls) with CUDA events, beside the bound;
+               a window of 256 that binds at S 1024), and on the edges of
+               the bf16 tensor-core path (S not a multiple of 16 or 64,
+               every head dim, GQA groups 1/4/7/16, rows all masked in a
+               kv tile), f32 and bf16, tolerance 2e-5 (f32) / 3e-2 (bf16);
+               times kernel, plain version and torch's
+               scaled_dot_product_attention (a yardstick the port never
+               calls) with CUDA events, beside the bound, with the kernel /
+               library ratio and the achieved TFLOP/s and TB/s;
   (c2) kernel  holds moe_gmm against its plain version on the shapes of
-               tests/test_kernels.py, two ragged ones, and olmoe-1b-7b's
-               serve shapes (decode C=8 with 32 of 64 experts in use, prefill
+               tests/test_kernels.py, two ragged ones, the edges of the
+               bf16 tensor-core paths (C of 1, 8, 9 and 160, D and F not
+               multiples of 8, every count 0, every count C) and
+               olmoe-1b-7b's serve shapes (decode C=8 with 32 of 64 experts in use, prefill
                C=160 and C=48 with counts from routing 1024 and 300 random
                tokens), f32 and bf16, inputs at the model's scale; tolerance
                1e-4 (f32, TF32 off) / 3e-2 (bf16: output rounding); times
                kernel, plain version and torch.bmm on the capacity buffer (a
                yardstick the port never calls) beside the bound, which counts
-               the rows in use and the weights of the experts in use only;
+               the rows in use and the weights of the experts in use only,
+               with the kernel / library ratio, TFLOP/s and TB/s;
   (c3) kernel  holds ssd_scan (y and the final state h) against its plain
                version (the chunked scan of the JAX model) on the shapes of
                tests/test_kernels.py, two ragged ones (S not a chunk
@@ -122,6 +132,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -181,6 +192,17 @@ HYBRID_SHAPES = [(1, S, 16, 1, 256, True, 2048, dt)
                  for S in (32, 200, 300, 1024)]
 HYBRID_WINDOW_CASE = (1, 1024, 16, 1, 256, True, 256, torch.bfloat16)
 TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE]
+# the edges of the bf16 tensor-core path (tests/test_torch_flash_attention.
+# py's EDGES): S not a multiple of 16 or 64, every head dim, GQA groups 1,
+# 4, 7 and 16, one warp's q rows all masked in the first kv tile visited
+FLASH_EDGES = [(1, 77, 4, 4, 16, True, 0, torch.bfloat16),
+               (1, 100, 8, 2, 32, True, 8, torch.bfloat16),
+               (2, 129, 14, 2, 64, True, 0, torch.bfloat16),
+               (1, 200, 16, 1, 128, True, 16, torch.bfloat16),
+               (1, 150, 16, 1, 256, True, 40, torch.bfloat16),
+               (1, 65, 4, 4, 128, False, 0, torch.bfloat16),
+               (1, 1, 4, 1, 64, True, 0, torch.bfloat16),
+               (1, 300, 16, 1, 256, False, 0, torch.bfloat16)]
 REPORTED = (1, 1024, 28, 4, 128, True, 0, torch.bfloat16)
 
 # moe_gmm: (label, E, C, D, F, counts, dtype); counts "random" (uniform in
@@ -194,6 +216,14 @@ GMM_CASES = [
     ("ragged", 5, 21, 37, 45, "random", torch.float32),
     ("ragged", 3, 70, 50, 130, "random", torch.bfloat16),
 ]
+# the edges of the bf16 tensor-core paths (tests/test_torch_moe_gmm.py's
+# EDGES): C of 1, 8, 9 and 160, D and F not multiples of 8, every count 0,
+# every count C
+GMM_EDGES = [("edge", E, C, D, F, kind, torch.bfloat16)
+             for E, C, D, F in ((4, 1, 64, 128), (3, 8, 72, 136),
+                                (3, 9, 40, 100), (2, 160, 96, 264),
+                                (3, 21, 37, 45))
+             for kind in ("random", "zero", "full")]
 GMM_SERVE = [(label, 64, C, D, F, counts, dt)
              for dt in (torch.bfloat16, torch.float32)
              for label, C, D, F, counts in (
@@ -298,14 +328,21 @@ def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
+def flash_work(case) -> tuple[int, int]:
+    """Operations (4 x Hq x D per unmasked pair) and bytes (q, k, v read
+    once, o written once) of one flash call."""
+    B, S, Hq, Hkv, D, causal, window, dt = case
+    ops = 4 * B * Hq * D * unmasked_pairs(S, S, causal, window)
+    elt = torch.tensor([], dtype=dt).element_size()
+    return ops, elt * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+
+
 def bound(case) -> tuple[float, str]:
     """Least time the card could take: the larger of the operations over
     the peak rate of the input type and the bytes (each input read once,
     the output written once) over the memory rate."""
-    B, S, Hq, Hkv, D, causal, window, dt = case
-    ops = 4 * B * Hq * D * unmasked_pairs(S, S, causal, window)
-    elt = torch.tensor([], dtype=dt).element_size()
-    nbytes = elt * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    ops, nbytes = flash_work(case)
+    dt = case[-1]
     t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -322,7 +359,7 @@ def phase_kernel(dev, smi: str) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
-    for case in KERNEL_CASES + TIMED:
+    for case in KERNEL_CASES + FLASH_EDGES + TIMED:
         B, S, Hq, Hkv, D, causal, window, dt = case
         q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
@@ -354,9 +391,15 @@ def phase_kernel(dev, smi: str) -> list[dict]:
                     q, k, v, causal=causal, window=window)),
                 library_ms=time_ms(lib), bound_ms=bound_ms,
                 bound_by=bound_by, reported=case == REPORTED)
+            ops, nbytes = flash_work(case)
+            row.update(ratio=row["ms"] / row["library_ms"],
+                       tflops=ops / row["ms"] / 1e9,
+                       tbps=nbytes / row["ms"] / 1e9)
             print(f"[kernel] {row['case']}: kernel {row['ms']:.4f} ms, "
                   f"plain {row['plain_ms']:.4f} ms, sdpa "
-                  f"{row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"{row['library_ms']:.4f} ms, kernel/sdpa "
+                  f"{row['ratio']:.2f}x, {row['tflops']:.1f} TFLOP/s, "
+                  f"{row['tbps']:.3f} TB/s, bound {bound_ms:.4f} ms "
                   f"({bound_by}), max_abs_err {err:.3g} [{smi}]")
         else:
             print(f"[kernel] {row['case']}: max_abs_err {err:.3g}")
@@ -368,6 +411,9 @@ def phase_kernel(dev, smi: str) -> list[dict]:
 
 
 def gmm_counts(kind: str, E: int, C: int, gen, dev) -> torch.Tensor:
+    if kind in ("zero", "full"):
+        return torch.full((E,), 0 if kind == "zero" else C,
+                          dtype=torch.int32, device=dev)
     if kind == "random":
         return torch.randint(0, C + 1, (E,), generator=gen, device=dev,
                              dtype=torch.int32)
@@ -381,16 +427,21 @@ def gmm_counts(kind: str, E: int, C: int, gen, dev) -> torch.Tensor:
     return torch.bincount(tope, minlength=E).clamp(max=C).to(torch.int32)
 
 
-def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
-    """Least time for this call: 2 x (rows in use) x D x F operations over
-    the peak rate of the type, against the bytes it must move: the rows in
-    use of x, the weights of the experts in use, the whole output, the
-    counts; over the memory rate."""
+def gmm_work(E, C, D, F, counts, dt) -> tuple[int, int]:
+    """Operations, 2 x (rows in use) x D x F, and the bytes a call must
+    move: the rows in use of x, the weights of the experts in use, the
+    whole output, the counts."""
     rows = int(counts.sum())
     used = int((counts > 0).sum())
     elt = torch.tensor([], dtype=dt).element_size()
-    ops = 2 * rows * D * F
-    nbytes = elt * (rows * D + used * D * F + E * C * F) + 4 * E
+    return (2 * rows * D * F,
+            elt * (rows * D + used * D * F + E * C * F) + 4 * E)
+
+
+def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
+    """Least time for this call: its operations over the peak rate of the
+    type against its bytes over the memory rate (gmm_work)."""
+    ops, nbytes = gmm_work(E, C, D, F, counts, dt)
     t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -400,7 +451,7 @@ def phase_gmm(dev, smi: str) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
-    for case in GMM_CASES + GMM_SERVE:
+    for case in GMM_CASES + GMM_EDGES + GMM_SERVE:
         label, E, C, D, F, kind, dt = case
         x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
         w = (torch.randn((E, D, F), generator=gen, device=dev)
@@ -424,9 +475,15 @@ def phase_gmm(dev, smi: str) -> list[dict]:
                 library_ms=time_ms(lambda: torch.bmm(x, w)),
                 bound_ms=bound_ms, bound_by=bound_by,
                 reported=case == GMM_REPORTED)
+            ops, nbytes = gmm_work(E, C, D, F, counts, dt)
+            row.update(ratio=row["ms"] / row["library_ms"],
+                       tflops=ops / row["ms"] / 1e9,
+                       tbps=nbytes / row["ms"] / 1e9)
             print(f"[gmm] {name}: kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, bmm {row['library_ms']:.4f} "
-                  f"ms, bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
+                  f"ms, kernel/bmm {row['ratio']:.2f}x, "
+                  f"{row['tflops']:.1f} TFLOP/s, {row['tbps']:.3f} TB/s, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
                   f"{err:.3g} [{smi}]")
         else:
             print(f"[gmm] {name}: max_abs_err {err:.3g}")
@@ -1099,6 +1156,42 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
     return {"plain_path_err": errs, "reprefill_prefix": reprefill}
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, static shared memory and spills of each kernel in an
+    ``nvcc -Xptxas -v`` log, names demangled where c++filt is there."""
+    kernels, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": 0, "static_smem": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            kernels.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(k["kernel"] for k in kernels),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, n in zip(kernels, names):   # name<template args>
+                n = n.replace("(anonymous namespace)::", "")
+                k["kernel"] = n.removeprefix("void ").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return kernels
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -1125,13 +1218,26 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
         builds = dict(zip(KERNELS, pool.map(lambda m: m.build(),
                                             KERNELS.values())))
+    build_report = {}
     for name, built in builds.items():
         print(f"[build] {name}: nvcc {built.seconds:.1f} s -> "
               f"{built.path.relative_to(ROOT)}")
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line or \
-                    "Compiling entry" in line:
-                print(f"[build]   {line.strip()}")
+        build_report[name] = ptxas_report(built.log)
+        for k in build_report[name]:
+            print(f"[build]   {k['kernel']}: {k['registers']} registers, "
+                  f"{k['static_smem']} B static shared memory, spills "
+                  f"{k['spill_stores']} B stored / {k['spill_loads']} B "
+                  f"loaded")
+            if re.search(r"_tc[<I]", k["kernel"]) and \
+                    k["spill_stores"] + k["spill_loads"]:
+                fail(f"tensor-core kernel {k['kernel']} spills registers")
+    for dt in (torch.float32, torch.bfloat16):
+        path = "tensor cores" if dt == torch.bfloat16 else "FMA"
+        print(f"[build] dynamic shared memory a block, {DT_NAME[dt]} "
+              f"({path}): flash_attention " + ", ".join(
+                  f"D={d} {fa.smem_bytes(dt, d)} B" for d in fa.HEAD_DIMS)
+              + "; moe_gmm " + ", ".join(
+                  f"C={c} {gmm.smem_bytes(dt, c)} B" for c in (8, 16, 160)))
     phase_s = {}
 
     def timed(name, fn, *args, **kw):
@@ -1186,6 +1292,7 @@ def main() -> int:
     detail = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "build_s": {n: b.seconds for n, b in builds.items()},
+              "ptxas": build_report,
               "kernel_rows": rows, "gmm_rows": gmm_rows,
               "ssd_rows": ssd_rows, "rglru_rows": rg_rows,
               "reported_cases": {n: r["case"] for n, r in reported.items()},

@@ -4,8 +4,9 @@ interface, at first use.
 Each library is built by ``nvcc`` for ``sm_90a`` from the sources in
 ``repro_torch/csrc`` alone, into ``build/<name>-<hash>/`` at the root of
 the checkout (listed in ``.gitignore``). The directory name carries a hash
-of the sources and flags, so an edited source builds anew and an unchanged
-one is loaded as it is.
+of the sources, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header builds anew and an unchanged one is loaded as it
+is.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def build(name: str, sources: tuple[str, ...]) -> Built:
     unless a build of the same sources exists, then load it."""
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):   # the shared headers too
         h.update(p.name.encode())
         h.update(p.read_bytes())
     out_dir = BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"

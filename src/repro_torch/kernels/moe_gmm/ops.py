@@ -5,7 +5,8 @@
 and launches on PyTorch's current stream. A CPU tensor goes to the plain
 version (``ref.gmm_reference``); a CUDA tensor goes to the kernel, or the
 call raises. The kernel is built at its first launch
-(``repro_torch.kernels.build``).
+(``repro_torch.kernels.build``). bf16 runs on the tensor cores, f32 on
+the FMA kernel (full-f32 products); neither falls back to the other.
 """
 from __future__ import annotations
 
@@ -42,8 +43,16 @@ def build():
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            built.lib.repro_moe_gmm_smem.argtypes = [ctypes.c_int] * 2
+            built.lib.repro_moe_gmm_smem.restype = ctypes.c_int
             _built = built
     return _built
+
+
+def smem_bytes(dtype, C: int) -> int:
+    """Dynamic shared memory a block takes at (dtype, C); 0 where the
+    kernel's is static."""
+    return build().lib.repro_moe_gmm_smem(_DTYPES[dtype], C)
 
 
 def _check(x, w, counts) -> None:

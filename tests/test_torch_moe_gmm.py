@@ -6,7 +6,8 @@ On the CPU the port's wrapper takes the plain version
 kernel in interpret mode and against ``gmm_reference`` on the shapes of
 ``tests/test_kernels.py``, with random counts and with counts of 0 and C.
 The CUDA kernel is held against the plain version on the card (``gpu``
-marker), ragged shapes included.
+marker), ragged shapes and the edges of its tensor-core paths (C of 1, 8,
+9 and 160; D and F not multiples of 8) included.
 
 Tolerances are the repo's own: 1e-4 in f32, 1e-1 in bf16.
 """
@@ -26,6 +27,14 @@ CASES = [  # E, C, D, F, dtype (tests/test_kernels.py)
 RAGGED = [  # no dimension a multiple of the kernel's tiles or 16-byte packs
     (5, 21, 37, 45, "float32"),
     (3, 70, 50, 130, "bfloat16"),
+]
+EDGES = [  # the bf16 tensor-core paths' edges (C <= 16: the swapped tile)
+    (4, 1, 64, 128, "bfloat16"),      # C = 1
+    (3, 8, 72, 136, "bfloat16"),      # C = 8, decode's tile; F past a block
+    (3, 9, 40, 100, "bfloat16"),      # C = 9: a 16-row tile; F % 8 != 0
+    (2, 160, 96, 264, "bfloat16"),    # C = 160: three 64-row tiles
+    (3, 21, 37, 45, "bfloat16"),      # D and F not multiples of 8
+    (2, 160, 96, 264, "float32"),
 ]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 COUNTS = ("random", "zero", "full")
@@ -84,6 +93,21 @@ def test_plain_matches_pallas_interpret_and_reference(E, C, D, F, dtype,
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("counts", COUNTS)
+@pytest.mark.parametrize("E,C,D,F,dtype", EDGES)
+def test_plain_matches_reference_on_edges(E, C, D, F, dtype, counts):
+    """Shapes the Pallas kernel's blocks do not tile: the oracle only."""
+    import jax.numpy as jnp
+    from repro.kernels.moe_gmm.ref import gmm_reference as jref
+    x, w, cnt = _inputs(4, E, C, D, F, counts)
+    jd = getattr(jnp, dtype)
+    oracle = jref(jnp.asarray(x, jd), jnp.asarray(w, jd), jnp.asarray(cnt))
+    out = _port(x, w, cnt, dtype)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(oracle, np.float32),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
 def test_launch_path_refuses_cpu_tensors():
     x, w, cnt = _inputs(1, 2, 8, 16, 8, "random")
     t = [torch.as_tensor(a) for a in (x, w, cnt)]
@@ -102,7 +126,7 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("counts", COUNTS)
-@pytest.mark.parametrize("E,C,D,F,dtype", CASES + RAGGED)
+@pytest.mark.parametrize("E,C,D,F,dtype", CASES + RAGGED + EDGES)
 def test_kernel_matches_plain_on_card(cuda, E, C, D, F, dtype, counts):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w, cnt = _inputs(2, E, C, D, F, counts)
