@@ -10,9 +10,11 @@ Drives the port in phases and exits non-zero if any fails:
                RG-LRU-scan kernels from src/repro_torch/csrc with nvcc for
                sm_90a, one nvcc per source, started together; prints each
                kernel's registers, static shared memory and spills (fails
-               on a spill in a bf16 tensor-core kernel), and the dynamic
-               shared memory a block of flash and moe_gmm takes per dtype
-               (bf16 runs on the tensor cores, f32 on the FMA kernels);
+               on a spill in a bf16 tensor-core kernel or in a kernel of
+               either scan), and the dynamic shared memory a block of
+               flash and moe_gmm takes per dtype (bf16 runs on the tensor
+               cores, f32 on the FMA kernels) and a block of ssd_scan's
+               chunk-parallel scan takes;
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
@@ -41,22 +43,33 @@ Drives the port in phases and exits non-zero if any fails:
   (c3) kernel  holds ssd_scan (y and the final state h) against its plain
                version (the chunked scan of the JAX model) on the shapes of
                tests/test_kernels.py, two ragged ones (S not a chunk
-               multiple) and mamba2-1.3b's serve shapes (B=1, H 64, P 64,
-               N 128, chunk 256, S 32/200/300/1024), f32 and bf16, inputs at
-               the model's scale, TF32 off; tolerance atol 1e-3 (f32, as
-               tests/test_kernels.py) and for bf16 y also rtol 2^-8 (y is
-               rounded to bf16 once: half an ulp is 2^-9 of |y|); times
-               kernel and plain version beside the bound (no single PyTorch
+               multiple), the chunk-parallel kernel's structure (8 and 16
+               chunks at S 2048 and 4096, B=4 at mamba2's widths, P of 40:
+               not a multiple of a block's 32 columns) and mamba2-1.3b's
+               serve shapes (B=1, H 64, P 64, N 128, chunk 256, S 32/200/
+               300/1024), f32 and bf16, inputs at the model's scale, TF32
+               off; tolerance atol 1e-3 (f32, as tests/test_kernels.py) and
+               for bf16 y also rtol 2^-8 (y is rounded to bf16 once: half an
+               ulp is 2^-9 of |y|); times kernel and plain version beside
+               the bound, the kernel also in a CUDA graph (device time
+               only: back-to-back calls of a short kernel time its
+               wrapper's host dispatch), with the achieved GFLOP/s and the
+               share of the bound on the device time (no single PyTorch
                call computes this function, so no library time);
   (c4) kernel  holds rglru_scan (every h and the last, f32) against its
                plain version (the sequential recurrence in f32) on the shapes
                of tests/test_kernels.py (strong decay included), two ragged
-               ones with an initial state, and recurrentgemma-9b's serve
-               shapes (B=1, C 4096, S 32/200/300/1024, log_a and gx at the
-               model's scale), f32 and bf16; tolerance atol 1e-5 (as
-               tests/test_kernels.py) and for bf16 h also rtol 2^-8 (h is
-               rounded to bf16 once); times kernel and plain version beside
-               the bound (no single PyTorch call computes this recurrence);
+               ones with an initial state, the chunk-parallel kernel's
+               edges (S of 1, 7, 9, 257 and 4096 around its 8-step chunks
+               and 256-step rounds, C of 4097, B=4 with h0) and
+               recurrentgemma-9b's serve shapes (B=1, C 4096, S 32/200/300/
+               1024, log_a and gx at the model's scale), f32 and bf16;
+               tolerance atol 1e-5 (as tests/test_kernels.py) and for bf16 h
+               also rtol 2^-8 (h is rounded to bf16 once); times kernel and
+               plain version beside the bound, and the kernel in a CUDA
+               graph as in (c3), with the achieved GB/s and the share of
+               the bound on the device time (no single PyTorch call
+               computes this recurrence);
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
@@ -124,8 +137,9 @@ drives the path and reads them just after; ssd_scan must launch 0 times on
 the qwen2-7b, olmoe-1b-7b and recurrentgemma-9b paths, rglru_scan on all
 but recurrentgemma-9b's. Before the last line it prints
 one JSON object {"kernels": [...]} with each kernel's launches on the serve
-paths, error, times and bound; the last line is {"ok": true, "device":
-{...}}. Details go to build/chip_smoke.json.
+paths, error, times and bound (``ms`` from calls back to back, and for the
+two scans also ``graph_ms``, the device time in a CUDA graph); the last
+line is {"ok": true, "device": {...}}. Details go to build/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -245,7 +259,11 @@ SSD_CASES = [(label, *shape, dt)
                                   ("test", (2, 32, 1, 8, 8, 8)),
                                   ("test", (1, 64, 4, 16, 16, 64)),
                                   ("ragged", (2, 77, 3, 24, 40, 32)),
-                                  ("ragged", (1, 300, 2, 40, 128, 256)))]
+                                  ("ragged", (1, 300, 2, 40, 128, 256)),
+                                  ("chunks", (1, 2048, 64, 64, 128, 256)),
+                                  ("chunks", (1, 4096, 64, 64, 128, 256)),
+                                  ("batch", (4, 300, 64, 64, 128, 256)),
+                                  ("P slice", (2, 600, 8, 40, 128, 256)))]
 SSD_SERVE = [("serve", 1, S, 64, 64, 128, 256, dt)
              for dt in (torch.float32, torch.bfloat16)
              for S in (32, 200, 300, 1024)]
@@ -264,7 +282,14 @@ RG_CASES = [(label, *shape, dt)
                                  ("test", (3, 32, 8, 8.0, False)),
                                  ("test", (1, 256, 16, 8.0, False)),
                                  ("ragged", (2, 77, 45, 2.0, True)),
-                                 ("ragged", (1, 300, 130, 2.0, True)))]
+                                 ("ragged", (1, 300, 130, 2.0, True)),
+                                 ("edge", (1, 1, 4096, "model", True)),
+                                 ("edge", (1, 7, 4096, "model", False)),
+                                 ("edge", (1, 9, 4096, "model", True)),
+                                 ("edge", (1, 257, 4096, "model", True)),
+                                 ("long", (1, 4096, 4096, "model", False)),
+                                 ("edge", (1, 300, 4097, "model", True)),
+                                 ("batch", (4, 1024, 4096, "model", True)))]
 RG_SERVE = [("serve", 1, S, 4096, "model", False, dt)
             for dt in (torch.float32, torch.bfloat16)
             for S in (32, 200, 300, 1024)]
@@ -315,6 +340,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of one call: ``iters`` calls captured in a CUDA
+    graph and replayed ``replays`` times, so no host dispatch is timed (a
+    short kernel's time_ms is its wrapper's host time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -510,14 +561,13 @@ def ssd_inputs(B, S, H, P, N, dt, gen, dev):
     return x, dtv, Bm, Cm, A
 
 
-def ssd_bound(B, S, H, P, N, chunk, dt) -> tuple[float, str]:
-    """Least time for this call. Operations: per chunk of q tokens inside
-    the sequence, only the q (q + 1) / 2 pairs j <= i of the causal
-    triangle, C B^T once per (b, chunk) (B and C are shared across heads,
-    2 pairs N) and per head the intra-chunk product (2 pairs P), the
-    inter-chunk term and the state update (2 q N P each); over the peak
-    rate of the input type. Bytes: x, dt, B, C and A read once, y and the
-    final state written once; over the memory rate."""
+def ssd_work(B, S, H, P, N, chunk, dt) -> tuple[int, int]:
+    """Operations: per chunk of q tokens inside the sequence, only the
+    q (q + 1) / 2 pairs j <= i of the causal triangle, C B^T once per
+    (b, chunk) (B and C are shared across heads, 2 pairs N) and per head
+    the intra-chunk product (2 pairs P), the inter-chunk term and the state
+    update (2 q N P each). Bytes: x, dt, B, C and A read once, y and the
+    final state written once."""
     Q = min(chunk, S)
     elt = torch.tensor([], dtype=dt).element_size()
     ops = 0
@@ -527,6 +577,13 @@ def ssd_bound(B, S, H, P, N, chunk, dt) -> tuple[float, str]:
         ops += 2 * B * (pairs * N + H * (pairs * P + 2 * q * N * P))
     nbytes = elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) \
         + 4 * H + 4 * B * H * P * N
+    return ops, nbytes
+
+
+def ssd_bound(B, S, H, P, N, chunk, dt) -> tuple[float, str]:
+    """Least time for this call: ssd_work's operations over the peak rate
+    of the input type against its bytes over the memory rate."""
+    ops, nbytes = ssd_work(B, S, H, P, N, chunk, dt)
     t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -560,10 +617,18 @@ def phase_ssd(dev, smi: str) -> list[dict]:
                     *args, chunk=chunk)),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 reported=case == SSD_REPORTED)
-            print(f"[ssd] {name}: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, library none, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
-                  f"[{smi}]")
+            ops, _ = ssd_work(B, S, H, P, N, chunk, dt)
+            row.update(graph_ms=graph_ms(lambda: ssd.ssd_scan(
+                *args, chunk=chunk)))
+            row.update(gflops=ops / row["graph_ms"] / 1e6,
+                       bound_share=bound_ms / row["graph_ms"])
+            print(f"[ssd] {name}: kernel {row['ms']:.4f} ms (calls back to "
+                  f"back), {row['graph_ms']:.4f} ms (CUDA graph, device "
+                  f"only), plain {row['plain_ms']:.4f} ms, library none, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{row['gflops']:.0f} GFLOP/s and "
+                  f"{100 * row['bound_share']:.1f}% of the bound on the "
+                  f"device time, max_abs_err {err:.3g} [{smi}]")
         else:
             print(f"[ssd] {name}: max_abs_err {err:.3g}")
         if not ok:
@@ -594,14 +659,20 @@ def rglru_inputs(B, S, C, scale, with_h0, dt, gen, dev):
     return log_a.to(dt), gx.to(dt), h0
 
 
-def rglru_bound(B, S, C, with_h0, dt) -> tuple[float, str]:
-    """Least time for this call: log_a and gx read once, h written once in
-    the input type, h0 read and the last h written in f32, over the memory
-    rate; against an exp and an FMA (3 operations) per element at the f32
-    rate (the arithmetic is f32 in either type)."""
+def rglru_work(B, S, C, with_h0, dt) -> tuple[int, int]:
+    """Operations, an exp and an FMA (3) per element, and bytes: log_a and
+    gx read once, h written once in the input type, h0 read and the last h
+    written in f32."""
     elt = torch.tensor([], dtype=dt).element_size()
-    nbytes = elt * 3 * B * S * C + 4 * B * C * (2 if with_h0 else 1)
-    ops = 3 * B * S * C
+    return (3 * B * S * C,
+            elt * 3 * B * S * C + 4 * B * C * (2 if with_h0 else 1))
+
+
+def rglru_bound(B, S, C, with_h0, dt) -> tuple[float, str]:
+    """Least time for this call: rglru_work's bytes over the memory rate
+    against its operations at the f32 rate (the arithmetic is f32 in
+    either type)."""
+    ops, nbytes = rglru_work(B, S, C, with_h0, dt)
     t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -637,10 +708,18 @@ def phase_rglru(dev, smi: str) -> list[dict]:
                                  iters=3, warmup=1),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 reported=case == RG_REPORTED)
-            print(f"[rglru] {name}: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, library none, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
-                  f"[{smi}]")
+            _, nbytes = rglru_work(B, S, C, with_h0, dt)
+            row.update(graph_ms=graph_ms(lambda: rg.rglru_scan(
+                log_a, gx, h0)))
+            row.update(gbps=nbytes / row["graph_ms"] / 1e6,
+                       bound_share=bound_ms / row["graph_ms"])
+            print(f"[rglru] {name}: kernel {row['ms']:.4f} ms (calls back "
+                  f"to back), {row['graph_ms']:.4f} ms (CUDA graph, device "
+                  f"only), plain {row['plain_ms']:.4f} ms, library none, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{row['gbps']:.0f} GB/s and "
+                  f"{100 * row['bound_share']:.1f}% of the bound on the "
+                  f"device time, max_abs_err {err:.3g} [{smi}]")
         else:
             print(f"[rglru] {name}: max_abs_err {err:.3g}")
         if not ok:
@@ -1198,7 +1277,8 @@ def kernel_entry(name, source, replaces, launches, rep) -> dict:
             "launches_by_path": launches, "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"]}
+            "library_ms": rep["library_ms"],
+            "graph_ms": rep.get("graph_ms")}
 
 
 def main() -> int:
@@ -1228,9 +1308,10 @@ def main() -> int:
                   f"{k['static_smem']} B static shared memory, spills "
                   f"{k['spill_stores']} B stored / {k['spill_loads']} B "
                   f"loaded")
-            if re.search(r"_tc[<I]", k["kernel"]) and \
+            if (re.search(r"_tc[<I]", k["kernel"]) or
+                    name in ("ssd_scan", "rglru_scan")) and \
                     k["spill_stores"] + k["spill_loads"]:
-                fail(f"tensor-core kernel {k['kernel']} spills registers")
+                fail(f"kernel {k['kernel']} spills registers")
     for dt in (torch.float32, torch.bfloat16):
         path = "tensor cores" if dt == torch.bfloat16 else "FMA"
         print(f"[build] dynamic shared memory a block, {DT_NAME[dt]} "
@@ -1238,6 +1319,8 @@ def main() -> int:
                   f"D={d} {fa.smem_bytes(dt, d)} B" for d in fa.HEAD_DIMS)
               + "; moe_gmm " + ", ".join(
                   f"C={c} {gmm.smem_bytes(dt, c)} B" for c in (8, 16, 160)))
+    print(f"[build] dynamic shared memory a block, ssd_scan's chunk-parallel "
+          f"scan (both dtypes): {ssd.smem_bytes()} B")
     phase_s = {}
 
     def timed(name, fn, *args, **kw):

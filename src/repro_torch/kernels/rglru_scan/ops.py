@@ -2,10 +2,14 @@
 
 ``rglru_scan(log_a, gx, h0=None)`` has the contract of the JAX model's
 ``repro.models.rglru._rglru_scan``: h_t = exp(log_a_t) h_{t-1} + gx_t per
-channel from h0 (0 when absent), returning every h_t and the last one. It
-launches on PyTorch's current stream. A CPU tensor goes to the plain
-version (``ref.rglru_scan_reference``); a CUDA tensor goes to the kernel,
-or the call raises. The kernel is built at its first launch
+channel from h0 (0 when absent), returning every h_t and the last one. The
+kernel (``csrc/rglru_scan.cu``) is chunk-parallel: one thread a (channel,
+chunk of 8 steps), local recurrences with running decay products, a carry
+pass over the chunks in shared memory, then the fix-up; ``ref.
+rglru_chunked_reference`` is the same algorithm in plain PyTorch. One
+device launch a call, on PyTorch's current stream. A CPU tensor goes to
+the plain version (``ref.rglru_scan_reference``); a CUDA tensor goes to
+the kernel, or the call raises. The kernel is built at its first launch
 (``repro_torch.kernels.build``).
 """
 from __future__ import annotations

@@ -2,16 +2,19 @@
 
 ``ssd_scan(xh, dt, Bm, Cm, A, chunk=...)`` has the JAX wrapper's interface
 (``repro.kernels.ssd_scan.ops.ssd_scan``, without ``interpret``) and takes
-the model layout as it is: B and C stay shared across heads, so the kernel
-reads each (b, s) row of them once per head instead of a copy broadcast
-over heads. It launches on PyTorch's current stream. A CPU tensor goes to
-the plain version (``ref.ssd_chunked_reference``); a CUDA tensor goes to
-the kernel, or the call raises. The kernel is built at its first launch
+the model layout as it is: B and C stay shared across heads, so C B^T is
+computed once per (b, chunk) instead of per head from a copy broadcast
+over heads. A call makes two device launches on PyTorch's current stream
+(C B^T, then the chunk-parallel scan; ``csrc/ssd_scan.cu``) into a scratch
+tensor the wrapper allocates, and counts as one launch. A CPU tensor goes
+to the plain version (``ref.ssd_chunked_reference``); a CUDA tensor goes
+to the kernel, or the call raises. The kernel is built at its first launch
 (``repro_torch.kernels.build``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -19,8 +22,8 @@ import torch
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference
 
 SOURCES = ("ssd_scan.cu",)
-MAX_STATE = 128      # N: the kernel keeps a (32, N) state slice per block
-MAX_CHUNK = 256      # Q: the kernel stages one chunk of x in shared memory
+MAX_STATE = 128      # N: a block's state pass splits 128 state rows
+MAX_CHUNK = 256      # Q: a block holds its chunk's x slice, a row a thread
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (plain-version calls do not count)
@@ -43,11 +46,28 @@ def build():
             from repro_torch.kernels.build import build as nvcc_build
             built = nvcc_build("ssd_scan", SOURCES)
             fn = built.lib.repro_ssd_scan
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            ws = built.lib.repro_ssd_scan_workspace
+            ws.argtypes = [ctypes.c_int] * 6
+            ws.restype = ctypes.c_longlong
+            built.lib.repro_ssd_scan_smem.argtypes = []
+            built.lib.repro_ssd_scan_smem.restype = ctypes.c_int
             _built = built
     return _built
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of a block of the chunk-parallel scan."""
+    return build().lib.repro_ssd_scan_smem()
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_bytes(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
+    """Scratch bytes of a call at these extents (the C entry point's
+    layout: the ticket, the flags, C B^T per (b, chunk), the states)."""
+    return build().lib.repro_ssd_scan_workspace(B, S, H, P, N, Q)
 
 
 def _check(xh, dt, Bm, Cm, A, h0, chunk: int) -> None:
@@ -99,15 +119,20 @@ def ssd_scan(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
     _check(xh, dt, Bm, Cm, A, h0, chunk)
     B, S, H, P = xh.shape
     N = Bm.shape[2]
+    Q = min(chunk, S)
     lib = build().lib
     y = torch.empty_like(xh)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
+    # C B^T per (b, chunk), the chunks' published states, their flags and
+    # the block ticket; the first launch zeroes the flags and the ticket
+    ws = torch.empty(_workspace_bytes(B, S, H, P, N, Q), dtype=torch.uint8,
+                     device=xh.device)
     stream = torch.cuda.current_stream(xh.device).cuda_stream
     with torch.cuda.device(xh.device):
         err = lib.repro_ssd_scan(xh.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
                                  Cm.data_ptr(), A.data_ptr(), y.data_ptr(),
-                                 h.data_ptr(), _DTYPES[xh.dtype], B, S, H, P,
-                                 N, min(chunk, S), stream)
+                                 h.data_ptr(), ws.data_ptr(),
+                                 _DTYPES[xh.dtype], B, S, H, P, N, Q, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     launches += 1

@@ -9,6 +9,12 @@
   ``ops.py`` takes it for tensors on the CPU, so on the CPU the port
   computes exactly what the JAX model computes; on the card it is what the
   CUDA kernel is held against.
+* ``ssd_state_passing_reference`` — the CUDA kernel's decomposition in f32:
+  (i) C B^T once per (b, chunk); (ii) per (b, h, chunk), independently,
+  the intra-chunk output and the chunk's own state; (iii) the state passed
+  from chunk to chunk; (iv) the inter-chunk output from the state before
+  each chunk. Used by neither the wrapper nor the model: it lets the CPU
+  show that the kernel's algorithm computes the function.
 """
 from __future__ import annotations
 
@@ -94,3 +100,44 @@ def ssd_chunked_reference(xh, dt, Bm, Cm, A, h0=None, chunk: int = 256):
 
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
     return y[:, :S_orig], h
+
+
+def ssd_state_passing_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
+    """The chunk-parallel SSD decomposition of ``csrc/ssd_scan.cu``.
+
+    xh: (B,S,H,P); dt: (B,S,H) (post-softplus); Bm, Cm: (B,S,N); A: (H,)
+    < 0. Tokens past S in the last chunk count as dt = 0, x = B = C = 0.
+    Returns y: (B,S,H,P), h_final: (B,H,P,N), all f32.
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x = F.pad(xh.float(), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, Q, H, P)
+    d = F.pad(dt.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, H)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    lc = torch.cumsum(d * A.float(), dim=2)                  # (B,nc,Q,H)
+    ltot = lc[:, :, -1]                                      # (B,nc,H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
+
+    # (i) C B^T once per (b, chunk), its lower triangle (i query, j key)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc).masked_fill(~tri, 0.0)
+    # (ii) per (b, h, chunk): exp only of Lc_i - Lc_j with j <= i (<= 0)
+    diff = (lc[:, :, :, None, :] - lc[:, :, None, :, :]).masked_fill(
+        ~tri[..., None], float("-inf"))                      # (B,nc,i,j,H)
+    m = cb[..., None] * torch.exp(diff) * d[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", m, x)
+    w = torch.exp(ltot[:, :, None, :] - lc) * d              # (B,nc,Q,H)
+    s = torch.einsum("bcjh,bcjhp,bcjn->bchpn", w, x, Bc)     # (B,nc,H,P,N)
+    # (iii) h_c = exp(Ltot_c) h_{c-1} + s_c, keeping the state before each
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+    before = []
+    for c in range(nc):
+        before.append(h)
+        h = torch.exp(ltot[:, c])[:, :, None, None] * h + s[:, c]
+    # (iv) y_i += exp(Lc_i) h_{c-1} C_i
+    y = y + torch.exp(lc)[..., None] * torch.einsum(
+        "bcin,bchpn->bcihp", Cc, torch.stack(before, dim=1))
+    return y.reshape(Bsz, nc * Q, H, P)[:, :S], h

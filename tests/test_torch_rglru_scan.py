@@ -7,8 +7,11 @@ held against the Pallas kernel in interpret mode and against JAX's
 ``rglru_reference`` on the four shapes of ``tests/test_kernels.py``
 (strong decay included), and against the JAX model's ``_rglru_scan`` (an
 associative scan) where the Pallas kernel cannot go: S not a chunk
-multiple, an initial state. The CUDA kernel is held against the plain
-version on the card (``gpu`` marker), ragged shapes included. JAX is
+multiple, an initial state. ``rglru_chunked_reference`` (the CUDA kernel's
+algorithm: chunks scanned locally with running decay products, a carry
+pass, the fix-up) is held against the plain version, JAX's oracle and the
+Pallas kernel with many chunks, ragged S, S = 1, B > 1, h0 and strong
+decay. The CUDA kernel is held against the plain version on the card (``gpu`` marker), ragged shapes included. JAX is
 imported inside the CPU tests only: the machine with the card has none.
 
 Tolerance: atol 1e-5, as ``tests/test_kernels.py`` (every path runs the
@@ -22,7 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.rglru_scan import ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
-    rglru_reference, rglru_scan_reference)
+    rglru_chunked_reference, rglru_reference, rglru_scan_reference)
 
 CASES = [  # B, S, C, chunk, strong_decay (tests/test_kernels.py)
     (2, 64, 16, 16, False),
@@ -33,6 +36,29 @@ CASES = [  # B, S, C, chunk, strong_decay (tests/test_kernels.py)
 RAGGED = [  # S and C that no chunk or warp divides
     (2, 77, 45),
     (1, 300, 130),
+]
+# the chunk-parallel kernel's structure (chunks of 8 steps, rounds of 256,
+# 32 channels a block): S = 1, 7, 9, 257, 4096; C = 4097; B = 4 with h0
+CARD_SHAPES = [  # B, S, C, scale, with_h0
+    (1, 1, 64, 2.0, True),
+    (2, 7, 40, 2.0, False),
+    (2, 9, 40, 8.0, True),
+    (1, 257, 96, 2.0, True),
+    (1, 4096, 256, 2.0, False),
+    (1, 300, 4097, 2.0, True),
+    (4, 200, 512, 8.0, True),
+]
+# the chunked algorithm on the CPU: many chunks, S not a multiple of L,
+# S = 1, B > 1, h0, strong decay
+CHUNKED = [  # B, S, C, L, scale, with_h0
+    (1, 256, 16, 16, 2.0, False),     # 16 chunks
+    (2, 77, 24, 8, 2.0, True),        # ragged S, h0
+    (3, 1, 8, 16, 2.0, True),         # S = 1 from h0
+    (1, 15, 8, 16, 8.0, False),       # S = L - 1, strong decay
+    (2, 17, 8, 16, 8.0, True),        # S = L + 1, strong decay, h0
+    (1, 200, 32, 16, 8.0, True),      # 13 chunks, strong decay, h0
+    (1, 7, 8, 8, 8.0, False),         # S = L - 1 at the kernel's L = 8
+    (2, 9, 8, 8, 2.0, True),          # S = L + 1 at the kernel's L = 8
 ]
 TOL = 1e-5
 BF16_RTOL = 2.0 ** -8
@@ -91,6 +117,45 @@ def test_scan_matches_jax_model_path(B, S, C, scale, with_h0):
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=TOL)
 
 
+@pytest.mark.parametrize("B,S,C,L,scale,with_h0", CHUNKED)
+def test_chunked_matches_plain_oracle_and_pallas(B, S, C, L, scale,
+                                                 with_h0):
+    """The kernel's chunked algorithm (local scans with running products, a
+    carry pass, the fix-up) against the plain version, JAX's oracle and the
+    Pallas kernel in interpret mode, atol 1e-5. Those two have no h0 and
+    the Pallas kernel takes S % chunk == 0 only: h0 is folded into the
+    first step (gx_0 += exp(log_a_0) h0, as the JAX model does) and S is
+    padded with log_a = 0, gx = 0 steps, which change no earlier h."""
+    import jax.numpy as jnp
+    from repro.kernels.rglru_scan.ops import rglru_scan as jax_rglru_scan
+    from repro.kernels.rglru_scan.ref import \
+        rglru_reference as jax_rglru_reference
+    log_a, b, h0 = _inputs(6, B, S, C, scale, with_h0)
+    t0 = None if h0 is None else torch.as_tensor(h0)
+    y, h = rglru_chunked_reference(torch.as_tensor(log_a),
+                                   torch.as_tensor(b), t0, L)
+    assert y.shape == (B, S, C) and y.dtype == torch.float32
+    assert h.shape == (B, C) and h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    np.testing.assert_array_equal(h.numpy(), y[:, -1].numpy())
+    yp, hp = rglru_scan_reference(torch.as_tensor(log_a),
+                                  torch.as_tensor(b), t0)
+    np.testing.assert_allclose(y.numpy(), yp.numpy(), atol=TOL)
+    np.testing.assert_allclose(h.numpy(), hp.numpy(), atol=TOL)
+    folded = b.copy()
+    if h0 is not None:
+        folded[:, 0] += np.exp(log_a[:, 0]) * h0
+    chunk = 16
+    pad = -S % chunk
+    la_p, b_p = (np.pad(a, [(0, 0), (0, pad), (0, 0)])
+                 for a in (log_a, folded))
+    jy = jax_rglru_scan(jnp.asarray(la_p), jnp.asarray(b_p), chunk=chunk,
+                        interpret=True)
+    jyr = jax_rglru_reference(jnp.asarray(log_a), jnp.asarray(folded))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy)[:, :S], atol=TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jyr), atol=TOL)
+
+
 def test_plain_keeps_input_dtype():
     log_a, b, h0 = (torch.as_tensor(a)
                     for a in _inputs(2, 2, 40, 24, with_h0=True))
@@ -141,7 +206,8 @@ def cuda():
 @pytest.mark.parametrize("B,S,C,scale,with_h0",
                          [(B, S, C, 8.0 if sd else 2.0, False)
                           for B, S, C, _, sd in CASES]
-                         + [(B, S, C, 2.0, True) for B, S, C in RAGGED])
+                         + [(B, S, C, 2.0, True) for B, S, C in RAGGED]
+                         + CARD_SHAPES)
 def test_kernel_matches_plain_on_card(cuda, B, S, C, scale, with_h0, dtype):
     log_a, b, h0 = _inputs(4, B, S, C, scale, with_h0)
     la, bb = (torch.as_tensor(a).to(cuda, TORCH_DT[dtype])

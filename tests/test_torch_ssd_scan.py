@@ -11,7 +11,12 @@ against the plain version on the card (``gpu`` marker), ragged shapes
 included. JAX is imported inside the CPU tests only: the machine with the
 card has none.
 
-Tolerance: atol 1e-3, as ``tests/test_kernels.py``; 1e-5 between the two
+``ssd_state_passing_reference`` (the CUDA kernel's decomposition: C B^T
+once per (b, chunk), per-chunk outputs and states, then state passing) is
+held against the plain version, the per-token oracle and the Pallas kernel
+with many chunks, ragged S, S = 1, B > 1 and strong decay.
+
+Tolerance: atol 1e-3, as ``tests/test_kernels.py``; 1e-5 between the
 chunked f32 paths (the same algorithm, sums in another order); bf16 y
 within one rounding of y (rtol 2^-8).
 """
@@ -22,7 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_chunked_reference, ssd_reference)
+    ssd_chunked_reference, ssd_reference, ssd_state_passing_reference)
 
 CASES = [  # B, S, H, P, N, chunk (tests/test_kernels.py)
     (2, 64, 3, 16, 32, 16),
@@ -33,6 +38,25 @@ CASES = [  # B, S, H, P, N, chunk (tests/test_kernels.py)
 RAGGED = [  # S not a chunk multiple, P not a multiple of the kernel's 32
     (2, 77, 3, 24, 40, 32),
     (1, 300, 2, 40, 128, 256),
+]
+# the chunk-parallel kernel's structure: 8 and 16 chunks (the look-back),
+# B = 4 at mamba2-1.3b's widths, P not a multiple of the block's 32 columns
+CARD_SHAPES = [
+    (1, 2048, 8, 64, 128, 256),
+    (1, 4096, 4, 64, 128, 256),
+    (4, 300, 64, 64, 128, 256),
+    (2, 600, 3, 40, 128, 256),
+]
+# the decomposition on the CPU: many chunks, S not a chunk multiple, S = 1,
+# B > 1; last field: strong decay (A and dt scaled up, so exp(Lc) and the
+# decays underflow inside a chunk)
+STATE_PASSING = [  # B, S, H, P, N, chunk, strong_decay
+    (1, 128, 2, 8, 16, 8, False),     # 16 chunks
+    (2, 96, 3, 16, 8, 8, False),      # 12 chunks, B = 2
+    (3, 70, 2, 8, 16, 8, False),      # 9 chunks, the last of 6 tokens
+    (1, 1, 2, 8, 8, 16, False),       # S = 1
+    (2, 45, 2, 16, 8, 4, True),       # 12 chunks, ragged, strong decay
+    (1, 128, 2, 8, 16, 16, True),     # 8 chunks, strong decay
 ]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -46,6 +70,11 @@ def _inputs(seed, B, S, H, P, N):
     Cm = rng.normal(size=(B, S, N)).astype(np.float32)
     A = (-np.abs(rng.normal(size=(H,))) - 0.1).astype(np.float32)
     return xh, dt, Bm, Cm, A
+
+
+def _strong(xh, dt, Bm, Cm, A):
+    """Strong decay: A dt down to about -60 a step."""
+    return xh, dt * 4.0, Bm, Cm, A * 16.0
 
 
 def _bh(xh, dt, Bm, Cm, A):
@@ -120,6 +149,45 @@ def test_chunked_reference_matches_jax_model_path(B, S, H, P, N, chunk,
         np.testing.assert_array_equal(h2.numpy(), h.numpy())
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,strong_decay", STATE_PASSING)
+def test_state_passing_matches_plain_oracle_and_pallas(B, S, H, P, N, chunk,
+                                                       strong_decay):
+    """The kernel's decomposition against the plain version (the same
+    function, sums in another order: 1e-5), the per-token oracle and the
+    Pallas kernel in interpret mode (atol 1e-3, as tests/test_kernels.py).
+    The Pallas kernel takes S % chunk == 0 only, so its inputs are padded
+    with dt = 0, x = 0 tokens, which change neither y before them nor h."""
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+    args = _inputs(8, B, S, H, P, N)
+    if strong_decay:
+        args = _strong(*args)
+    targs = [torch.as_tensor(a) for a in args]
+    y, h = ssd_state_passing_reference(*targs, chunk=chunk)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    yp, hp = ssd_chunked_reference(*targs, chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), yp.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(h.numpy(), hp.numpy(), atol=1e-5, rtol=1e-5)
+    bh = _bh(*args)
+    yr, hr = ssd_reference(*(torch.as_tensor(np.array(a)) for a in bh))
+    np.testing.assert_allclose(
+        y.numpy(), yr.reshape(B, H, S, P).permute(0, 2, 1, 3).numpy(),
+        atol=1e-3)
+    np.testing.assert_allclose(h.numpy(), hr.reshape(B, H, P, N).numpy(),
+                               atol=1e-3)
+    Q = min(chunk, S)
+    pad = -S % Q
+    xh, dt, Bm, Cm, A = args
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for a in (xh, dt, Bm, Cm)]
+    jy, jh = jax_ssd_scan(*(jnp.asarray(a) for a in padded), jnp.asarray(A),
+                          chunk=Q, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy)[:, :S], atol=1e-3)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-3)
+
+
 def test_plain_keeps_input_dtype_for_y():
     args = [torch.as_tensor(a) for a in _inputs(3, 1, 40, 2, 16, 16)]
     y, h = ops.ssd_scan(*(a.bfloat16() for a in args[:4]), args[4],
@@ -169,7 +237,7 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,P,N,chunk", CASES + RAGGED)
+@pytest.mark.parametrize("B,S,H,P,N,chunk", CASES + RAGGED + CARD_SHAPES)
 def test_kernel_matches_plain_on_card(cuda, B, S, H, P, N, chunk, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     xh, dt, Bm, Cm, A = (torch.as_tensor(a).to(cuda)
