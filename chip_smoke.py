@@ -130,7 +130,32 @@ Drives the port in phases and exits non-zero if any fails:
                12 x 4, moe_gmm and ssd_scan never;
   (e4) oracle  as (e3) at full width in f32, with both scans' and the flash
                kernel's plain versions, every cache leaf after the prefills
-               and after the decode steps checked.
+               and after the decode steps checked;
+  (f) dave2    the paper's DAVE-2 control-loop CNN (repro_torch.models.
+               dave2, f32, TF32 off) on the card at B=1 and B=8, random
+               images from a seed, against the same module on the CPU with
+               the same weights, atol 1e-5: once with make_dave2's weights
+               (the init rule, seed 0) and once with weights at std
+               1/sqrt(fan_in) and nonzero biases, where tanh does not
+               saturate; the B=1 forward's time back to back (CUDA events)
+               and in a CUDA graph (device time), and its device launches
+               and busy time a forward (torch.profiler);
+  (g) fig1     repro_torch.benchmarks.fig1_parallelization.run() (the batch
+               of 8 split over 1/2/4 streams; the DNN solo and beside a
+               1024^2 memory co-runner thread on a stream of its own), then
+               one co-run traced with torch.profiler: fails unless the
+               co-runner's kernels run beside the DNN's;
+  (h) fig6     repro_torch.benchmarks.fig6_dnn_cdf.run(duration=6): the
+               DAVE-2 quantum's p50/p95/p99/max, n and best-effort quanta
+               under Solo, Co-Sched and RT-Gang on the executor, and its
+               time on the lane's stream (CUDA events) beside p50 and p99;
+               fails if a mode ran no DNN quantum or a quantum raised. The
+               latency ordering is reported, not checked. Then the DNN
+               alone on the executor at its period (the baseline RT-Gang
+               can match: Solo's calls run back to back), and each mode
+               again under torch.profiler: the DNN's kernels' busy time a
+               quantum and its overlap with the best-effort kernels. None
+               of the four kernels may launch in (f)-(h).
 
 Each serving phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after; ssd_scan must launch 0 times on
@@ -144,6 +169,7 @@ line is {"ok": true, "device": {...}}. Details go to build/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -160,7 +186,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.benchmarks import fig1_parallelization as fig1  # noqa: E402
+from repro_torch.benchmarks import fig6_dnn_cdf as fig6  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.deeppicar import CONFIG as DAVE2  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
@@ -171,6 +200,7 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E40
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import dave2 as DV  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
@@ -310,6 +340,12 @@ HYBRID_MAX_SEQ = 2048
 PLAIN_PATH_TOL = 1e-3
 PLAIN_PATH_PROMPTS = (32, 20, 45, 9)      # one per slot: 4 decode positions
 PLAIN_PATH_STEPS = 4
+
+# DAVE-2 (f): the card vs the CPU in f32 with TF32 off; (h): the Fig.6 run
+DAVE2_BATCHES = (1, 8)
+DAVE2_TOL = 1e-5
+FIG6_DURATION = 6.0
+FIG6_TRACED_S = 2.0
 
 SERVE_PROMPTS = (32, 200, 1024, 77, 512, 300)
 SERVE_MAX_NEW = 16
@@ -1235,6 +1271,236 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
     return {"plain_path_err": errs, "reprefill_prefix": reprefill}
 
 
+def device_events(fn, name: str) -> list[dict]:
+    """The device events (kernels, copies, memsets) of ``fn()`` under
+    ``torch.profiler``, from its chrome trace (``build/trace_<name>.json``):
+    name, stream, start and duration in µs (device clock)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / f"trace_{name}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return [{"name": e["name"], "stream": e.get("args", {}).get("stream"),
+             "ts": float(e["ts"]), "dur": float(e["dur"])}
+            for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def dave2_flops(cfg, batch: int) -> int:
+    """Operations of one forward: 2 per multiply-add of the convs and the
+    fc products (bias adds and tanh not counted)."""
+    h, w = cfg.input_hw
+    c_in, ops = cfg.in_channels, 0
+    for c_out, k, s in cfg.conv:
+        h, w = (h - k) // s + 1, (w - k) // s + 1
+        ops += 2 * k * k * c_in * c_out * h * w
+        c_in = c_out
+    dims = (h * w * c_in,) + cfg.fc + (cfg.n_outputs,)
+    ops += sum(2 * a * b for a, b in zip(dims, dims[1:]))
+    return batch * ops
+
+
+def dave2_scaled_params(cfg, gen) -> dict:
+    """DAVE-2 weights at std 1/sqrt(fan_in) of the HWIO / (in, out) shape
+    and biases N(0, 0.1): unlike the init rule's (zero biases, conv
+    pre-activations of std ~k that saturate tanh), a dropped bias or a
+    flipped kernel changes the output."""
+    out = {}
+    for k, d in DV.dave2_defs(cfg).items():
+        if k.endswith("_b"):
+            out[k] = torch.randn(d.shape, generator=gen) * 0.1
+        else:
+            v = torch.randn(d.shape, generator=gen) / np.sqrt(
+                np.prod(d.shape[:-1]))
+            out[k] = DV.conv_weight(v) if v.dim() == 4 else v
+    return out
+
+
+def phase_dave2(dev, smi: str) -> dict:
+    """(f) DAVE-2 on the card against the same module on the CPU, and its
+    B=1 forward's time back to back, in a CUDA graph and as device
+    events."""
+    cfg = DAVE2
+    params, model = DV.make_dave2(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    weights = {"init rule": params,
+               "scaled": {k: v.to(dev) for k, v in
+                          dave2_scaled_params(cfg, gen).items()}}
+    errs = {}
+    for label, p in weights.items():
+        card = DV.Dave2(cfg, p)
+        cpu = DV.Dave2(cfg, {k: v.cpu() for k, v in p.items()})
+        for b in DAVE2_BATCHES:
+            x = torch.rand((b, *cfg.input_hw, cfg.in_channels), generator=gen)
+            got, want = card(x.to(dev)).cpu(), cpu(x)
+            if got.shape != (b, cfg.n_outputs) or \
+                    not torch.isfinite(got).all():
+                fail(f"dave2 {label} B={b}: output {tuple(got.shape)}, "
+                     f"finite {bool(torch.isfinite(got).all())}")
+            errs[f"{label} B={b}"] = float((got - want).abs().max())
+            if errs[f"{label} B={b}"] > DAVE2_TOL:
+                fail(f"dave2 {label} B={b}: card vs CPU max_abs_err "
+                     f"{errs[f'{label} B={b}']:.3g} > {DAVE2_TOL}")
+    print("[dave2] f32 (TF32 off), card vs the same module on the CPU: "
+          "max_abs_err " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f" (tolerance {DAVE2_TOL})")
+
+    x1 = torch.ones((1, *cfg.input_hw, cfg.in_channels), device=dev)
+    fwd = functools.partial(model, x1)
+    ms, g_ms = time_ms(fwd, iters=100), graph_ms(fwd, iters=20)
+    n_fwd = 20
+    events = device_events(lambda: [fwd() for _ in range(n_fwd)], "dave2")
+    busy_ms = sum(e["dur"] for e in events) / 1e3 / n_fwd
+    names = sorted({e["name"] for e in events})
+    by_name: dict = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    mflop = dave2_flops(cfg, 1) / 1e6
+    print(f"[dave2] B=1 forward: {ms:.4f} ms back to back (CUDA events, 100 "
+          f"calls), {g_ms:.4f} ms in a CUDA graph (device time), "
+          f"{len(events) / n_fwd:g} device launches a forward ({busy_ms:.4f} "
+          f"ms of them busy, torch.profiler, {len(names)} distinct kernels); "
+          f"{mflop:.2f} MFLOP a frame [{smi}]")
+    print("[dave2] B=1 top device events, ms a forward: " + "; ".join(
+        f"{d / 1e3 / n_fwd:.4f} {n[:60]}" for n, d in top))
+    return {"max_abs_err": errs, "tol": DAVE2_TOL, "b1_ms": ms,
+            "b1_graph_ms": g_ms, "launches_per_forward": len(events) / n_fwd,
+            "b1_busy_ms": busy_ms, "kernels": names, "mflop_per_frame": mflop,
+            "b1_top_ms": {n: d / 1e3 / n_fwd for n, d in top}}
+
+
+def overlap(dnn: list[dict], others: list[dict]) -> dict:
+    """How much of the DNN's kernel time the other kernels ran beside it."""
+    merged = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in others):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    dnn_us = sum(e["dur"] for e in dnn)
+    both_us = sum(max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"]))
+                  for e in dnn for a, b in merged)
+    return {"dnn_kernel_ms": dnn_us / 1e3, "overlap_ms": both_us / 1e3,
+            "share": both_us / dnn_us if dnn_us else 0.0,
+            "dnn_kernels": len(dnn), "other_kernels": len(others),
+            "other_busy_ms": sum(b - a for a, b in merged) / 1e3}
+
+
+def phase_fig1(dev, smi: str) -> dict:
+    """(g) the port's Fig.1 benchmark; then one co-run traced, to show that
+    the memory co-runner's kernels run beside the DNN's (streams of their
+    own) rather than queue behind them."""
+    rows = fig1.run(dev)
+    for r in rows:
+        print(f"[fig1] {r}")
+    _, model = DV.make_dave2(DAVE2, device=dev)
+    img = torch.ones((fig1.BATCH, *DAVE2.input_hw, DAVE2.in_channels),
+                     device=dev)
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+
+    def dnn():
+        with torch.cuda.stream(stream):
+            model(img)
+
+    def corun():
+        with fig1.hammering(dev):
+            fig1.time_fn(dnn, stream, iters=10)
+    by_stream: dict = {}
+    for e in device_events(corun, "fig1_corun"):
+        by_stream.setdefault(e["stream"], []).append(e)
+    if len(by_stream) < 2:
+        fail(f"fig1: the co-run trace holds kernels on {len(by_stream)} "
+             f"stream(s)")
+    # the DNN's stream has the most distinct kernels, the co-runner's is
+    # the busiest other one
+    mine = max(by_stream, key=lambda s: len({e["name"]
+                                             for e in by_stream[s]}))
+    hog = max((s for s in by_stream if s != mine),
+              key=lambda s: sum(e["dur"] for e in by_stream[s]))
+    ov = overlap(by_stream[mine], by_stream[hog])
+    print(f"[fig1] co-run traced (torch.profiler): the DNN's "
+          f"{ov['dnn_kernels']} kernels take {ov['dnn_kernel_ms']:.4f} ms, "
+          f"{ov['overlap_ms']:.4f} ms of it ({ov['share']:.3f}) beside the "
+          f"co-runner's {ov['other_kernels']} kernels "
+          f"({ov['other_busy_ms']:.4f} ms busy) [{smi}]")
+    if ov["overlap_ms"] <= 0:
+        fail("fig1: the co-runner's kernels never ran beside the DNN's: "
+             "the co-run measured queueing, not contention")
+    return {"rows": rows, "overlap": ov}
+
+
+def phase_fig6(dev, smi: str, dnn_kernels: list[str]) -> dict:
+    """(h) the port's Fig.6 benchmark: Solo, Co-Sched and RT-Gang; then the
+    DNN alone on the executor at its period, and each mode again under
+    torch.profiler for the DNN's kernel time a quantum and its overlap with
+    the best-effort kernels (the DNN's kernels are those of phase (f))."""
+    rows = fig6.run(duration=FIG6_DURATION, device=dev)
+    modes = ("solo",) + tuple(m for m, _, _ in fig6.MODES)
+    for mode in modes:
+        r = rows.get(mode, {})
+        if not r.get("n"):
+            fail(f"fig6 {mode}: no DNN quantum ran ({r})")
+        print(f"[fig6] {mode}: p50 {r['p50_ms']} ms, p95 {r['p95_ms']} ms, "
+              f"p99 {r['p99_ms']} ms, max {r['max_ms']} ms, n {r['n']}, "
+              f"be_quanta {r.get('be_quanta', '-')}")
+    for mode in modes:
+        r = rows[mode]
+        print(f"[fig6] {mode}: DNN quantum on its lane's stream (CUDA "
+              f"events) p50 {r['dev_p50_ms']} ms, p99 {r['dev_p99_ms']} ms; "
+              f"of the wall p50 / p99 {r['dev_p50_ms'] / r['p50_ms']:.3f} / "
+              f"{r['dev_p99_ms'] / r['p99_ms']:.3f} [{smi}]")
+    solo = rows["solo"]
+    print(f"[fig6] against Solo (reported, not checked): p50 Co-Sched "
+          f"{rows['cosched']['p50_ms'] / solo['p50_ms']:.3f}x, RT-Gang "
+          f"{rows['rtgang']['p50_ms'] / solo['p50_ms']:.3f}x; p99 Co-Sched "
+          f"{rows['cosched']['p99_ms'] / solo['p99_ms']:.3f}x, RT-Gang "
+          f"{rows['rtgang']['p99_ms'] / solo['p99_ms']:.3f}x")
+
+    bench = fig6.Fig6(dev)
+    alone = bench.gang(True, 0.0, FIG6_DURATION, best_effort=False)
+    print(f"[fig6] the DNN alone on the executor at its 20 ms period (no "
+          f"best-effort job): p50 {alone['p50_ms']} ms, p99 "
+          f"{alone['p99_ms']} ms, max {alone['max_ms']} ms, n {alone['n']}; "
+          f"lane stream p50 {alone['dev_p50_ms']} ms [{smi}]")
+    traced = {}
+    for mode in modes:
+        out = {}
+        if mode == "solo":
+            def go():
+                out["row"] = bench.solo()
+        else:
+            enabled, budget = next((e, b) for m, e, b in fig6.MODES
+                                   if m == mode)
+
+            def go():
+                out["row"] = bench.gang(enabled, budget, FIG6_TRACED_S)
+        events = device_events(go, f"fig6_{mode}")
+        row = out["row"]
+        n = row["n"]
+        mine = [e for e in events if e["name"] in dnn_kernels]
+        ov = overlap(mine, [e for e in events
+                            if e["name"] not in dnn_kernels])
+        t = traced[mode] = dict(
+            ov, n=n, dnn_busy_ms=ov["dnn_kernel_ms"] / n,
+            dnn_launches=ov["dnn_kernels"] / n, wall_p50_ms=row["p50_ms"],
+            stream_p50_ms=row["dev_p50_ms"])
+        span = "100 calls" if mode == "solo" else f"{FIG6_TRACED_S} s"
+        print(f"[fig6] {mode} traced ({span}, torch.profiler): a DNN "
+              f"quantum's {t['dnn_launches']:g} device launches are busy "
+              f"{t['dnn_busy_ms']:.4f} ms, "
+              f"{ov['share']:.3f} of it beside other kernels "
+              f"(busy {ov['other_busy_ms']:.3f} ms in {ov['other_kernels']}"
+              f"); traced wall p50 {row['p50_ms']} ms, lane stream p50 "
+              f"{row['dev_p50_ms']} ms; the DNN's busy time / untraced wall "
+              f"p50 {t['dnn_busy_ms'] / rows[mode]['p50_ms']:.3f} [{smi}]")
+    return dict(rows, alone=alone, traced=traced)
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel in an
     ``nvcc -Xptxas -v`` log, names demangled where c++filt is there."""
@@ -1354,6 +1620,14 @@ def main() -> int:
                 max_seq=HYBRID_MAX_SEQ)
     sv4.update(timed("e4", phase_gang_oracle, dev, sv4.pop("api"),
                      sv4.pop("params"), max_seq=HYBRID_MAX_SEQ))
+    free()                                        # recurrentgemma's go
+    reset_launches()                              # DAVE-2 runs no kernel
+    dave2 = timed("f", phase_dave2, dev, smi)
+    fig1_rep = timed("g", phase_fig1, dev, smi)
+    fig6_rep = timed("h", phase_fig6, dev, smi, dave2["kernels"])
+    if any(read_launches().values()):
+        fail(f"phases (f)-(h) launched {read_launches()}: DAVE-2's path "
+             f"has none of the four kernels")
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
@@ -1380,14 +1654,18 @@ def main() -> int:
               "ssd_rows": ssd_rows, "rglru_rows": rg_rows,
               "reported_cases": {n: r["case"] for n, r in reported.items()},
               "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
-              "gang_recurrentgemma": sv4, "phase_s": phase_s,
+              "gang_recurrentgemma": sv4, "dave2": dave2, "fig1": fig1_rep,
+              "fig6": fig6_rep, "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"kernels: [flash_attention: pass ({len(rows)} shapes), moe_gmm: "
           f"pass ({len(gmm_rows)} shapes), ssd_scan: pass ({len(ssd_rows)} "
-          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]")
+          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]; dave2: "
+          f"pass (card vs CPU, B {DAVE2_BATCHES}); fig1: "
+          f"{len(fig1_rep['rows'])} rows; fig6: solo / cosched / rtgang n "
+          f"{[fig6_rep[m]['n'] for m in ('solo', 'cosched', 'rtgang')]}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

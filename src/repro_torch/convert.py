@@ -13,6 +13,9 @@ w_a,b_a,w_i,b_i,lam,w_out}``, ``groups/rec<i>/mlp/...``,
 block-diagonal gates (G, nb, bw, bw), and ``tail/{mix,mlp}/...`` stacked
 over the tail layers), the layers stacked along the leading dimension,
 and the ``x @ W`` orientation — so conversion is a copy of each leaf.
+
+DAVE-2's flat tree (``dave2_params_from_jax_numpy``) is the exception: its
+HWIO conv weights become OIHW.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.deeppicar import Dave2Config
 from repro_torch.device import resolve_device
+from repro_torch.models.dave2 import conv_weight, dave2_defs
 from repro_torch.models.model import build_defs
 
 
@@ -53,6 +58,31 @@ def params_from_jax_numpy(tree, cfg: ModelConfig,
                              f"expected {d.shape}")
         return _to_torch(a, device, dtype)
     return walk(defs, tree, ())
+
+
+def dave2_params_from_jax_numpy(tree, cfg: Dave2Config,
+                                device: Optional[str | torch.device] = None,
+                                dtype: Optional[torch.dtype] = None):
+    """``tree``: JAX's flat DAVE-2 dict as numpy arrays. Returns the port's
+    dict on ``device`` (default ``cuda``): each HWIO conv weight transposed
+    to contiguous OIHW (``transpose(3, 2, 0, 1)``,
+    ``models.dave2.conv_weight``), every other leaf copied, the fc weights
+    in the ``x @ W`` orientation. Raises if a key is missing or extra, or a
+    shape differs from ``dave2_defs(cfg)``."""
+    defs = dave2_defs(cfg)
+    device = resolve_device(device)
+    if set(tree) != set(defs):
+        raise ValueError(f"DAVE-2 params: keys {sorted(tree)}, expected "
+                         f"{sorted(defs)}")
+    out = {}
+    for k, d in defs.items():
+        a = np.asarray(tree[k])
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"param {k}: shape {a.shape}, expected "
+                             f"{d.shape}")
+        t = _to_torch(a, device, dtype)
+        out[k] = conv_weight(t) if t.dim() == 4 else t
+    return out
 
 
 def _to_torch(a: np.ndarray, device, dtype: Optional[torch.dtype]):

@@ -12,6 +12,9 @@ a quantum on the GPU, as ``block_until_ready`` or a host read does in the
 JAX executor. PyTorch's current stream is per thread: without the wrapper
 a quantum would last only as long as its launches, and best-effort
 quanta would co-run with the gang unseen by the executor.
+``quantum(fn, errors)`` adds what every caller needs on top: an exception
+in a quantum ends only its lane's worker thread, so the wrapper keeps it
+in ``errors`` for the caller to raise after the run.
 """
 from __future__ import annotations
 
@@ -63,3 +66,19 @@ class Lanes:
             stream.synchronize()
             return out
         return run
+
+    def quantum(self, fn: Callable, errors: List[BaseException]) -> Callable:
+        """``on_lane(fn)`` that also appends any exception it raises (``fn``'s,
+        or a device fault surfacing at the stream's synchronize) to
+        ``errors``, and re-raises it. The executor's worker thread dies
+        with the exception while ``run`` goes on, so the caller raises
+        ``errors[0]`` after the run: no lane fails silently."""
+        run = self.on_lane(fn)
+
+        def q(lane: int, *args):
+            try:
+                return run(lane, *args)
+            except BaseException as e:
+                errors.append(e)
+                raise
+        return q

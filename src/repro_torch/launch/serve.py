@@ -105,20 +105,10 @@ def run_gang(rt_quantum: Callable, device: torch.device, duration: float,
                       regulation_interval_s=0.02)
     lanes = Lanes(device, ex.n_lanes)
     errors = []
-
-    def quantum(fn):
-        def q(lane, *args):
-            try:
-                return fn(lane, *args)
-            except BaseException as e:
-                errors.append(e)
-                raise
-        return lanes.on_lane(q)
-
-    ex.submit_rt(RTJob(name="decode", fn=quantum(rt_quantum),
+    ex.submit_rt(RTJob(name="decode", fn=lanes.quantum(rt_quantum, errors),
                        lanes=(0,), prio=10, period_s=0.01, budget_bytes=2e6,
                        n_jobs=int(duration / 0.01)))
-    ex.submit_be(BEJob(name="bg-batch", fn=quantum(bg),
+    ex.submit_be(BEJob(name="bg-batch", fn=lanes.quantum(bg, errors),
                        lanes=(0, 1), bytes_per_quantum=1e6))
     stats = ex.run(duration)
     if errors:
