@@ -155,7 +155,32 @@ Drives the port in phases and exits non-zero if any fails:
                can match: Solo's calls run back to back), and each mode
                again under torch.profiler: the DNN's kernels' busy time a
                quantum and its overlap with the best-effort kernels. None
-               of the four kernels may launch in (f)-(h).
+               of the four kernels may launch in (f)-(h);
+  (i) vgang    virtual gangs on the card: repro_torch.benchmarks.
+               bench_executor_vgang at its full default duration with
+               --reclaim (solo, vgang, rtgT, rtgT+dr; five members whose
+               quanta are 3 x tanh(x @ x) * 0.5 on 64-160^2 f32 tensors on
+               their lanes' CUDA streams), its JSON in build/; fails on a
+               max response above its RTA bound, an RTA verdict not ok, a
+               member with no response, a gang-invariant or budget-ordering
+               violation or a raised quantum, and, from each quantum's CUDA
+               events on its lane's stream, on any quantum of one vgang
+               overlapping one of another vgang on the device (reports how
+               long members of one vgang ran side by side); then
+               repro_torch.examples.vgang_fleet for 2 s plain, with
+               --rtg-throttle and with --reclaim: fails unless the gang
+               invariant holds and every member ran jobs;
+  (j) rta      the batched RTA's torch backend (float64 lockstep fixed
+               point on the card) against its numpy backend on the 500
+               seeded task sets of tests/test_batched_rta.py (also with
+               blocking and CRPD) and on the vgang grid's full default
+               shard (3 core counts x 3 width distributions x 9
+               utilizations x 50 sets = 4050 sets, up to 11 gangs each),
+               and vgang/rta's batched_accepts through it: fails unless
+               every verdict is equal, the same lanes settle and every
+               finite WCRT agrees within a relative 1e-12; reports both
+               backends' times. None of the four kernels may launch in (i)
+               or (j).
 
 Each serving phase sets the kernels' launch counts to 0 just before it
 drives the path and reads them just after; ssd_scan must launch 0 times on
@@ -172,6 +197,7 @@ import dataclasses
 import functools
 import gc
 import json
+import random
 import re
 import subprocess
 import sys
@@ -186,11 +212,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import batched_rta as BRTA  # noqa: E402
+from repro_torch.benchmarks import bench_executor_vgang as vbench  # noqa: E402
 from repro_torch.benchmarks import fig1_parallelization as fig1  # noqa: E402
 from repro_torch.benchmarks import fig6_dnn_cdf as fig6  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.deeppicar import CONFIG as DAVE2  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.core.gang import RTTask  # noqa: E402
+from repro_torch.examples import vgang_fleet  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
@@ -207,6 +237,10 @@ from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import rglru as RG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.vgang import rta as VRTA  # noqa: E402
+from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
+                                         intensity_interference,
+                                         singleton_vgangs)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them,
 # HBM3 bandwidth
@@ -346,6 +380,17 @@ DAVE2_BATCHES = (1, 8)
 DAVE2_TOL = 1e-5
 FIG6_DURATION = 6.0
 FIG6_TRACED_S = 2.0
+
+# (i): the fleet example's three dispatch modes, 2 s each
+FLEET_RUNS = ([], ["--rtg-throttle"], ["--reclaim"])
+FLEET_DURATION = 2.0
+# (j): the grid's full default shard (vgang/grid.py run_grid): cores x
+# width distributions x utilizations x 50 sets, seed 0, gamma 0.5
+GRID_CORES = (4, 8, 16)
+GRID_DISTS = ("light", "mixed", "heavy")
+GRID_UTILS = (0.4, 0.7, 0.9, 1.0, 1.1, 1.2, 1.4, 1.6, 2.0)
+GRID_SETS = 50
+RTA_RTOL = 1e-12
 
 SERVE_PROMPTS = (32, 200, 1024, 77, 512, 300)
 SERVE_MAX_NEW = 16
@@ -1501,6 +1546,229 @@ def phase_fig6(dev, smi: str, dnn_kernels: list[str]) -> dict:
     return dict(rows, alone=alone, traced=traced)
 
 
+def phase_vgang(dev, smi: str) -> dict:
+    """(i) virtual gangs on the card: the port's executor vgang bench at
+    its full default duration with --reclaim (solo, vgang, rtgT, rtgT+dr),
+    its JSON under build/; then the fleet example plain, with
+    --rtg-throttle and with --reclaim."""
+    out = ROOT / "build" / "BENCH_executor_vgang_torch.json"
+    out.parent.mkdir(exist_ok=True)
+    rc = vbench.main(["--reclaim", "--out", str(out)])
+    doc = json.loads(out.read_text())
+    if rc or not doc["ok"]:
+        fail(f"vgang bench: rc {rc}, failures {doc['failures']}")
+    print(f"[vgang] {doc['device']}; lanes {doc['n_lanes']}, regulation "
+          f"window {doc['interval_s'] * 1e3:g} ms, {doc['duration_s']:.3f} "
+          f"s a mode, WCET margin {doc['margin']}, blocking "
+          f"{doc['blocking_ms']:.3f} ms, periods {doc['periods_ms']}; "
+          f"RTG-throttle bytes declared (not measured) [{smi}]")
+    for name in vbench.MEMBERS:
+        print(f"[vgang] {name}: calibrated quantum "
+              f"{doc['quanta_ms'][name]:.4f} ms, WCET "
+              f"{doc['wcet_ms'][name]:.4f} ms")
+    for mode, row in doc["modes"].items():
+        for name, e in row["members"].items():
+            # the bench's own checks, held again here
+            if not e["rta_ok"] or e["rta_bound_ms"] is None:
+                fail(f"vgang {mode}:{name}: RTA verdict not ok")
+            if not e["jobs"]:
+                fail(f"vgang {mode}:{name}: no response recorded")
+            if e["max_response_ms"] > e["rta_bound_ms"]:
+                fail(f"vgang {mode}:{name}: max response "
+                     f"{e['max_response_ms']} ms > bound "
+                     f"{e['rta_bound_ms']} ms")
+            print(f"[vgang] {mode} {name} ({e['vgang']}): jobs {e['jobs']}, "
+                  f"first {e['first_response_ms']:.3f} ms, max "
+                  f"{e['max_response_ms']:.3f} ms, bound "
+                  f"{e['rta_bound_ms']:.3f} ms, worst margin "
+                  f"{e['worst_margin_ms']:.3f} ms")
+        if row["invariant_violations"] or row["budget_violations"]:
+            fail(f"vgang {mode}: {row['invariant_violations']} invariant, "
+                 f"{row['budget_violations']} budget-ordering violations")
+        ov = row["device_overlap"]
+        if ov["cross_pairs"]:
+            fail(f"vgang {mode}: {ov['cross_pairs']} pairs of quanta of "
+                 f"different vgangs overlap on the device "
+                 f"({ov['cross_ms']:.4f} ms)")
+        print(f"[vgang] {mode}: vgangs {row['vgangs']}, acquisitions "
+              f"{row['acquisitions']}, preemptions {row['preemptions']}, "
+              f"be_quanta {row['be_quanta']}, rt_stalls {row['rt_stalls']}, "
+              f"reclaimed {row['reclaimed_bytes']:g} B; device (CUDA "
+              f"events): {ov['quanta']} quanta, 0 cross-vgang overlaps, "
+              f"same-vgang members side by side {ov['same_ms']:.4f} ms of "
+              f"{ov['same_busy_ms']:.4f} ms busy ({ov['same_share']:.3f}, "
+              f"{ov['same_pairs']} pairs) [{smi}]")
+    fleet = []
+    for flags in FLEET_RUNS:
+        stats = vgang_fleet.main(flags + ["--duration", str(FLEET_DURATION)])
+        jobs = {n: len(r) for n, r in stats["response_times"].items()}
+        if not stats["invariant_ok"]:
+            fail(f"vgang_fleet {flags}: the gang invariant broke")
+        if set(jobs) != {"perception", "fusion", "planner"} or \
+                not all(jobs.values()):
+            fail(f"vgang_fleet {flags}: a member ran no job ({jobs})")
+        worst = {n: max(r) * 1e3 for n, r in stats["response_times"].items()}
+        fleet.append({"flags": flags, "jobs": jobs, "worst_ms": worst,
+                      "acquisitions": stats["acquisitions"],
+                      "preemptions": stats["preemptions"],
+                      "be_quanta": stats["be_quanta"],
+                      "rt_stalls": stats["rt_stalls"],
+                      "reclaimed_bytes": stats["reclaimed_bytes"]})
+    summary = {m: {k: v for k, v in row.items() if k != "device_quanta"}
+               for m, row in doc["modes"].items()}
+    return {"bench": dict(doc, modes=summary), "fleet": fleet}
+
+
+def uunifast(rng: random.Random, n: int, total_util: float) -> list:
+    """UUniFast (Bini & Buttazzo): the sweep's and the grid's split of a
+    total utilization over n tasks."""
+    utils, remaining = [], total_util
+    for i in range(n - 1):
+        nxt = remaining * rng.random() ** (1.0 / (n - 1 - i))
+        utils.append(remaining - nxt)
+        remaining = nxt
+    utils.append(remaining)
+    return utils
+
+
+def taskset_seed(seed: int, k: int, total_util: float) -> int:
+    """The per-taskset seed of the sweep and the grid."""
+    return seed + 7919 * k + int(1e6 * total_util)
+
+
+def random_gang_taskset(rng, n_cores: int, n_tasks: int, total_util: float):
+    """The Monte-Carlo sweep's random gang task set: UUniFast utilizations,
+    periods from a pool, random widths, rate-monotonic priorities."""
+    utils = uunifast(rng, n_tasks, total_util)
+    periods = [rng.choice((10.0, 20.0, 25.0, 40.0, 50.0, 100.0))
+               for _ in range(n_tasks)]
+    by_rm = sorted(range(n_tasks), key=lambda i: (periods[i], i))
+    prio_of = {idx: n_tasks - rank for rank, idx in enumerate(by_rm)}
+    tasks = []
+    for i in range(n_tasks):
+        width = rng.randint(1, n_cores)
+        cores = tuple(rng.sample(range(n_cores), width))
+        tasks.append(RTTask(
+            name=f"g{i}", wcet=max(utils[i] * periods[i], 1e-3),
+            period=periods[i], cores=cores, prio=prio_of[i],
+            release_offset=rng.uniform(0, periods[i])))
+    return tasks
+
+
+GRID_WIDTHS = {"light": lambda rng, m: rng.randint(1, max(1, m // 4)),
+               "mixed": lambda rng, m: rng.randint(1, max(1, m // 2)),
+               "heavy": lambda rng, m: rng.randint(max(1, m // 2), m)}
+
+
+def random_vgang_taskset(rng, n_cores: int, n_tasks: int, total_util: float,
+                         dist: str = "mixed"):
+    """The vgang grid's random task set: UUniFast utilizations, widths from
+    the named distribution, periods 20/40/80, memory intensity in [0, 1]."""
+    utils = uunifast(rng, n_tasks, total_util)
+    tasks = []
+    for i in range(n_tasks):
+        period = rng.choice((20.0, 40.0, 80.0))
+        width = GRID_WIDTHS[dist](rng, n_cores)
+        tasks.append(RTTask(
+            name=f"g{i}", wcet=max(utils[i] * period, 1e-3), period=period,
+            cores=tuple(range(width)), prio=n_tasks - i,
+            mem_intensity=rng.random()))
+    return tasks
+
+
+def n_tasks_for(n_cores: int) -> int:
+    """The grid's gangs a task set: 4 -> 5, 8 -> 7, 16 -> 11."""
+    return 3 + (n_cores + 1) // 2
+
+
+def rta_shards():
+    """(j)'s two shards as (name, C, P, prio) rows: the 500 seeded task sets
+    of tests/test_batched_rta.py, and the grid's full default shard (4050
+    sets) collapsed as its rtgang column analyzes them (singleton vgangs,
+    priorities by rate, WCETs inflated by intensity interference)."""
+    def draw(n_sets, seed, n_cores=4, max_tasks=8, max_util=2.2):
+        out = []
+        for k in range(n_sets):
+            rng = random.Random(taskset_seed(seed, k, 1.0))
+            n = rng.randint(1, max_tasks)
+            out.append(random_gang_taskset(rng, n_cores, n,
+                                           rng.uniform(0.1, max_util)))
+        return out
+    sets = draw(250, 0) + draw(150, 1, max_tasks=12, max_util=3.0) + \
+        draw(100, 2, n_cores=8, max_util=1.5)
+    rows = [[(t.name, t.wcet, t.period, t.prio) for t in ts] for ts in sets]
+    grid = []
+    for m in GRID_CORES:
+        for dist in GRID_DISTS:
+            for u in GRID_UTILS:
+                for k in range(GRID_SETS):
+                    tasks = random_vgang_taskset(
+                        random.Random(taskset_seed(0, k, u)), m,
+                        n_tasks_for(m), u, dist)
+                    vgangs = assign_priorities(singleton_vgangs(tasks))
+                    eq = VRTA.vgang_taskset(
+                        vgangs, intensity_interference(tasks, 0.5))
+                    grid.append([(t.name, t.wcet, t.period, t.prio)
+                                 for t in eq])
+    return rows, grid
+
+
+def phase_rta(dev, smi: str) -> dict:
+    """(j) the batched RTA's torch backend on the card (float64, lockstep
+    over the whole shard) against the numpy backend, on the 500 seeded
+    task sets and on the grid's full default shard: equal verdicts, the
+    same lanes settled, finite WCRTs within a relative 1e-12; both
+    backends' times (host clock, the torch call ends with its copy back)."""
+    rows, grid = rta_shards()
+    out = {}
+    for label, shard, kw in (("500 sets", rows, {}),
+                             ("500 sets, blocking 0.7, crpd 0.25", rows,
+                              {"blocking": 0.7, "crpd": 0.25}),
+                             ("grid 4050 sets", grid, {})):
+        batch = BRTA.pad_rows(shard)
+        t0 = time.perf_counter()
+        a = BRTA.fixed_point(batch, backend="numpy", **kw)
+        np_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(2):               # the first call, then again
+            t0 = time.perf_counter()
+            b = BRTA.fixed_point(batch, backend="torch", device=dev, **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        same_nan = bool(np.array_equal(np.isnan(a), np.isnan(b)))
+        fin = np.isfinite(a)
+        rel = float(np.max(np.abs(b[fin] - a[fin]) / np.abs(a[fin]))) \
+            if fin.any() else 0.0
+        bits_a, bits_b = BRTA.accept_bits(batch, a), BRTA.accept_bits(batch, b)
+        print(f"[rta] {label}: shape {batch.shape}, lanes settled "
+              f"{int(fin.sum())} of {int(batch.valid.sum())}, accepted "
+              f"{int(bits_a.sum())}; numpy {np_ms:.3f} ms, torch on {dev} "
+              f"{times[0]:.3f} ms first, {times[1]:.3f} ms again; max rel "
+              f"WCRT difference {rel:.3g}, exactly equal "
+              f"{int((a[fin] == b[fin]).sum())} [{smi}]")
+        if not same_nan or rel > RTA_RTOL or \
+                not np.array_equal(bits_a, bits_b):
+            fail(f"rta {label}: the torch backend disagrees with numpy "
+                 f"(same lanes {same_nan}, max rel {rel}, verdicts equal "
+                 f"{np.array_equal(bits_a, bits_b)})")
+        out[label] = {"shape": list(batch.shape), "numpy_ms": np_ms,
+                      "torch_ms": times, "max_rel": rel,
+                      "settled": int(fin.sum()),
+                      "accepted": int(bits_a.sum())}
+    # the vgang entry point the grid calls, through the torch backend on
+    # the card (its default device)
+    work = []
+    for k in range(GRID_SETS):
+        tasks = random_vgang_taskset(random.Random(taskset_seed(0, k, 1.1)),
+                                     16, n_tasks_for(16), 1.1, "mixed")
+        work.append((assign_priorities(singleton_vgangs(tasks)),
+                     intensity_interference(tasks, 0.5)))
+    vs, intfs = [w[0] for w in work], [w[1] for w in work]
+    got = VRTA.batched_accepts(vs, intfs, backend="torch")
+    if got != VRTA.batched_accepts(vs, intfs, backend="numpy"):
+        fail("rta: vgang batched_accepts differs between torch and numpy")
+    return out
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel in an
     ``nvcc -Xptxas -v`` log, names demangled where c++filt is there."""
@@ -1628,6 +1896,13 @@ def main() -> int:
     if any(read_launches().values()):
         fail(f"phases (f)-(h) launched {read_launches()}: DAVE-2's path "
              f"has none of the four kernels")
+    vgang_rep = timed("i", phase_vgang, dev, smi)
+    if any(read_launches().values()):
+        fail(f"phase (i) launched {read_launches()}: the vgang path has "
+             f"none of the four kernels")
+    rta_rep = timed("j", phase_rta, dev, smi)
+    if any(read_launches().values()):
+        fail(f"phase (j) launched {read_launches()}")
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
@@ -1655,7 +1930,8 @@ def main() -> int:
               "reported_cases": {n: r["case"] for n, r in reported.items()},
               "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
               "gang_recurrentgemma": sv4, "dave2": dave2, "fig1": fig1_rep,
-              "fig6": fig6_rep, "phase_s": phase_s,
+              "fig6": fig6_rep, "vgang": vgang_rep, "rta": rta_rep,
+              "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1665,7 +1941,10 @@ def main() -> int:
           f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]; dave2: "
           f"pass (card vs CPU, B {DAVE2_BATCHES}); fig1: "
           f"{len(fig1_rep['rows'])} rows; fig6: solo / cosched / rtgang n "
-          f"{[fig6_rep[m]['n'] for m in ('solo', 'cosched', 'rtgang')]}")
+          f"{[fig6_rep[m]['n'] for m in ('solo', 'cosched', 'rtgang')]}; "
+          f"vgang: pass ({len(vgang_rep['bench']['modes'])} modes, "
+          f"{len(vgang_rep['fleet'])} fleet runs); rta: pass "
+          f"({len(rta_rep)} shards)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

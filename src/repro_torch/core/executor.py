@@ -10,15 +10,17 @@ Differences from the kernel implementation, modeled explicitly:
 * no mid-quantum preemption — gang preemption takes effect at quantum
   boundaries, contributing the blocking term B_i = max lower-prio quantum to
   RTA (core/rta.py);
-* throttling is admission-based (quantum bytes known from
-  ``compiled.cost_analysis()``) rather than perf-counter-reactive;
+* throttling is admission-based (quantum bytes declared per job: JAX reads
+  them from ``compiled.cost_analysis()``, the port's callers declare them
+  until a torch cost estimate exists) rather than perf-counter-reactive;
 * straggler mitigation: per-quantum deadline monitor with optional
   speculative backup dispatch of idempotent quanta onto idle lanes.
 
-Virtual gangs (DESIGN.md §2.4): ``submit_vgang`` waits for the vgang
-subsystem to be ported and raises until then; a ``budget_policy`` with
-the ``vgang.sched.VirtualGangPolicy`` interface still sets per-lane
-throttle budgets from the glock's live-member state. Budgets are applied *only*
+Virtual gangs (DESIGN.md §2.4): ``submit_vgang`` flattens a formed
+``vgang.formation.VirtualGang`` onto disjoint lane blocks (the same
+member remapping the simulator policy uses) and a ``budget_policy`` —
+normally ``vgang.sched.VirtualGangPolicy`` — sets per-lane throttle
+budgets from the glock's live-member state. Budgets are applied *only*
 from the gang-change hook, under the glock: a worker that picked a gang
 but lost the ownership race (or is still draining the gang-isolation
 barrier) never writes budgets, so a stale lane cannot clobber the
@@ -252,11 +254,49 @@ class GangExecutor:
                      time_scale: float = 1e-3,
                      bytes_per_quantum: Optional[Dict[str, float]] = None
                      ) -> List[RTJob]:
-        """Virtual gangs need the vgang subsystem (formation, sched), which
-        the PyTorch port does not carry yet (ROADMAP.md, queue A)."""
-        raise NotImplementedError(
-            "submit_vgang needs the vgang subsystem, not yet ported to "
-            "repro_torch (ROADMAP.md, queue A)")
+        """Submit a formed virtual gang (vgang/formation.VirtualGang):
+        members are flattened onto disjoint lane blocks with the same
+        remapping the simulator policy uses (vgang/sched.remap_members),
+        share the vgang's priority, and — sharing one period with zero
+        offset — release synchronously, so the glock dispatches them as
+        one unit (Algorithm 1 line 14-15). Member uids are preserved, so
+        a ``VirtualGangPolicy`` installed as ``budget_policy`` resolves
+        its per-member budget tables against the mirrored threads.
+
+        ``fns`` maps member task name -> quantum callable(lane, idx);
+        ``time_scale`` converts task-time periods (sim ms) to wall
+        seconds; ``bytes_per_quantum`` optionally declares per-member
+        quantum traffic for RTG-throttle admission gating."""
+        from repro_torch.vgang.sched import remap_members
+        members = remap_members(vg)
+        # validate the whole gang before submitting any member: a lane
+        # or uid rejection halfway through must not leave a half gang
+        # behind (one member dispatching at the vgang's priority without
+        # its siblings or their budget floors)
+        for m in members:
+            if m.uid in self._instances:
+                raise ValueError(f"duplicate RT job uid {m.uid} "
+                                 f"({m.name!r})")
+            if m.cores and max(m.cores) >= self.n_lanes:
+                raise ValueError(
+                    f"virtual gang {vg.name!r} needs lane "
+                    f"{max(m.cores)}, executor has {self.n_lanes}")
+            if m.name not in fns:
+                raise ValueError(f"virtual gang {vg.name!r}: no quantum "
+                                 f"callable for member {m.name!r}")
+        jobs = []
+        for m in members:
+            job = RTJob(
+                name=m.name, fn=fns[m.name], lanes=m.cores, prio=m.prio,
+                period_s=m.period * time_scale,
+                budget_bytes=m.mem_budget,
+                n_jobs=n_jobs if n_jobs is not None else m.n_jobs,
+                bytes_per_quantum=(bytes_per_quantum or {}).get(m.name,
+                                                                0.0),
+                uid=m.uid)
+            self.submit_rt(job)
+            jobs.append(job)
+        return jobs
 
     # ------------------------------------------------------------------
     def _apply_budgets(self) -> None:

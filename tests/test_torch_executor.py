@@ -11,8 +11,6 @@ import sys
 import time
 from pathlib import Path
 
-import pytest
-
 from repro_torch.core.executor import BEJob, GangExecutor, RTJob
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,12 +74,6 @@ def test_executor_records_stragglers():
                        n_jobs=20))
     ex.run(0.6)
     assert any(s[0] == "j" for s in ex.stragglers)
-
-
-def test_submit_vgang_points_to_roadmap():
-    ex = GangExecutor(n_lanes=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.submit_vgang(None, {})
 
 
 GUARD = """
