@@ -180,10 +180,44 @@ Drives the port in phases and exits non-zero if any fails:
                every verdict is equal, the same lanes settle and every
                finite WCRT agrees within a relative 1e-12; reports both
                backends' times. None of the four kernels may launch in (i)
-               or (j).
+               or (j);
+  (k) train    qwen2-7b at full width, depth cut 28 -> 8 layers (2.954 B
+               parameters: 53 GB of f32 AdamW state with bf16 compute; 28
+               layers would be 137 GB), through repro_torch.training's
+               TrainRunner: f32 masters, bf16 compute, AdamW, remat "block",
+               the synthetic TokenSource at B=4, S=1024, 30 steps, no
+               checkpoint; reports the step time (median without the first
+               3), tokens/s, 6 N tokens / step time against 989 TFLOP/s,
+               peak memory, the loss first -> last and the four kernels'
+               launches, and one more step under torch.profiler (device
+               busy time, idle share, the top kernels); fails unless the
+               loss is finite and falls and no kernel launches (JAX's
+               training reaches no Pallas kernel).
+               Then one f32 loss + gradient at full width (2 layers, B=1,
+               S=256, TF32 off) on the card and on the CPU from the same
+               weights: the loss within 1e-5 relative, every gradient leaf
+               within 1e-4 of that leaf's largest |g|; and the restart path
+               at reduced size under build/ (fail at step 10, resume from
+               the step-8 checkpoint): every loss within 1e-5 relative of
+               the uninterrupted run's;
+  (l) serve+train  repro_torch.examples.serve_with_background_training.run
+               at full width, under RT-Gang and under Co-Sched, 6 s each:
+               the RT gang serves qwen2-7b bf16 at full depth (8 requests
+               of 16-token prompts, 12 new tokens, max_batch 2, max_seq
+               128), the BE job trains olmoe-1b-7b at full width, depth cut
+               16 -> 4 (f32 masters, bf16 compute, AdamW, 4 x 64 tokens a
+               microstep); reports per mode the decode quantum's time and
+               response p50/p99/max, requests finished, microsteps and
+               their median, be_quanta, and from CUDA events on both lanes'
+               streams the share of decode stream time beside a microstep;
+               fails on a raised quantum, a mode with no decode quantum, a
+               non-finite loss, Co-Sched with no microstep (RT-Gang admits
+               none once the gang leads: 1e6 B declared a microstep against
+               the gang's 5e5 B budget, as in JAX's example) or launch
+               counts other than flash = 28 x prefills and 0 for the rest.
 
-Each serving phase sets the kernels' launch counts to 0 just before it
-drives the path and reads them just after; ssd_scan must launch 0 times on
+Each serving and training phase sets the kernels' launch counts to 0
+just before it drives the path and reads them just after; ssd_scan must launch 0 times on
 the qwen2-7b, olmoe-1b-7b and recurrentgemma-9b paths, rglru_scan on all
 but recurrentgemma-9b's. Before the last line it prints
 one JSON object {"kernels": [...]} with each kernel's launches on the serve
@@ -199,6 +233,7 @@ import gc
 import json
 import random
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -216,10 +251,12 @@ from repro_torch.analysis import batched_rta as BRTA  # noqa: E402
 from repro_torch.benchmarks import bench_executor_vgang as vbench  # noqa: E402
 from repro_torch.benchmarks import fig1_parallelization as fig1  # noqa: E402
 from repro_torch.benchmarks import fig6_dnn_cdf as fig6  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.deeppicar import CONFIG as DAVE2  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.core.gang import RTTask  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
+from repro_torch.examples import serve_with_background_training as swbt  # noqa: E402
 from repro_torch.examples import vgang_fleet  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
@@ -237,6 +274,10 @@ from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import rglru as RG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.training.optimizer import OptConfig, Optimizer  # noqa: E402
+from repro_torch.training.runner import (RunnerConfig,  # noqa: E402
+                                         SimulatedFailure, TrainRunner)
+from repro_torch.training.step import loss_and_grads  # noqa: E402
 from repro_torch.vgang import rta as VRTA  # noqa: E402
 from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
                                          intensity_interference,
@@ -394,6 +435,34 @@ RTA_RTOL = 1e-12
 
 SERVE_PROMPTS = (32, 200, 1024, 77, 512, 300)
 SERVE_MAX_NEW = 16
+# (k): qwen2-7b at full width, depth cut 28 -> 8 (18 B a parameter under
+# f32 AdamW with bf16 compute: 8 layers 53 GB, 28 layers 137 GB)
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 30
+TRAIN_SKIP = 3                          # steps left out of the median
+# the f32 card-vs-CPU step: 2 layers, B=1, S=256 (TF32 off)
+CHECK_LAYERS, CHECK_SEQ = 2, 256
+CHECK_LOSS_RTOL = 1e-5
+CHECK_GRAD_TOL = 1e-4                   # of each leaf's largest |g|
+# the restart path at reduced size: 12 steps, checkpoints every 4, a
+# failure at step 10. cuBLAS and the sorted index_put of the embedding's
+# backward repeat their sums on one card, so the losses should agree bit
+# for bit; the check allows 1e-5 relative for the order of any atomic add
+RESTART_RTOL = 1e-5
+# (l): the example's RT side (qwen2-7b bf16, full depth) beside its BE
+# side (olmoe-1b-7b at full width, bf16 compute / f32 masters, depth cut
+# 16 -> 4: 34 GB of training state beside the serving gang's 18 GB)
+BE_TRAIN_LAYERS = 4
+SERVE_TRAIN_DURATION = 6.0
+# (l)'s modes: the example's RT-Gang run declares 1e6 B a microstep against
+# the gang's 5e5 B budget and so admits none once the gang leads; a second
+# RT-Gang run declares half the budget, so that the regulator admits real
+# microsteps beside the gang (a declared cost: the cost estimate is A4)
+BE_FIT_BYTES = 2.5e5
+SERVE_TRAIN_MODES = (("rtgang", True, swbt.TRAIN_BYTES),
+                     ("rtgang_fit", True, BE_FIT_BYTES),
+                     ("cosched", False, swbt.TRAIN_BYTES))
 
 
 def fail(msg: str) -> None:
@@ -1769,6 +1838,304 @@ def phase_rta(dev, smi: str) -> dict:
     return out
 
 
+def phase_train_check(dev) -> dict:
+    """One f32 loss + gradient at full width (2 layers, B=1, S=256), on
+    the card and on the CPU from the same weights (drawn on the card):
+    the loss within CHECK_LOSS_RTOL, each gradient leaf within
+    CHECK_GRAD_TOL of its largest |g| on the CPU."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CHECK_LAYERS,
+                              dtype="float32")
+    parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg, parallel, dev)
+    params = L.init_params(api.defs, seed=1, dtype=torch.float32,
+                           device=dev)
+    b = TokenSource(DataConfig(seq_len=CHECK_SEQ, global_batch=1,
+                               vocab_size=cfg.vocab_size)).train_batch(0)
+    loss_card, _, g_card = loss_and_grads(
+        api, params, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    g_card = [g.cpu() for g in L.tree_leaves(g_card)]
+    cpu_params = L.tree_map(lambda _, p: p.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    loss_cpu, _, g_cpu = loss_and_grads(
+        build_model(cfg, parallel, "cpu"), cpu_params,
+        {k: torch.from_numpy(v) for k, v in b.items()})
+    cpu_s = time.perf_counter() - t0
+    loss_card, loss_cpu = float(loss_card), float(loss_cpu)
+    names = []
+    L.tree_map(lambda path, _: names.append("/".join(path)), g_cpu)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max((float((a - c).abs().max()) / max(float(c.abs().max()),
+                                                   1e-30), path)
+                for a, c, path in zip(g_card, L.tree_leaves(g_cpu), names))
+    print(f"[train] f32 check, {TRAIN_ARCH} full width {CHECK_LAYERS} "
+          f"layers, B=1, S={CHECK_SEQ}: loss card {loss_card:.7f} / CPU "
+          f"{loss_cpu:.7f} (relative {rel:.3g}, limit {CHECK_LOSS_RTOL}); "
+          f"worst gradient leaf {worst[1]} at {worst[0]:.3g} of its largest "
+          f"|g| (limit {CHECK_GRAD_TOL}); CPU step {cpu_s:.1f} s")
+    if not rel <= CHECK_LOSS_RTOL:
+        fail(f"train f32 check: loss card {loss_card} vs CPU {loss_cpu}")
+    if not worst[0] <= CHECK_GRAD_TOL:
+        fail(f"train f32 check: gradient {worst[1]} off by {worst[0]:.3g} "
+             f"of its largest |g|")
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel": rel,
+            "worst_grad_rel": worst[0], "worst_grad_leaf": worst[1],
+            "cpu_s": cpu_s}
+
+
+def phase_train_restart(dev) -> dict:
+    """TrainRunner at reduced size under build/: a run that fails at step
+    10 and resumes from its step-8 checkpoint against one that does not
+    fail; every step's loss within RESTART_RTOL."""
+    cfg = reduced(get_config(TRAIN_ARCH))
+    parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32",
+                              q_block=64, kv_block=64)
+    api = build_model(cfg, parallel, dev)
+    opt = Optimizer(OptConfig(lr=3e-3, warmup=2, decay_steps=20))
+    data = DataConfig(seq_len=32, global_batch=4, vocab_size=cfg.vocab_size)
+    base = ROOT / "build" / "train_restart"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def runner(name, fail_at=None):
+        return TrainRunner(api, opt, data, RunnerConfig(
+            total_steps=12, ckpt_every=4, ckpt_dir=str(base / name),
+            fail_at_step=fail_at))
+    clean = runner("clean")
+    clean.run()
+    want = {m["step"]: m["loss"] for m in clean.metrics_log}
+    first = runner("ft", fail_at=10)
+    try:
+        first.run()
+        fail("train restart: the injected failure did not raise")
+    except SimulatedFailure:
+        pass
+    second = runner("ft")
+    second.run()
+    got = first.metrics_log + second.metrics_log
+    steps = [m["step"] for m in got]
+    if steps != list(range(10)) + [8, 9, 10, 11]:
+        fail(f"train restart: steps {steps}")
+    rel = max(abs(m["loss"] - want[m["step"]]) / abs(want[m["step"]])
+              for m in got)
+    print(f"[train] restart at reduced size: failed at step 10, resumed "
+          f"from the step-8 checkpoint; losses vs the uninterrupted run: "
+          f"max relative difference {rel:.3g} (limit {RESTART_RTOL}); "
+          f"loss {want[0]:.4f} -> {want[11]:.4f}")
+    if not rel <= RESTART_RTOL:
+        fail(f"train restart: losses differ by {rel:.3g} relative")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"max_rel": rel, "losses": [want[i] for i in range(12)]}
+
+
+def phase_train(dev, smi: str) -> dict:
+    """(k): qwen2-7b at full width (depth 28 -> 8) through TrainRunner,
+    bf16 compute / f32 masters, AdamW, remat "block", B=4, S=1024, 30
+    steps; then the f32 card-vs-CPU step and the restart path."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    parallel = ParallelConfig(param_dtype="float32",
+                              compute_dtype="bfloat16", remat="block")
+    api = build_model(cfg, parallel, dev)
+    n = api.n_params()
+    opt = Optimizer(OptConfig(name="adamw", lr=1e-3, warmup=5,
+                              decay_steps=TRAIN_STEPS))
+    data = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size)
+    runner = TrainRunner(api, opt, data, RunnerConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+        ckpt_dir=str(ROOT / "build" / "train_full_width")))
+    print(f"[train] {TRAIN_ARCH} full width (d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+          f"{cfg.vocab_size}), depth cut {get_config(TRAIN_ARCH).n_layers} "
+          f"-> {TRAIN_LAYERS} layers: {n / 1e9:.3f} B params, f32 masters, "
+          f"bf16 compute, AdamW, remat block, B={TRAIN_BATCH}, "
+          f"S={TRAIN_SEQ}, {TRAIN_STEPS} steps, no checkpoint")
+    t0 = time.perf_counter()
+    state = runner.init_state(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = runner.run(state, 0)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log = runner.metrics_log
+    losses = [m["loss"] for m in log]
+    step_s = float(np.median([m["dur_s"] for m in log[TRAIN_SKIP:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the input table is a lookup and does no matrix product: N leaves it
+    # out (the tied table is the lm_head's, and stays)
+    n_mm = n - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    mfu = 6 * n_mm * tokens / step_s / PEAK_OPS[torch.bfloat16]
+    mfu_all = 6 * n * tokens / step_s / PEAK_OPS[torch.bfloat16]
+    print(f"[train] step median {step_s * 1e3:.1f} ms (steps {TRAIN_SKIP}-"
+          f"{TRAIN_STEPS - 1}; first {log[0]['dur_s'] * 1e3:.1f} ms), "
+          f"{tokens / step_s:.0f} tokens/s, 6 N tokens / step with N = "
+          f"{n_mm / 1e9:.3f} B (no input table) "
+          f"{6 * n_mm * tokens / step_s / 1e12:.1f} TFLOP/s = {mfu:.3f} of "
+          f"989 TFLOP/s bf16 ({mfu_all:.3f} with all {n / 1e9:.3f} B); "
+          f"peak memory {peak_gb:.3f} GB; state drawn in "
+          f"{init_s:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches {launches}; stragglers {len(runner.straggler_steps)} "
+          f"[{smi}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} are not finite or did not fall")
+    if any(launches.values()):
+        fail(f"train: the train path launched {launches}; JAX's training "
+             f"reaches no Pallas kernel")
+    trace = trace_train_step(runner, state, smi)
+    del state, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = phase_train_check(dev)
+    restart = phase_train_restart(dev)
+    return {"launches": launches, "n_params": n, "step_ms": step_s * 1e3,
+            "first_step_ms": log[0]["dur_s"] * 1e3,
+            "step_ms_all": [m["dur_s"] * 1e3 for m in log],
+            "tokens_per_s": tokens / step_s, "n_matmul_params": n_mm,
+            "mfu": mfu, "mfu_all_params": mfu_all, "peak_gb": peak_gb,
+            "losses": losses, "init_s": init_s, "trace": trace,
+            "f32_check": check, "restart": restart}
+
+
+def trace_train_step(runner, state, smi: str, top: int = 8) -> dict:
+    """One more step of (k) under torch.profiler: the device's busy time
+    (the traced device events' durations summed: one stream), its idle
+    share of the step and the kernels that take the most device time."""
+    step, batch = next(runner.loader.iterate(TRAIN_STEPS))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = runner.step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    kernels = sorted(((sum(ts), len(ts), n) for n, ts in by_name.items()),
+                     reverse=True)[:top]
+    print(f"[train] step {step} traced: wall {wall_ms:.1f} ms (profiler "
+          f"on), device busy {busy_ms:.1f} ms in {len(events)} device "
+          f"events, idle share {1 - busy_ms / wall_ms:.3f} [{smi}]")
+    for ms, n, name in kernels:
+        print(f"[train]   {ms:8.2f} ms in {n:5d} launches: {name[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "events": len(events),
+            "top": [{"ms": ms, "launches": n, "name": name}
+                    for ms, n, name in kernels]}
+
+
+def stream_overlap(intervals: list[dict], name: str, other: str) -> dict:
+    """How much of ``name``'s stream time (CUDA events on its lane's
+    stream) ran beside ``other``'s: ``overlap`` on the intervals in µs."""
+    def events(n):
+        return [{"ts": q["start_ms"] * 1e3,
+                 "dur": (q["end_ms"] - q["start_ms"]) * 1e3}
+                for q in intervals if q["name"] == n]
+    ov = overlap(events(name), events(other))
+    return {"stream_ms": ov["dnn_kernel_ms"], "overlap_ms": ov["overlap_ms"],
+            "share": ov["share"]}
+
+
+def phase_serve_train(dev, smi: str) -> dict:
+    """(l): examples/serve_with_background_training.run at full width,
+    SERVE_TRAIN_DURATION s in each of SERVE_TRAIN_MODES: RT-Gang with the
+    example's declared cost, RT-Gang with one within the budget, and
+    Co-Sched."""
+    serve_cfg = get_config("qwen2-7b")
+    train_cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                                    n_layers=BE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    models = swbt.build(
+        serve_cfg, train_cfg, device=dev,
+        serve_parallel=ParallelConfig(param_dtype="bfloat16",
+                                      compute_dtype="bfloat16"),
+        train_parallel=ParallelConfig(param_dtype="float32",
+                                      compute_dtype="bfloat16"))
+    print(f"[serve+train] RT: qwen2-7b bf16, {serve_cfg.n_layers} layers; "
+          f"BE: olmoe-1b-7b full width, depth cut "
+          f"{get_config('olmoe-1b-7b').n_layers} -> {BE_TRAIN_LAYERS}, "
+          f"{models['train_api'].n_params() / 1e9:.3f} B params, f32 "
+          f"masters, bf16 compute, AdamW, 4 x 64 tokens a microstep; built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    rows = {}
+    for mode, enabled, train_bytes in SERVE_TRAIN_MODES:
+        reset_launches()
+        res = swbt.run(models, enabled=enabled,
+                       duration=SERVE_TRAIN_DURATION,
+                       train_bytes=train_bytes,
+                       log=lambda line: print(f"{line} [{smi}]"))
+        launches = read_launches()
+        expect = {"flash_attention": serve_cfg.n_layers * res["prefills"],
+                  "moe_gmm": 0, "ssd_scan": 0, "rglru_scan": 0}
+        q, r, t = res["decode_ms"], res["response_ms"], res["train_ms"]
+        busy = res["busy_ms"]
+        ov = stream_overlap(res["intervals"], "serve-decode", "train-be")
+        rows[mode] = row = {
+            "decode_quanta": int(len(q)),
+            "quantum_p50_ms": float(np.percentile(q, 50)) if len(q) else None,
+            "quantum_p99_ms": float(np.percentile(q, 99)) if len(q) else None,
+            "quantum_max_ms": float(q.max()) if len(q) else None,
+            "response_p50_ms": float(np.percentile(r, 50)) if len(r) else None,
+            "response_p99_ms": float(np.percentile(r, 99)) if len(r) else None,
+            "response_max_ms": float(r.max()) if len(r) else None,
+            "busy_quanta": int(len(busy)),
+            "busy_p50_ms": float(np.percentile(busy, 50)) if len(busy)
+            else None,
+            "busy_p99_ms": float(np.percentile(busy, 99)) if len(busy)
+            else None,
+            "requests_done": sum(x.done for x in res["requests"]),
+            "prefills": res["prefills"], "microsteps": int(len(t)),
+            "train_bytes": train_bytes,
+            "microstep_p50_ms": float(np.median(t)) if len(t) else None,
+            "warmup_loss": res["warmup_loss"], "losses": res["losses"],
+            "be_quanta": res["stats"]["be_quanta"],
+            "decode_overlap": ov, "launches": launches}
+        print(f"[serve+train] {mode} (train declared {train_bytes:g} B a "
+              f"quantum): decode quantum p50 / p99 / max "
+              f"{row['quantum_p50_ms']} / {row['quantum_p99_ms']} / "
+              f"{row['quantum_max_ms']} ms over {len(q)} quanta; busy "
+              f"quanta (refill + decode) p50 / p99 {row['busy_p50_ms']} / "
+              f"{row['busy_p99_ms']} ms over {len(busy)}; response "
+              f"p50 / p99 / max {row['response_p50_ms']} / "
+              f"{row['response_p99_ms']} / {row['response_max_ms']} ms; "
+              f"requests done {row['requests_done']}/8; train microsteps "
+              f"{len(t)} (median {row['microstep_p50_ms']} ms) after the "
+              f"warm-up's; be_quanta {row['be_quanta']}; decode stream time "
+              f"beside a microstep {ov['overlap_ms']:.3f} of "
+              f"{ov['stream_ms']:.3f} ms ({ov['share']:.3f}); launches "
+              f"{launches} (expected {expect}) [{smi}]")
+        if not len(q):
+            fail(f"serve+train {mode}: no decode quantum ran")
+        if not all(np.isfinite([res["warmup_loss"]] + res["losses"])):
+            fail(f"serve+train {mode}: a non-finite loss")
+        if launches != expect:
+            fail(f"serve+train {mode}: launches {launches}, expected "
+                 f"{expect}")
+    # RT-Gang's regime (the example's 5e5 B budget against 1e6 B declared
+    # a microstep) admits no microstep once the gang has led: training's
+    # progress there is its warm-up microstep, as in JAX's example. Under
+    # a declared cost within the budget, RT-Gang must train too
+    for mode in ("rtgang_fit", "cosched"):
+        if not rows[mode]["microsteps"]:
+            fail(f"serve+train {mode}: no train microstep ran")
+    rows["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve+train] peak memory {rows['peak_gb']:.3f} GB; decode "
+          f"quantum p99 RT-Gang {rows['rtgang']['quantum_p99_ms']} ms, "
+          f"RT-Gang with training admitted "
+          f"{rows['rtgang_fit']['quantum_p99_ms']} ms, Co-Sched "
+          f"{rows['cosched']['quantum_p99_ms']} ms (reported, not checked) "
+          f"[{smi}]")
+    del models
+    return rows
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, static shared memory and spills of each kernel in an
     ``nvcc -Xptxas -v`` log, names demangled where c++filt is there."""
@@ -1903,14 +2270,22 @@ def main() -> int:
     rta_rep = timed("j", phase_rta, dev, smi)
     if any(read_launches().values()):
         fail(f"phase (j) launched {read_launches()}")
+    train_rep = timed("k", phase_train, dev, smi)
+    free()
+    st_rep = timed("l", phase_serve_train, dev, smi)
+    free()
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
         "moe_gmm": next(r for r in gmm_rows if r.get("reported")),
         "ssd_scan": next(r for r in ssd_rows if r.get("reported")),
         "rglru_scan": next(r for r in rg_rows if r.get("reported"))}
+    serve_train = {k: sum(st_rep[m]["launches"][k]
+                          for m, _, _ in SERVE_TRAIN_MODES) for k in KERNELS}
     by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"],
-               MAMBA_ARCH: sv3["launches"], HYBRID_ARCH: sv4["launches"]}
+               MAMBA_ARCH: sv3["launches"], HYBRID_ARCH: sv4["launches"],
+               "train (k)": train_rep["launches"],
+               "serve+train (l)": serve_train}
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:82",
@@ -1931,6 +2306,7 @@ def main() -> int:
               "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
               "gang_recurrentgemma": sv4, "dave2": dave2, "fig1": fig1_rep,
               "fig6": fig6_rep, "vgang": vgang_rep, "rta": rta_rep,
+              "train": train_rep, "serve_train": st_rep,
               "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
@@ -1944,7 +2320,10 @@ def main() -> int:
           f"{[fig6_rep[m]['n'] for m in ('solo', 'cosched', 'rtgang')]}; "
           f"vgang: pass ({len(vgang_rep['bench']['modes'])} modes, "
           f"{len(vgang_rep['fleet'])} fleet runs); rta: pass "
-          f"({len(rta_rep)} shards)")
+          f"({len(rta_rep)} shards); train: pass (loss "
+          f"{train_rep['losses'][0]:.3f} -> {train_rep['losses'][-1]:.3f}, "
+          f"f32 card vs CPU, restart); serve+train: pass (RT-Gang, "
+          f"RT-Gang with training admitted, Co-Sched)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

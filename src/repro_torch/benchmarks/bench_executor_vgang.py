@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import threading
 import time
@@ -99,6 +100,7 @@ MEMBERS = {
 SIBLING_BYTES = {"cam": 4e6, "lidar": 3e6, "imu": 1e6,
                  "dnn": 3e6, "plan": 3e6}
 BE_BYTES = 5e5                # filler quantum traffic
+RT_PRIORITY = 10              # SCHED_RR priority of the CPU bench's lanes
 
 # bench mode -> registry policy family (vgang/family.py); the three vgang
 # modes share one formed object via the families' common form_key
@@ -172,14 +174,14 @@ class Quanta:
             raise self.errors[0]
 
 
-def calibrate(step, reps: int = 12) -> float:
-    """Solo per-quantum wall time of the wrapped quantum (max over reps,
-    seconds)."""
+def calibrate(step, reps: int = 12, clock=time.perf_counter) -> float:
+    """Solo per-quantum time of the wrapped quantum on ``clock`` (max over
+    reps, seconds)."""
     best = 0.0
     for _ in range(reps):
-        t0 = time.perf_counter()
+        t0 = clock()
         step(0, 0)
-        best = max(best, time.perf_counter() - t0)
+        best = max(best, clock() - t0)
     return best
 
 
@@ -187,7 +189,18 @@ def build_taskset(margin: float, quanta: Quanta):
     steps = {name: quanta.make_step(name, n)
              for name, (n, _, _, _) in MEMBERS.items()}
     quanta.warm(steps)
-    quanta_s = {name: calibrate(step) for name, step in steps.items()}
+    # on the card a quantum costs its wall time (launches, the stream's
+    # drain). On the CPU a lane is a host thread running the products
+    # itself (one intra-op thread), and on a loaded host the OS takes the
+    # core away for whole time slices (4 ms and more): a wall-clock max
+    # then prices a member at a slice it happened to lose, the formation
+    # follows that noise, and descheduling is already what the blocking
+    # term's jitter allowance covers. So the CPU calibrates on the
+    # thread's CPU time.
+    clock = time.thread_time if quanta.device.type == "cpu" \
+        else time.perf_counter
+    quanta_s = {name: calibrate(step, clock=clock)
+                for name, step in steps.items()}
     wcet_ms = {name: max(margin * q * 1e3, 2.0)
                for name, q in quanta_s.items()}
     # periods from the calibrated WCETs: total utilization <= ~1/3,
@@ -367,6 +380,19 @@ def resolve_bench_executor_config(argv=None):
     return cfg, ap.parse_args(argv).device
 
 
+def realtime_lanes():
+    """Run this thread, and so every lane thread the executor starts from
+    it (threads inherit the policy), under ``SCHED_RR`` where the OS
+    allows it, as RT-Gang runs its real-time tasks. Returns the policy and
+    parameters to restore, or None where the OS refuses."""
+    try:
+        old = (os.sched_getscheduler(0), os.sched_getparam(0))
+        os.sched_setscheduler(0, os.SCHED_RR, os.sched_param(RT_PRIORITY))
+    except (AttributeError, OSError):
+        return None
+    return old
+
+
 def main(argv=None) -> int:
     cfg, device = resolve_bench_executor_config(argv)
     dev = resolve_device(device)
@@ -376,13 +402,19 @@ def main(argv=None) -> int:
     # on the CPU a lane is one host thread: concurrent lanes whose
     # products each fan out over every intra-op thread oversubscribe the
     # cores, and the calibrated WCETs (hence periods and durations) blow
-    # up on a busy host
+    # up on a busy host. Beside other processes that keep every core busy,
+    # a lane thread of normal priority also waits 100-300 ms for a core
+    # after its release, past the jitter allowance: the lanes run as
+    # real-time threads where the OS lets them
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    policy = realtime_lanes()
     try:
         return run(cfg, dev)
     finally:
         torch.set_num_threads(threads)
+        if policy is not None:
+            os.sched_setscheduler(0, *policy)
 
 
 def run(cfg, dev) -> int:

@@ -8,7 +8,8 @@ chunk of 8 steps), local recurrences with running decay products, a carry
 pass over the chunks in shared memory, then the fix-up; ``ref.
 rglru_chunked_reference`` is the same algorithm in plain PyTorch. One
 device launch a call, on PyTorch's current stream. A CPU tensor goes to
-the plain version (``ref.rglru_scan_reference``); a CUDA tensor goes to
+the plain version (``models.rglru._rglru_scan``, imported at the call:
+the model module imports this one); a CUDA tensor goes to
 the kernel, or the call raises. The kernel is built at its first launch
 (``repro_torch.kernels.build``).
 """
@@ -18,8 +19,6 @@ import ctypes
 import threading
 
 import torch
-
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference
 
 SOURCES = ("rglru_scan.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,7 +78,8 @@ def rglru_scan(log_a, gx, h0=None):
     Any S and C."""
     global launches
     if log_a.device.type == "cpu":
-        return rglru_scan_reference(log_a, gx, h0)
+        from repro_torch.models.rglru import _rglru_scan
+        return _rglru_scan(log_a, gx, h0)
     _check(log_a, gx, h0)
     B, S, C = log_a.shape
     lib = build().lib

@@ -7,7 +7,8 @@ computed once per (b, chunk) instead of per head from a copy broadcast
 over heads. A call makes two device launches on PyTorch's current stream
 (C B^T, then the chunk-parallel scan; ``csrc/ssd_scan.cu``) into a scratch
 tensor the wrapper allocates, and counts as one launch. A CPU tensor goes
-to the plain version (``ref.ssd_chunked_reference``); a CUDA tensor goes
+to the plain version (``models.mamba2._ssd_chunked``, imported at the
+call: the model module imports this one); a CUDA tensor goes
 to the kernel, or the call raises. The kernel is built at its first launch
 (``repro_torch.kernels.build``).
 """
@@ -18,8 +19,6 @@ import functools
 import threading
 
 import torch
-
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference
 
 SOURCES = ("ssd_scan.cu",)
 MAX_STATE = 128      # N: a block's state pass splits 128 state rows
@@ -114,7 +113,8 @@ def ssd_scan(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
     state) is taken by the plain version only."""
     global launches
     if xh.device.type == "cpu":
-        y, h = ssd_chunked_reference(xh, dt, Bm, Cm, A, h0=h0, chunk=chunk)
+        from repro_torch.models.mamba2 import _ssd_chunked
+        y, h = _ssd_chunked(xh, dt, Bm, Cm, A, h0=h0, chunk=chunk)
         return y.to(xh.dtype), h
     _check(xh, dt, Bm, Cm, A, h0, chunk)
     B, S, H, P = xh.shape

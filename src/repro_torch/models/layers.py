@@ -10,6 +10,10 @@ statistics, silu/gelu in f32, RoPE angles in f32, split-half rotation).
   hand-written flash kernel (``repro_torch.kernels.flash_attention``) at
   every prompt length — the kernel that replaces the JAX package's jnp
   flash twin; on the CPU the kernel wrapper takes its plain version.
+  ``train_attention`` is the train path: JAX's own dispatch between
+  ``masked_attention`` and ``flash_attention_blocked`` (the counterpart of
+  its jnp ``flash_attention_jnp``), under autograd; the kernel has no
+  backward, and JAX's training path reaches no Pallas kernel either.
   ``decode_attention`` is single-query attention against a KV cache in
   plain torch ops (the JAX package has no Pallas kernel for it).
 """
@@ -190,6 +194,78 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         return masked_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, softcap=softcap)
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_blocked(q, k, v, *, causal: bool = True,
+                            window: int = 0, q_block: int = 512,
+                            kv_block: int = 1024, softcap: float = 0.0):
+    """Blocked online-softmax attention in torch ops (JAX's
+    ``flash_attention_jnp``, without the context-parallel ``q_offset``).
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), Sq a multiple of q_block and
+    Sk of kv_block. Kv blocks that the causal mask or the window hide
+    entirely are skipped, as JAX's ``lax.cond`` skips them. Scores and the
+    softmax statistics are f32; the running output is in v's dtype, as in
+    JAX. Returns (B, Sq, Hq, D)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if Sq % q_block or Sk % kv_block:
+        raise ValueError(f"Sq {Sq} / Sk {Sk} not multiples of q_block "
+                         f"{q_block} / kv_block {kv_block}")
+    dev = q.device
+    outs = []
+    for q_start in range(0, Sq, q_block):
+        qblk = q[:, q_start:q_start + q_block].reshape(
+            B, q_block, Hkv, G, D) * (D ** -0.5)
+        qpos = q_start + torch.arange(q_block, device=dev)[:, None]
+        m = torch.full((B, Hkv, G, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, q_block, D), dtype=v.dtype, device=dev)
+        for k_start in range(0, Sk, kv_block):
+            if causal and k_start > q_start + q_block - 1:
+                continue
+            if window > 0 and k_start + kv_block - 1 <= q_start - window:
+                continue
+            kblk = k[:, k_start:k_start + kv_block]
+            vblk = v[:, k_start:k_start + kv_block]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk.float(), kblk.float())
+            if softcap > 0:
+                s = torch.tanh(s / softcap) * softcap
+            kpos = k_start + torch.arange(kv_block, device=dev)[None, :]
+            mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk)
+            acc = acc * corr[..., None].to(acc.dtype) + pv
+            m = m_new
+        out = acc / l.clamp_min(1e-20)[..., None].to(acc.dtype)
+        outs.append(out.permute(0, 3, 1, 2, 4))     # (B, q_block, Hkv, G, D)
+    return torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
+
+
+def train_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_block: int = 512,
+                    kv_block: int = 1024):
+    """Train-mode attention: JAX's ``layers.attention`` dispatch (short or
+    ragged sequences materialize the scores, long ones go blocked), in
+    torch ops that autograd differentiates. Calls no kernel."""
+    S = q.shape[1]
+    if S <= max(q_block, 512) or S % q_block or S % kv_block:
+        return masked_attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+    return flash_attention_blocked(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_block=q_block,
+                                   kv_block=kv_block)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,

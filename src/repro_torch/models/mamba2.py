@@ -9,8 +9,10 @@ RMSNorm on the output and a causal depthwise conv on (x, B, C) inputs.
 
 Prefill runs the chunked SSD scan through ``kernels.ssd_scan.ops.ssd_scan``:
 on the card the hand-written CUDA kernel, on the CPU its plain version
-(JAX's ``_ssd_chunked``). Its inputs are f32, as ``_ssd_chunked`` casts
-them, so y stays f32 up to the ``D_skip`` term in a bf16 model too. Decode
+``_ssd_chunked`` (JAX's ``_ssd_chunked``, defined here). Train mode
+calls ``_ssd_chunked`` itself, under autograd, on either device. The
+scan's inputs are f32, as ``_ssd_chunked`` casts them, so y stays f32 up
+to the ``D_skip`` term in a bf16 model too. Decode
 is the O(1) recurrent update in torch ops (the JAX package has no Pallas
 kernel for it). JAX promotes bf16 x f32 to f32 inside its einsums; torch
 does not mix dtypes, so the casts to f32 are written out.
@@ -70,6 +72,69 @@ def _causal_conv(x, w, state=None):
     return y, new_state
 
 
+def _ssd_chunked(xh, dt, Bm, Cm, A, h0=None, chunk: int = 256):
+    """Chunked SSD scan.
+
+    xh: (B,S,H,P); dt: (B,S,H) (post-softplus); Bm, Cm: (B,S,N); A: (H,)
+    < 0. h0: optional (B,H,P,N) initial state.
+    Returns y: (B,S,H,P), h_final: (B,H,P,N). All math f32, y too.
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    S_orig = S
+    if S % Q:
+        # pad with dt=0 tokens: decay exp(0)=1 and zero input contribution,
+        # so state and earlier outputs are unaffected.
+        pad = Q - S % Q
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        S = S + pad
+    nc = S // Q
+    xh, dt, Bm, Cm, A = (t.float() for t in (xh, dt, Bm, Cm, A))
+
+    xb = xh.reshape(Bsz, nc, Q, H, P)
+    db = dt.reshape(Bsz, nc, Q, H)
+    Bb = Bm.reshape(Bsz, nc, Q, N)
+    Cb = Cm.reshape(Bsz, nc, Q, N)
+
+    # log-decay within chunk: L[t] = sum_{u<=t} A*dt_u   (B,nc,Q,H)
+    logd = db * A[None, None, None, :]
+    Lc = torch.cumsum(logd, dim=2)
+    Ltot = Lc[:, :, -1, :]                                   # (B,nc,H)
+
+    # intra-chunk quadratic form
+    CB = torch.einsum("bcqn,bckn->bcqk", Cb, Bb)             # (B,nc,Q,Q)
+    # decay(i,j) = exp(L_i - L_j) for j<=i
+    diff = Lc[:, :, :, None, :] - Lc[:, :, None, :, :]       # (B,nc,Q,Q,H)
+    iq = torch.arange(Q, device=xh.device)
+    causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
+    M = torch.where(causal, torch.exp(diff), 0.0)
+    M = M * CB[..., None] * db[:, :, None, :, :]             # j-index dt
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", M, xb)
+
+    # per-chunk end-state contribution: sum_j exp(Ltot - L_j) dt_j B_j x_j
+    decay_end = torch.exp(Ltot[:, :, None, :] - Lc)         # (B,nc,Q,H)
+    S_chunk = torch.einsum("bcqh,bcqn,bcqhp->bchpn",
+                           decay_end * db, Bb, xb)           # (B,nc,H,P,N)
+
+    # inter-chunk scan
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0.float())
+    y_inter = []
+    for c in range(nc):
+        # y_inter[i] = C_i . (exp(L_i) * h)
+        y_inter.append(torch.einsum("bqn,bqh,bhpn->bqhp", Cb[:, c],
+                                    torch.exp(Lc[:, c]), h))
+        h = torch.exp(Ltot[:, c])[:, :, None, None] * h + S_chunk[:, c]
+    y_inter = torch.stack(y_inter, dim=1)                    # (B,nc,Q,H,P)
+
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y[:, :S_orig], h
+
+
 def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     """x: (B,S,D). Returns (x_out, cache).
 
@@ -117,8 +182,9 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
             cache[name].copy_(new)
         new_cache = cache
     else:
-        y, h_fin = ssd_scan(xh.float(), dt, Bm.float(), Cm.float(), A,
-                            chunk=min(s.chunk, S))
+        scan = _ssd_chunked if ctx.mode == "train" else ssd_scan
+        y, h_fin = scan(xh.float(), dt, Bm.float(), Cm.float(), A,
+                        chunk=min(s.chunk, S))
         new_cache = None
         if ctx.mode == "prefill":
             new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC,

@@ -13,7 +13,8 @@ a Python int computed from the token count (a shape). The per-expert
 products are the hand-written ``moe_gmm`` kernel on the card
 (``repro_torch.kernels.moe_gmm``), three launches per layer, which reads
 the per-expert row counts from device memory; on the CPU the kernel's
-wrapper takes its plain version.
+wrapper takes its plain version. In train mode they are JAX's einsums
+(``_expert_ffn_einsum``), under autograd.
 """
 from __future__ import annotations
 
@@ -93,6 +94,16 @@ def _expert_ffn(wg, wu, wd, xs, counts):
     return grouped_matmul(h, wd, counts)
 
 
+def _expert_ffn_einsum(wg, wu, wd, xs):
+    """JAX's ``_expert_ffn``: the same SwiGLU per expert as einsums over
+    the whole capacity buffer, which autograd differentiates (the kernel
+    has no backward). The train path."""
+    g = torch.einsum("ecd,edf->ecf", xs, wg)
+    u = torch.einsum("ecd,edf->ecf", xs, wu)
+    h = L.swiglu(g, u)
+    return torch.einsum("ecf,efd->ecd", h, wd)
+
+
 def _capacity(T: int, top_k: int, n_experts: int,
               capacity_factor: float) -> int:
     """JAX's ``_moe_dense_fallback`` capacity: the fair share times the
@@ -104,10 +115,12 @@ def _capacity(T: int, top_k: int, n_experts: int,
 # --------------------------------------------------------------------------
 # Single-device path
 # --------------------------------------------------------------------------
-def _moe_dense_fallback(cfg: ModelConfig, p, x, with_aux: bool = True):
+def _moe_dense_fallback(cfg: ModelConfig, p, x, with_aux: bool = True,
+                        train: bool = False):
     """No-mesh path: every expert computed locally via a capacity buffer.
     Pairs ranked at or past the capacity are dropped, as in JAX. Returns
-    (y, load_balance, router_z); the losses are None unless ``with_aux``."""
+    (y, load_balance, router_z); the losses are None unless ``with_aux``.
+    ``train`` computes the experts with ``_expert_ffn_einsum``."""
     moe = cfg.moe
     E, k = moe.n_experts, moe.top_k
     B, S, D = x.shape
@@ -128,8 +141,10 @@ def _moe_dense_fallback(cfg: ModelConfig, p, x, with_aux: bool = True):
     # that a boolean mask or bincount's size check would make
     counts = torch.zeros((E,), dtype=torch.int32, device=dev).scatter_add_(
         0, flat_e, valid.to(torch.int32))
-    out = _expert_ffn(p["wg"], p["wu"], p["wd"], buf.reshape(E, cap, D),
-                      counts).reshape(E * cap, D)
+    xs = buf.reshape(E, cap, D)
+    out = (_expert_ffn_einsum(p["wg"], p["wu"], p["wd"], xs) if train else
+           _expert_ffn(p["wg"], p["wu"], p["wd"], xs, counts))
+    out = out.reshape(E * cap, D)
     gathered = out[slot] * torch.where(valid, flat_w, 0.0)[:, None].to(
         out.dtype)
     # JAX's .at[flat_t].add: flat_t is each token repeated k times, so the
@@ -146,7 +161,8 @@ def moe_mlp_apply(ctx: Ctx, p, x):
     computes and drops, are not computed (aux is {})."""
     h = _norm(ctx.cfg, p, x)
     with_aux = ctx.mode != "decode"
-    y, lb, rz = _moe_dense_fallback(ctx.cfg, p, h, with_aux=with_aux)
+    y, lb, rz = _moe_dense_fallback(ctx.cfg, p, h, with_aux=with_aux,
+                                    train=ctx.mode == "train")
     aux = {"load_balance": lb, "router_z": rz} if with_aux else {}
     return x + y, aux
 

@@ -13,7 +13,8 @@ local MQA attention) and an MLP. RG-LRU per channel c:
 Prefill runs the recurrence through ``kernels.rglru_scan.ops.rglru_scan``
 where JAX calls ``_rglru_scan`` (an associative scan of the same function,
 with the same contract): on the card the hand-written CUDA kernel, on the
-CPU its plain version.
+CPU its plain version ``_rglru_scan`` (defined here). Train mode calls
+``_rglru_scan`` itself, under autograd, on either device.
 Decode is the O(1) update in f32 torch ops; it updates the cache leaves
 ``conv`` and ``h`` in place, as the port's Mamba2 block does. The dtype
 order is JAX's: gate, x-branch and conv in the compute dtype; r, i,
@@ -72,6 +73,25 @@ def _block_diag_apply(x, w, b, nb):
     return y.reshape(B, S, Wd)
 
 
+def _rglru_scan(log_a, gx, h0=None):
+    """The linear recurrence h_t = exp(log_a_t) h_{t-1} + gx_t per channel
+    (JAX's ``_rglru_scan``, as a sequential loop that autograd
+    differentiates). log_a, gx: (B, S, C); h0: (B, C) or None, folded into
+    the first step as JAX folds it. Returns (h_all (B, S, C) in log_a's
+    dtype, h_last (B, C) f32); all arithmetic in f32."""
+    a = torch.exp(log_a.float())
+    b = gx.float()
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0.float()
+    h = torch.zeros_like(b[:, 0])
+    hs = []
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(log_a.dtype), h
+
+
 def rglru_mixer_apply(ctx, p, x, cache: Optional[dict] = None):
     """x: (B,S,D). Returns (x + mixer(x), cache).
 
@@ -106,7 +126,8 @@ def rglru_mixer_apply(ctx, p, x, cache: Optional[dict] = None):
         new_cache = cache
     else:
         h0 = cache["h"].float() if cache else None
-        y, h_last = rglru_scan(log_a, gated_x, h0)
+        scan = _rglru_scan if ctx.mode == "train" else rglru_scan
+        y, h_last = scan(log_a, gated_x, h0)
         new_cache = ({"conv": conv_new, "h": h_last}
                      if ctx.mode == "prefill" else None)
 

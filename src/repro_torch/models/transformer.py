@@ -24,8 +24,10 @@ from repro_torch.models import layers as L
 @dataclasses.dataclass
 class Ctx:
     cfg: ModelConfig
-    mode: str                       # prefill | decode
-    positions: Any = None           # (1, S) int64 for prefill, (B,) decode
+    mode: str                       # train | prefill | decode
+    positions: Any = None           # (1, S) train/prefill, (B,) decode
+    q_block: int = 512              # train attention's blocks (JAX's
+    kv_block: int = 1024            # ParallelConfig.q_block / kv_block)
 
 
 # --------------------------------------------------------------------------
@@ -95,6 +97,7 @@ def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None):
     """Self-attention sub-block. Returns (x + attn_out, cache).
 
     prefill: the returned cache is {"k", "v"} of shape (B, S, Hkv, D).
+    train: no cache; attention is ``layers.train_attention``, no kernel.
     decode: ``cache`` holds this layer's (B, Smax, Hkv, D) views of the
     engine's cache; the new token's K/V are written into them in place at
     ``ctx.positions`` and the same dict is returned.
@@ -125,9 +128,15 @@ def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None):
     if cfg.rope_theta > 0:
         q = L.rope(q, ctx.positions, cfg.rope_theta)
         k = L.rope(k, ctx.positions, cfg.rope_theta)
-    new_cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
-    out = L.attention(q, k, v, causal=True, window=cfg.window,
-                      softcap=cfg.logit_softcap)
+    if ctx.mode == "train":
+        new_cache = None
+        out = L.train_attention(q, k, v, causal=True, window=cfg.window,
+                                softcap=cfg.logit_softcap,
+                                q_block=ctx.q_block, kv_block=ctx.kv_block)
+    else:
+        new_cache = {"k": k, "v": v}
+        out = L.attention(q, k, v, causal=True, window=cfg.window,
+                          softcap=cfg.logit_softcap)
     B, S = x.shape[0], x.shape[1]
     attn_out = out.reshape(B, S, cfg.q_dim) @ p["wo"]
     return x + attn_out, new_cache

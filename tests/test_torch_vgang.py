@@ -16,6 +16,7 @@ device work to it.
 """
 import dataclasses
 import json
+import os
 import random
 import time
 
@@ -793,6 +794,25 @@ def test_bench_executor_vgang_cpu_smoke(tmp_path):
         .with_value("output.out", str(out)).content_digest()
 
 
+def test_cpu_bench_calibrates_on_thread_time_and_restores_policy(
+        tmp_path, monkeypatch):
+    """On the CPU the bench prices a member at its lane thread's CPU time
+    (a lost time slice on a loaded host is not the quantum's cost), and
+    leaves the calling thread's scheduling policy as it found it."""
+    clocks = []
+
+    def calibrate(step, clock):
+        clocks.append(clock)
+        return 1e-4
+    monkeypatch.setattr(bench, "calibrate", calibrate)
+    before = (os.sched_getscheduler(0), os.sched_getparam(0))
+    bench.main(["--device", "cpu", "--smoke", "--duration", "0.3",
+                "--out", str(tmp_path / "bench.json")])
+    assert len(clocks) == len(bench.MEMBERS)
+    assert all(c is time.thread_time for c in clocks)
+    assert (os.sched_getscheduler(0), os.sched_getparam(0)) == before
+
+
 def test_bench_raising_quantum_fails_the_run(tmp_path, monkeypatch):
     """A quantum that raises ends its lane's thread; the bench reports it
     and exits nonzero instead of passing on the surviving lanes."""
@@ -813,7 +833,7 @@ def test_bench_raising_quantum_fails_the_run(tmp_path, monkeypatch):
     monkeypatch.setattr(bench.Quanta, "make_step", make_step)
     # a fixed calibration keeps the formation (3 vgangs) off the host's
     # timing noise: this test is about the fault, not the bounds
-    monkeypatch.setattr(bench, "calibrate", lambda step: 1e-4)
+    monkeypatch.setattr(bench, "calibrate", lambda step, clock: 1e-4)
     out = tmp_path / "bench.json"
     rc = bench.main(["--device", "cpu", "--smoke", "--duration", "0.5",
                      "--out", str(out)])
