@@ -20,7 +20,12 @@ Drives the port in phases and exits non-zero if any fails:
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
                Hq = Hkv = 16, D 128; causal, S 32/200/1024; recurrentgemma-
                9b: Hq 16, Hkv 1, D 256, window 2048, S 32/200/300/1024, and
-               a window of 256 that binds at S 1024), and on the edges of
+               a window of 256 that binds at S 1024; internvl2-1b: Hq 14,
+               Hkv 2, D 64, causal, at each of (m)'s prompts, S 288/456/
+               1024/556; whisper-base: Hq = Hkv = 8, D 64, the encoder's
+               non-causal 1500 x 1500, and at each of (n)'s decoder prompts,
+               4/32/200/300, the decoder's causal self-attention and its
+               non-causal cross-attention, Sq x Sk 1500), and on the edges of
                the bf16 tensor-core path (S not a multiple of 16 or 64,
                every head dim, GQA groups 1/4/7/16, rows all masked in a
                kv tile), f32 and bf16, tolerance 2e-5 (f32) / 3e-2 (bf16);
@@ -131,6 +136,31 @@ Drives the port in phases and exits non-zero if any fails:
   (e4) oracle  as (e3) at full width in f32, with both scans' and the flash
                kernel's plain versions, every cache leaf after the prefills
                and after the decode steps checked;
+  (m) gang     internvl2-1b (vlm: Qwen2-0.5B-like LM, 24 layers, the stub
+               vision tower's patches in the first 256 positions) at full
+               width and depth in bf16 the same way: batch-1 prefills of
+               288 / 456 / 1024 / 556 tokens (256 patch positions, patches
+               normal x 0.02 from a seed, plus 32 / 200 / 768 / 300 text
+               tokens), k/v padded into (24, 4, 2048, 2, 64) buffers, then
+               the batched decode step as the RT gang until 16 tokens each.
+               flash must launch exactly 24 x 4 times, the others never
+               (the slot engine prefills tokens only, as JAX's: the gang
+               is the batched decode_fn, as for mamba2 and recurrentgemma);
+  (m2) oracle  as (e4) at full width in f32, every cache leaf; and each
+               sequence's last-token decode after a prefill of the rest
+               against the full prefill within 2e-3; the patches scaled by
+               -5 must move the logits and the k cache by more than 1e-3;
+  (n) gang     whisper-base (audio: 6 encoder + 6 decoder layers, 1500 stub
+               frames a prompt, normal x 0.02) the same way: decoder
+               prompts of 4 / 32 / 200 / 300 tokens, the self cache padded
+               into (6, 4, 448, 8, 64) buffers (whisper's decoder context),
+               cross K/V (6, 4, 1500, 8, 64) concatenated; flash must
+               launch exactly 18 x 4 times (6 encoder layers, non-causal
+               1500 x 1500; 6 decoder self, causal; 6 cross, Sq x 1500),
+               the others never; decode's cross-attention reads the cached
+               K/V in torch ops (JAX has no kernel there either);
+  (n2) oracle  as (m2) for whisper-base, cross_k / cross_v included, the
+               frames scaled by -5 moving the logits and cross_k;
   (f) dave2    the paper's DAVE-2 control-loop CNN (repro_torch.models.
                dave2, f32, TF32 off) on the card at B=1 and B=8, random
                images from a seed, against the same module on the CPU with
@@ -214,12 +244,22 @@ Drives the port in phases and exits non-zero if any fails:
                non-finite loss, Co-Sched with no microstep (RT-Gang admits
                none once the gang leads: 1e6 B declared a microstep against
                the gang's 5e5 B budget, as in JAX's example) or launch
-               counts other than flash = 28 x prefills and 0 for the rest.
+               counts other than flash = 28 x prefills and 0 for the rest;
+  (o) smoke    scripts/torch_smoke_one.py on the card for qwen2-7b,
+               olmoe-1b-7b, mamba2-1.3b, recurrentgemma-9b, internvl2-1b and
+               whisper-base (one AdamW step, a prefill and a decode step of
+               each reduced config, all finite); then one f32 loss +
+               gradient of reduced internvl2-1b and reduced whisper-base
+               (the data pipeline's batch with patches / frames, B=2, S=32)
+               on the card and on the CPU from the same weights, at (k)'s
+               tolerances (whisper's key-bias gradients, zero in exact
+               arithmetic without RoPE, held to 1e-6 of the largest |g| on
+               either side instead), with no kernel launch.
 
 Each serving and training phase sets the kernels' launch counts to 0
-just before it drives the path and reads them just after; ssd_scan must launch 0 times on
-the qwen2-7b, olmoe-1b-7b and recurrentgemma-9b paths, rglru_scan on all
-but recurrentgemma-9b's. Before the last line it prints
+just before it drives the path and reads them just after; ssd_scan must
+launch 0 times on every path but mamba2-1.3b's, rglru_scan on all but
+recurrentgemma-9b's, moe_gmm on all but olmoe-1b-7b's. Before the last line it prints
 one JSON object {"kernels": [...]} with each kernel's launches on the serve
 paths, error, times and bound (``ms`` from calls back to back, and for the
 two scans also ``graph_ms``, the device time in a CUDA graph); the last
@@ -230,6 +270,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import random
 import re
@@ -290,39 +331,64 @@ HBM_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# (B, S, Hq, Hkv, D, causal, window, dtype): tests/test_kernels.py's cases,
-# then the serve path's prefill shapes and a local-window case
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype): tests/test_kernels.py's
+# cases, then the serve paths' prefill shapes and a local-window case
 KERNEL_CASES = [
-    (2, 256, 4, 2, 64, True, 0, torch.float32),
-    (1, 128, 8, 1, 32, True, 0, torch.float32),
-    (2, 256, 4, 4, 64, True, 64, torch.float32),
-    (1, 256, 2, 2, 128, False, 0, torch.float32),
-    (1, 128, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 256, 256, 4, 2, 64, True, 0, torch.float32),
+    (1, 128, 128, 8, 1, 32, True, 0, torch.float32),
+    (2, 256, 256, 4, 4, 64, True, 64, torch.float32),
+    (1, 256, 256, 2, 2, 128, False, 0, torch.float32),
+    (1, 128, 128, 4, 2, 64, True, 0, torch.bfloat16),
 ]
-MAIN_SHAPES = [(1, S, Hq, Hkv, 128, True, 0, dt)
+MAIN_SHAPES = [(1, S, S, Hq, Hkv, 128, True, 0, dt)
                for Hq, Hkv in ((28, 4), (16, 16))      # qwen2-7b, olmoe-1b-7b
                for dt in (torch.bfloat16, torch.float32)
                for S in (32, 200, 1024)]
-WINDOW_CASE = (1, 1024, 28, 4, 128, True, 64, torch.bfloat16)
+WINDOW_CASE = (1, 1024, 1024, 28, 4, 128, True, 64, torch.bfloat16)
 # recurrentgemma-9b's local attention (Hq 16, Hkv 1, D 256, window 2048,
 # which never binds at these lengths), then a window that binds at D 256
-HYBRID_SHAPES = [(1, S, 16, 1, 256, True, 2048, dt)
+HYBRID_SHAPES = [(1, S, S, 16, 1, 256, True, 2048, dt)
                  for dt in (torch.bfloat16, torch.float32)
                  for S in (32, 200, 300, 1024)]
-HYBRID_WINDOW_CASE = (1, 1024, 16, 1, 256, True, 256, torch.bfloat16)
-TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE]
+HYBRID_WINDOW_CASE = (1, 1024, 1024, 16, 1, 256, True, 256, torch.bfloat16)
+# (m) / (n): the families with a stub tower. internvl2-1b's prompts are 256
+# patch positions plus 32 / 200 / 768 / 300 text tokens, batched into 2048
+# cache rows; whisper-base's are decoder prompts beside 1500 frames each,
+# the self cache grown to whisper's own decoder context of 448
+VLM_ARCH = "internvl2-1b"
+VLM_PROMPTS = (288, 456, 1024, 556)
+VLM_MAX_SEQ = 2048
+AUDIO_ARCH = "whisper-base"
+AUDIO_PROMPTS = (4, 32, 200, 300)
+AUDIO_MAX_SEQ = 448
+AUDIO_FRAMES = 1500                     # whisper-base's n_encoder_frames
+# every flash call of the (m) and (n) prefills: internvl2-1b's attention
+# (Hq 14 over Hkv 2: group 7, D 64, causal) at each gang prompt;
+# whisper-base's encoder self-attention (non-causal over the 1500 frames),
+# and at each decoder prompt its causal self-attention and its non-causal
+# cross-attention (Sq prompt tokens against the 1500 frames)
+VLM_SHAPES = [(1, S, S, 14, 2, 64, True, 0, dt)
+              for dt in (torch.bfloat16, torch.float32) for S in VLM_PROMPTS]
+WHISPER_SHAPES = [(1, Sq, Sk, 8, 8, 64, causal, 0, dt)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for Sq, Sk, causal in (
+                      [(AUDIO_FRAMES, AUDIO_FRAMES, False)]
+                      + [(S, S, True) for S in AUDIO_PROMPTS]
+                      + [(S, AUDIO_FRAMES, False) for S in AUDIO_PROMPTS])]
+TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE] \
+    + VLM_SHAPES + WHISPER_SHAPES
 # the edges of the bf16 tensor-core path (tests/test_torch_flash_attention.
 # py's EDGES): S not a multiple of 16 or 64, every head dim, GQA groups 1,
 # 4, 7 and 16, one warp's q rows all masked in the first kv tile visited
-FLASH_EDGES = [(1, 77, 4, 4, 16, True, 0, torch.bfloat16),
-               (1, 100, 8, 2, 32, True, 8, torch.bfloat16),
-               (2, 129, 14, 2, 64, True, 0, torch.bfloat16),
-               (1, 200, 16, 1, 128, True, 16, torch.bfloat16),
-               (1, 150, 16, 1, 256, True, 40, torch.bfloat16),
-               (1, 65, 4, 4, 128, False, 0, torch.bfloat16),
-               (1, 1, 4, 1, 64, True, 0, torch.bfloat16),
-               (1, 300, 16, 1, 256, False, 0, torch.bfloat16)]
-REPORTED = (1, 1024, 28, 4, 128, True, 0, torch.bfloat16)
+FLASH_EDGES = [(1, 77, 77, 4, 4, 16, True, 0, torch.bfloat16),
+               (1, 100, 100, 8, 2, 32, True, 8, torch.bfloat16),
+               (2, 129, 129, 14, 2, 64, True, 0, torch.bfloat16),
+               (1, 200, 200, 16, 1, 128, True, 16, torch.bfloat16),
+               (1, 150, 150, 16, 1, 256, True, 40, torch.bfloat16),
+               (1, 65, 65, 4, 4, 128, False, 0, torch.bfloat16),
+               (1, 1, 1, 4, 1, 64, True, 0, torch.bfloat16),
+               (1, 300, 300, 16, 1, 256, False, 0, torch.bfloat16)]
+REPORTED = (1, 1024, 1024, 28, 4, 128, True, 0, torch.bfloat16)
 
 # moe_gmm: (label, E, C, D, F, counts, dtype); counts "random" (uniform in
 # [0, C]), "decode" (32 of the 64 experts hold one row) or "route<T>" (the
@@ -415,6 +481,9 @@ HYBRID_MAX_SEQ = 2048
 PLAIN_PATH_TOL = 1e-3
 PLAIN_PATH_PROMPTS = (32, 20, 45, 9)      # one per slot: 4 decode positions
 PLAIN_PATH_STEPS = 4
+# decode after a prefill vs a one-token-longer prefill, f32
+# (tests/test_models_smoke.py's tolerance)
+DECODE_PREFILL_TOL = 2e-3
 
 # DAVE-2 (f): the card vs the CPU in f32 with TF32 off; (h): the Fig.6 run
 DAVE2_BATCHES = (1, 8)
@@ -445,11 +514,17 @@ TRAIN_SKIP = 3                          # steps left out of the median
 CHECK_LAYERS, CHECK_SEQ = 2, 256
 CHECK_LOSS_RTOL = 1e-5
 CHECK_GRAD_TOL = 1e-4                   # of each leaf's largest |g|
+ZERO_GRAD_TOL = 1e-6                    # of the tree's largest |g|
 # the restart path at reduced size: 12 steps, checkpoints every 4, a
 # failure at step 10. cuBLAS and the sorted index_put of the embedding's
 # backward repeat their sums on one card, so the losses should agree bit
 # for bit; the check allows 1e-5 relative for the order of any atomic add
 RESTART_RTOL = 1e-5
+# (o): scripts/torch_smoke_one.py for one arch of each family, then the f32
+# card-vs-CPU loss + gradient of the two stub-tower families, reduced
+SMOKE_ARCHS = ("qwen2-7b", "olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-9b",
+               "internvl2-1b", "whisper-base")
+SMOKE_SEQ = 32
 # (l): the example's RT side (qwen2-7b bf16, full depth) beside its BE
 # side (olmoe-1b-7b at full width, bf16 compute / f32 masters, depth cut
 # 16 -> 4: 34 GB of training state beside the serving gang's 18 GB)
@@ -530,12 +605,12 @@ def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
 
 
 def flash_work(case) -> tuple[int, int]:
-    """Operations (4 x Hq x D per unmasked pair) and bytes (q, k, v read
-    once, o written once) of one flash call."""
-    B, S, Hq, Hkv, D, causal, window, dt = case
-    ops = 4 * B * Hq * D * unmasked_pairs(S, S, causal, window)
+    """Operations (4 x Hq x D per unmasked (q, k) pair of the Sq x Sk) and
+    bytes (q, k, v read once, o written once) of one flash call."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+    ops = 4 * B * Hq * D * unmasked_pairs(Sq, Sk, causal, window)
     elt = torch.tensor([], dtype=dt).element_size()
-    return ops, elt * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    return ops, elt * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
 
 
 def bound(case) -> tuple[float, str]:
@@ -550,8 +625,9 @@ def bound(case) -> tuple[float, str]:
 
 
 def case_name(case) -> str:
-    B, S, Hq, Hkv, D, causal, window, dt = case
-    return (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+    B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+    S = f"S={Sq}" if Sq == Sk else f"Sq={Sq} Sk={Sk}"
+    return (f"B={B} {S} Hq={Hq} Hkv={Hkv} D={D} "
             f"{'causal' if causal else 'full'}"
             f"{f' window={window}' if window else ''} {DT_NAME[dt]}")
 
@@ -561,10 +637,10 @@ def phase_kernel(dev, smi: str) -> list[dict]:
     gen.manual_seed(0)
     rows = []
     for case in KERNEL_CASES + FLASH_EDGES + TIMED:
-        B, S, Hq, Hkv, D, causal, window, dt = case
-        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = naive_attention(q, k, v, causal=causal, window=window)
@@ -576,7 +652,7 @@ def phase_kernel(dev, smi: str) -> list[dict]:
         if case in TIMED:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             if window:
-                i = torch.arange(S, device=dev)
+                i = torch.arange(Sq, device=dev)
                 mask = (i[None, :] <= i[:, None]) & \
                     (i[None, :] > i[:, None] - window)
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -906,13 +982,16 @@ def leaves(tree, path=()):
     return [("/".join(path), tree)]
 
 
-def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
-    """Greedy rollout by re-prefilling the whole sequence each step."""
+def greedy_oracle(api, params, prompt, n_new: int, dev,
+                  extra=None) -> list[int]:
+    """Greedy rollout by re-prefilling the whole sequence each step;
+    ``extra`` holds a vlm's patches or an audio model's frames."""
     toks = list(int(t) for t in prompt)
     out = []
     for _ in range(n_new):
         logits, _ = api.prefill_fn(
-            params, {"tokens": torch.tensor([toks], device=dev)})
+            params, {"tokens": torch.tensor([toks], device=dev),
+                     **(extra or {})})
         nxt = int(torch.argmax(logits[0, -1]))
         out.append(nxt)
         toks.append(nxt)
@@ -920,13 +999,14 @@ def greedy_oracle(api, params, prompt, n_new: int, dev) -> list[int]:
 
 
 def rollout_oracle(api, params, prompt, n_new: int, dev,
-                   max_seq: int) -> list[int]:
+                   max_seq: int, extra=None) -> list[int]:
     """Greedy rollout of one request at batch 1: prefill_fn once, then
     decode_fn on a max_seq attention cache, as the engine does for its
-    slots (state leaves are taken as prefill_fn returns them)."""
+    slots (state leaves are taken as prefill_fn returns them); ``extra``
+    as in ``greedy_oracle``."""
     logits, pre = api.prefill_fn(
         params, {"tokens": torch.tensor([[int(t) for t in prompt]],
-                                        device=dev)})
+                                        device=dev), **(extra or {})})
     S_p = len(prompt)
     caches = batch_caches([pre], [S_p], max_seq)
     out = [int(torch.argmax(logits[0, -1]))]
@@ -1168,18 +1248,46 @@ def phase_oracle(dev, api16, params16) -> dict:
 def gang_expect(cfg, n_prefills: int) -> dict:
     """Kernel launches of a gang run: per prefill, one scan for each
     recurrent layer (ssd_scan for Mamba2, rglru_scan for RG-LRU) and one
-    flash for each attention layer; a decode step launches no kernel."""
+    flash for each attention layer, which for Whisper is each encoder
+    layer and twice each decoder layer (self and cross; ``layer_kinds``
+    lists the decoder's only); a decode step launches no kernel."""
     kinds = cfg.layer_kinds()
-    return {"flash_attention": kinds.count("attn") * n_prefills,
+    n_attn = kinds.count("attn")
+    if cfg.family == "audio":
+        n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    return {"flash_attention": n_attn * n_prefills,
             "moe_gmm": 0, "ssd_scan": kinds.count("ssm") * n_prefills,
             "rglru_scan": kinds.count("rec") * n_prefills}
 
 
+def stub_inputs(cfg, seed: int, dev) -> dict:
+    """A batch-1 prompt's stub-tower inputs, normal x 0.02 (the data
+    pipeline's scale) from ``seed`` on the card: {"patches" (1,
+    n_vision_tokens, D)} for vlm, {"frames" (1, n_encoder_frames, D)} for
+    audio, nothing for the token-only families."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if cfg.family == "vlm":
+        n, name = cfg.n_vision_tokens, "patches"
+    elif cfg.family == "audio":
+        n, name = cfg.n_encoder_frames, "frames"
+    else:
+        return {}
+    return {name: torch.randn((1, n, cfg.d_model), generator=gen,
+                              device=dev) * 0.02}
+
+
 def phase_gang(dev, smi: str, arch: str, duration: float,
-               max_seq: int) -> dict:
-    """(d3) / (d4): the batched decode step of a state-cache model
-    (mamba2-1.3b, recurrentgemma-9b) as the RT gang."""
+               max_seq: int, prompt_lens=GANG_PROMPTS) -> dict:
+    """(d3) / (d4) / (m) / (n): the batched decode step of a model served
+    through prefill_fn / decode_fn (mamba2-1.3b, recurrentgemma-9b,
+    internvl2-1b, whisper-base) as the RT gang, after batch-1 prefills of
+    ``prompt_lens`` tokens (with patches or frames where the family takes
+    them)."""
     cfg = get_config(arch)
+    if cfg.family == "audio" and cfg.n_encoder_frames != AUDIO_FRAMES:
+        fail(f"{arch} has {cfg.n_encoder_frames} frames; (c) checks flash "
+             f"at {AUDIO_FRAMES}")
     parallel = ParallelConfig(param_dtype="bfloat16",
                               compute_dtype="bfloat16")
     api = build_model(cfg, parallel, dev)
@@ -1190,13 +1298,14 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
           f"{api.n_params() / 1e9:.3f} B params bf16, drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
-                               device=dev) for n in GANG_PROMPTS]
-    lens = torch.tensor(GANG_PROMPTS, device=dev)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(1, n)), device=dev),
+        **stub_inputs(cfg, i, dev)} for i, n in enumerate(prompt_lens)]
+    lens = torch.tensor(prompt_lens, device=dev)
     # warm-up, outside the counted run: a prefill and a decode step
-    _, c = api.prefill_fn(params, {"tokens": prompts[0]})
-    api.decode_fn(params, batch_caches([c], GANG_PROMPTS[:1], max_seq),
-                  prompts[0][:, :1], lens[:1])
+    _, c = api.prefill_fn(params, batches[0])
+    api.decode_fn(params, batch_caches([c], prompt_lens[:1], max_seq),
+                  batches[0]["tokens"][:, :1], lens[:1])
     del c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1211,9 +1320,9 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
             return
         t0 = time.perf_counter()
         if state["caches"] is None:
-            pre = [api.prefill_fn(params, {"tokens": p}) for p in prompts]
-            state["caches"] = batch_caches([c for _, c in pre], GANG_PROMPTS,
-                                           max_seq)
+            pre = [api.prefill_fn(params, b) for b in batches]
+            state["caches"] = batch_caches([c for _, c in pre],
+                                           prompt_lens, max_seq)
             state["tok"] = torch.cat([lg[:, -1].argmax(-1, keepdim=True)
                                       for lg, _ in pre])
         else:
@@ -1231,10 +1340,11 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lat = np.array(stats["response_times"].get("decode", [0.0])) * 1e3
     busy = np.array(busy_ms)
-    expect = gang_expect(cfg, len(GANG_PROMPTS))
+    n_seq = len(prompt_lens)
+    expect = gang_expect(cfg, n_seq)
     print(f"[{arch}] gang: launches {launches} (expected {expect}: "
-          f"{len(GANG_PROMPTS)} prefills, {max(len(out) - 1, 0)} decode "
-          f"steps over {len(GANG_PROMPTS)} sequences); decode quantum "
+          f"{n_seq} prefills, {max(len(out) - 1, 0)} decode "
+          f"steps over {n_seq} sequences); decode quantum "
           f"response p50 {np.percentile(lat, 50):.3f} ms, p99 "
           f"{np.percentile(lat, 99):.3f} ms over {len(lat)} quanta; busy "
           f"quanta (prefill + decode) p50 {np.percentile(busy, 50):.3f} ms, "
@@ -1249,13 +1359,13 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
             fail(f"{arch}: {name} launched {launches[name]} times on the "
                  f"gang path, expected {n}")
     tokens = torch.cat(out, dim=1)
-    if tokens.shape != (len(GANG_PROMPTS), GANG_NEW) or \
+    if tokens.shape != (n_seq, GANG_NEW) or \
             not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         fail(f"{arch}: gang tokens of shape {tuple(tokens.shape)} out of "
              f"range")
     # alone (no executor, no best-effort thread): one decode step over the
-    # 4 sequences and one 1024-token prefill, host clock around work that
-    # ends in a synchronize
+    # 4 sequences and one prefill of the longest prompt, host clock around
+    # work that ends in a synchronize
     caches = L.tree_map(lambda _, t: t.clone(), state["caches"])
     steps = []
     for i in range(12):
@@ -1265,21 +1375,22 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
     del caches
-    p1024 = prompts[GANG_PROMPTS.index(1024)]
+    n_long = max(prompt_lens)
+    longest = batches[prompt_lens.index(n_long)]
     pre = []
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        api.prefill_fn(params, {"tokens": p1024})
+        api.prefill_fn(params, longest)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
     step_ms = float(np.median(steps[2:]))
     prefill_ms = float(np.median(pre[1:]))
     print(f"[{arch}] alone: decode step (4 sequences) median {step_ms:.3f} "
-          f"ms of {len(steps) - 2}, 1024-token prefill median "
+          f"ms of {len(steps) - 2}, {n_long}-token prefill median "
           f"{prefill_ms:.3f} ms of {len(pre) - 1} [{smi}]")
     return {"api": api, "params": params, "launches": launches,
-            "prefills": len(GANG_PROMPTS), "decode_steps": len(out) - 1,
+            "prefills": n_seq, "decode_steps": len(out) - 1,
             "decode_p50_ms": float(np.percentile(lat, 50)),
             "decode_p99_ms": float(np.percentile(lat, 99)),
             "decode_quanta": int(len(lat)),
@@ -1287,13 +1398,16 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
             "busy_p99_ms": float(np.percentile(busy, 99)),
             "busy_max_ms": float(busy.max()), "busy_quanta": int(len(busy)),
             "be_quanta": stats["be_quanta"], "peak_gb": peak_gb,
-            "decode_step_ms": step_ms, "prefill_1024_ms": prefill_ms,
+            "decode_step_ms": step_ms, f"prefill_{n_long}_ms": prefill_ms,
             "tokens": tokens.tolist()}
 
 
-def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
-    """(e3) / (e4): f32 at full width on the gang's weights (the bf16 copy
-    is let go once the f32 one exists)."""
+def phase_gang_oracle(dev, api16, params16, max_seq: int,
+                      prompt_lens=GANG_PROMPTS) -> dict:
+    """(e3) / (e4) / (m2) / (n2): f32 at full width on the gang's weights
+    (the bf16 copy is let go once the f32 one exists). For vlm and audio
+    also decode after a prefill against a one-token-longer prefill, and
+    the stub inputs scaled by -5 against the logits they gave."""
     cfg = dataclasses.replace(api16.cfg, dtype="float32")
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
     api = build_model(cfg, parallel, dev)
@@ -1303,11 +1417,14 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
     torch.cuda.empty_cache()
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, size=(n,))
-               for n in GANG_PROMPTS]
+               for n in prompt_lens]
     feed = torch.as_tensor(rng.integers(
         1, cfg.vocab_size, size=(PLAIN_PATH_STEPS, len(prompts), 1)),
         device=dev)
-    lens = torch.tensor(GANG_PROMPTS, device=dev)
+    lens = torch.tensor(prompt_lens, device=dev)
+    extras = [stub_inputs(cfg, 10 + i, dev) for i in range(len(prompts))]
+    batches = [{"tokens": torch.as_tensor(p[None], device=dev), **e}
+               for p, e in zip(prompts, extras)]
     errs = {}
 
     def check(what, got, want):
@@ -1322,9 +1439,8 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
         """The 4 prefills, then PLAIN_PATH_STEPS teacher-forced decode
         steps over the 4 sequences: (prefill logits, caches after the
         prefills, decode logits, caches after the decode steps)."""
-        pre = [api.prefill_fn(params, {"tokens": torch.as_tensor(
-            p[None], device=dev)}) for p in prompts]
-        caches = batch_caches([c for _, c in pre], GANG_PROMPTS, max_seq)
+        pre = [api.prefill_fn(params, b) for b in batches]
+        caches = batch_caches([c for _, c in pre], prompt_lens, max_seq)
         first = L.tree_map(lambda _, t: t.clone(), caches)
         logits = []
         for j in range(PLAIN_PATH_STEPS):
@@ -1345,17 +1461,20 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
     for what, i in (("prefill caches", 1), ("decode caches", 3)):
         for (path, g), (_, w) in zip(leaves(got[i]), leaves(want[i])):
             check(f"{what} {path}", g, w)
-    del got, want
     print(f"[oracle] {cfg.name} f32, kernels vs plain versions: max_abs_err "
           + ", ".join(f"{w} {e:.3g}" for w, e in errs.items())
-          + f" (prefills of {GANG_PROMPTS} tokens, then {PLAIN_PATH_STEPS} "
+          + f" (prefills of {prompt_lens} tokens, then {PLAIN_PATH_STEPS} "
           f"decode steps over the {len(prompts)} sequences; tolerance "
           f"{PLAIN_PATH_TOL})")
+    extra_checks = {}
+    if extras[0]:
+        extra_checks = check_stub_family(api, params, batches, got[0],
+                                         max_seq)
+    del got, want
 
     # batched greedy decode == each sequence's batch-1 rollout
-    pre = [api.prefill_fn(params, {"tokens": torch.as_tensor(
-        p[None], device=dev)}) for p in prompts]
-    caches = batch_caches([c for _, c in pre], GANG_PROMPTS, max_seq)
+    pre = [api.prefill_fn(params, b) for b in batches]
+    caches = batch_caches([c for _, c in pre], prompt_lens, max_seq)
     tok = torch.cat([lg[:, -1].argmax(-1, keepdim=True) for lg, _ in pre])
     del pre
     batched = [tok]
@@ -1366,15 +1485,16 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
     del caches
     batched = torch.cat(batched, dim=1).tolist()
     reprefill = []
-    for i, p in enumerate(prompts):
-        alone = rollout_oracle(api, params, p, GANG_ORACLE_NEW, dev, max_seq)
+    for i, (p, e) in enumerate(zip(prompts, extras)):
+        alone = rollout_oracle(api, params, p, GANG_ORACLE_NEW, dev, max_seq,
+                               e)
         print(f"[oracle] {cfg.name} f32 sequence {i}: batched {batched[i]}")
         print(f"[oracle] {cfg.name} f32 sequence {i}: batch-1 rollout "
               f"{alone}")
         if batched[i] != alone:
             fail(f"{cfg.name}: f32 batched greedy tokens of sequence {i} "
                  f"differ from its batch-1 rollout")
-        again = greedy_oracle(api, params, p, GANG_ORACLE_NEW, dev)
+        again = greedy_oracle(api, params, p, GANG_ORACLE_NEW, dev, e)
         reprefill.append(next((k for k, (a, b) in enumerate(
             zip(batched[i], again)) if a != b), GANG_ORACLE_NEW))
     print(f"[oracle] {cfg.name} f32 batched tokens equal the batch-1 rollout "
@@ -1382,7 +1502,55 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int) -> dict:
           f"for the first {reprefill} of {GANG_ORACLE_NEW} tokens "
           f"(reported, not checked)")
     del params
-    return {"plain_path_err": errs, "reprefill_prefix": reprefill}
+    return {"plain_path_err": errs, "reprefill_prefix": reprefill,
+            **extra_checks}
+
+
+def check_stub_family(api, params, batches, logits, max_seq: int) -> dict:
+    """(m2) / (n2), f32: each sequence's last-token decode after a
+    prefill of the rest equals the full prefill's logits (``logits``,
+    (n, 1, V)) within DECODE_PREFILL_TOL, in one batched decode step
+    (tests/test_models_smoke.py's check); the first sequence's stub
+    inputs scaled by -5 change its logits by more than PLAIN_PATH_TOL."""
+    cfg = api.cfg
+    lens = [b["tokens"].shape[1] for b in batches]
+    dev = logits.device
+    pre = [api.prefill_fn(params, dict(b, tokens=b["tokens"][:, :-1]))
+           for b in batches]
+    caches = batch_caches([c for _, c in pre], [n - 1 for n in lens],
+                          max_seq)
+    got, _ = api.decode_fn(params, caches,
+                           torch.cat([b["tokens"][:, -1:] for b in batches]),
+                           torch.tensor(lens, device=dev) - 1)
+    err = (got - logits).abs().max().item()
+    print(f"[oracle] {cfg.name} f32: decode of each sequence's last token "
+          f"after a prefill of the rest vs the full prefill: max_abs_err "
+          f"{err:.3g} (tolerance {DECODE_PREFILL_TOL})")
+    if not torch.allclose(got, logits, atol=DECODE_PREFILL_TOL,
+                          rtol=DECODE_PREFILL_TOL):
+        fail(f"{cfg.name}: decode after prefill differs from the longer "
+             f"prefill by {err}")
+    # the logits, and the cache leaf the stub inputs feed most directly:
+    # the patches are the first positions' layer inputs, so every layer's
+    # k; the frames reach the decoder only through cross_k. whisper's
+    # logits move little: its sinusoidal positions, O(1), dominate frames
+    # of normal x 0.02 in the encoder's input
+    name, leaf = (("patches", "k") if cfg.family == "vlm"
+                  else ("frames", "cross_k"))
+    flipped = dict(batches[0], **{name: batches[0][name] * -5.0})
+    flip_logits, flip_cache = api.prefill_fn(params, flipped)
+    moved = (flip_logits - logits[:1]).abs().max().item()
+    moved_leaf = (flip_cache[leaf] - api.prefill_fn(params, batches[0])[1][
+        leaf]).abs().max().item()
+    print(f"[oracle] {cfg.name} f32: {name} x -5 move sequence 0's logits "
+          f"by {moved:.3g} and its {leaf} by {moved_leaf:.3g} (each must "
+          f"exceed {PLAIN_PATH_TOL})")
+    if not moved > PLAIN_PATH_TOL:
+        fail(f"{cfg.name}: the {name} do not reach the logits")
+    if not moved_leaf > PLAIN_PATH_TOL:
+        fail(f"{cfg.name}: the {name} do not reach {leaf}")
+    return {"decode_vs_prefill_err": err, f"{name}_moved": moved,
+            f"{name}_moved_{leaf}": moved_leaf}
 
 
 def device_events(fn, name: str) -> list[dict]:
@@ -1845,12 +2013,32 @@ def phase_train_check(dev) -> dict:
     CHECK_GRAD_TOL of its largest |g| on the CPU."""
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CHECK_LAYERS,
                               dtype="float32")
+    b = TokenSource(DataConfig(seq_len=CHECK_SEQ, global_batch=1,
+                               vocab_size=cfg.vocab_size)).train_batch(0)
+    rep = grads_card_vs_cpu(cfg, b, dev)
+    print(f"[train] f32 check, {TRAIN_ARCH} full width {CHECK_LAYERS} "
+          f"layers, B=1, S={CHECK_SEQ}: loss card {rep['loss_card']:.7f} / "
+          f"CPU {rep['loss_cpu']:.7f} (relative {rep['loss_rel']:.3g}, "
+          f"limit {CHECK_LOSS_RTOL}); worst gradient leaf "
+          f"{rep['worst_grad_leaf']} at {rep['worst_grad_rel']:.3g} of its "
+          f"largest |g| (limit {CHECK_GRAD_TOL}); CPU step "
+          f"{rep['cpu_s']:.1f} s")
+    return rep
+
+
+def grads_card_vs_cpu(cfg, b, dev, what: str = "train f32 check") -> dict:
+    """One f32 loss + gradient of ``cfg`` on the numpy batch ``b``, on the
+    card and on the CPU from the same weights (drawn on the card from seed
+    1): fails unless the loss agrees within CHECK_LOSS_RTOL and each
+    gradient leaf within CHECK_GRAD_TOL of its largest |g| on the CPU.
+    Without RoPE the key bias's gradient is zero in exact arithmetic
+    (softmax ignores a shift that all keys share): both sides give
+    rounding noise there, so those leaves are held, on either side, to
+    ZERO_GRAD_TOL of the tree's largest |g| instead."""
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
     api = build_model(cfg, parallel, dev)
     params = L.init_params(api.defs, seed=1, dtype=torch.float32,
                            device=dev)
-    b = TokenSource(DataConfig(seq_len=CHECK_SEQ, global_batch=1,
-                               vocab_size=cfg.vocab_size)).train_batch(0)
     loss_card, _, g_card = loss_and_grads(
         api, params, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
     g_card = [g.cpu() for g in L.tree_leaves(g_card)]
@@ -1865,22 +2053,70 @@ def phase_train_check(dev) -> dict:
     names = []
     L.tree_map(lambda path, _: names.append("/".join(path)), g_cpu)
     rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    g_cpu = L.tree_leaves(g_cpu)
+    zero = [cfg.rope_theta == 0 and n.endswith("/bk") for n in names]
+    top = max(float(c.abs().max()) for c in g_cpu)
+    noise = max([max(float(a.abs().max()), float(c.abs().max())) / top
+                 for a, c, z in zip(g_card, g_cpu, zero) if z] or [0.0])
     worst = max((float((a - c).abs().max()) / max(float(c.abs().max()),
                                                    1e-30), path)
-                for a, c, path in zip(g_card, L.tree_leaves(g_cpu), names))
-    print(f"[train] f32 check, {TRAIN_ARCH} full width {CHECK_LAYERS} "
-          f"layers, B=1, S={CHECK_SEQ}: loss card {loss_card:.7f} / CPU "
-          f"{loss_cpu:.7f} (relative {rel:.3g}, limit {CHECK_LOSS_RTOL}); "
-          f"worst gradient leaf {worst[1]} at {worst[0]:.3g} of its largest "
-          f"|g| (limit {CHECK_GRAD_TOL}); CPU step {cpu_s:.1f} s")
+                for a, c, path, z in zip(g_card, g_cpu, names, zero)
+                if not z)
+    if not noise <= ZERO_GRAD_TOL:
+        fail(f"{what}: a key bias's gradient reached {noise:.3g} of the "
+             f"largest |g|; it is zero in exact arithmetic")
     if not rel <= CHECK_LOSS_RTOL:
-        fail(f"train f32 check: loss card {loss_card} vs CPU {loss_cpu}")
+        fail(f"{what}: loss card {loss_card} vs CPU {loss_cpu}")
     if not worst[0] <= CHECK_GRAD_TOL:
-        fail(f"train f32 check: gradient {worst[1]} off by {worst[0]:.3g} "
-             f"of its largest |g|")
+        fail(f"{what}: gradient {worst[1]} off by {worst[0]:.3g} of its "
+             f"largest |g|")
     return {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel": rel,
             "worst_grad_rel": worst[0], "worst_grad_leaf": worst[1],
-            "cpu_s": cpu_s}
+            "key_bias_noise": noise, "cpu_s": cpu_s}
+
+
+def phase_smoke(dev, smi: str) -> dict:
+    """(o): scripts/torch_smoke_one.py on the card for one arch of each
+    family (a train step, a prefill and a decode step of the reduced
+    config, all finite); then one f32 loss + gradient of reduced
+    internvl2-1b and reduced whisper-base on the card and on the CPU from
+    the same weights, at (k)'s tolerances, with no kernel launch."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_smoke_one", ROOT / "scripts" / "torch_smoke_one.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    reset_launches()
+    smoke = script.main(list(SMOKE_ARCHS))
+    smoke_launches = read_launches()
+    print(f"[smoke] scripts/torch_smoke_one.py on the card: "
+          + ", ".join(f"{r['arch']} loss {r['loss']:.4f}" for r in smoke)
+          + f"; launches {smoke_launches} [{smi}]")
+    checks = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = reduced(get_config(arch))
+        b = TokenSource(DataConfig(
+            seq_len=SMOKE_SEQ, global_batch=2, vocab_size=cfg.vocab_size,
+            n_vision_tokens=cfg.n_vision_tokens, d_model=cfg.d_model,
+            n_frames=cfg.n_encoder_frames if cfg.family == "audio" else 0)
+        ).train_batch(0)
+        reset_launches()
+        rep = grads_card_vs_cpu(cfg, b, dev, f"{arch} f32 check")
+        rep["launches"] = read_launches()
+        stub = ", ".join(sorted(set(b) - {"tokens", "labels"}))
+        print(f"[smoke] {arch} reduced, f32 loss + gradient, B=2, "
+              f"S={SMOKE_SEQ} (with {stub}): "
+              f"loss card {rep['loss_card']:.7f} / CPU {rep['loss_cpu']:.7f} "
+              f"(relative {rep['loss_rel']:.3g}, limit {CHECK_LOSS_RTOL}); "
+              f"worst gradient leaf {rep['worst_grad_leaf']} at "
+              f"{rep['worst_grad_rel']:.3g} of its largest |g| (limit "
+              f"{CHECK_GRAD_TOL}); key-bias gradient noise "
+              f"{rep['key_bias_noise']:.3g} of the largest |g| (limit "
+              f"{ZERO_GRAD_TOL}); launches {rep['launches']}")
+        if any(rep["launches"].values()):
+            fail(f"{arch}: the train path launched {rep['launches']}")
+        checks[arch] = rep
+    return {"smoke": smoke, "smoke_launches": smoke_launches,
+            "f32_check": checks}
 
 
 def phase_train_restart(dev) -> dict:
@@ -2256,6 +2492,18 @@ def main() -> int:
     sv4.update(timed("e4", phase_gang_oracle, dev, sv4.pop("api"),
                      sv4.pop("params"), max_seq=HYBRID_MAX_SEQ))
     free()                                        # recurrentgemma's go
+    sv5 = timed("m", phase_gang, dev, smi, VLM_ARCH, duration=6.0,
+                max_seq=VLM_MAX_SEQ, prompt_lens=VLM_PROMPTS)
+    sv5.update(timed("m2", phase_gang_oracle, dev, sv5.pop("api"),
+                     sv5.pop("params"), max_seq=VLM_MAX_SEQ,
+                     prompt_lens=VLM_PROMPTS))
+    free()                                        # internvl2's weights go
+    sv6 = timed("n", phase_gang, dev, smi, AUDIO_ARCH, duration=6.0,
+                max_seq=AUDIO_MAX_SEQ, prompt_lens=AUDIO_PROMPTS)
+    sv6.update(timed("n2", phase_gang_oracle, dev, sv6.pop("api"),
+                     sv6.pop("params"), max_seq=AUDIO_MAX_SEQ,
+                     prompt_lens=AUDIO_PROMPTS))
+    free()                                        # whisper's weights go
     reset_launches()                              # DAVE-2 runs no kernel
     dave2 = timed("f", phase_dave2, dev, smi)
     fig1_rep = timed("g", phase_fig1, dev, smi)
@@ -2274,6 +2522,7 @@ def main() -> int:
     free()
     st_rep = timed("l", phase_serve_train, dev, smi)
     free()
+    smoke_rep = timed("o", phase_smoke, dev, smi)
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
@@ -2284,6 +2533,7 @@ def main() -> int:
                           for m, _, _ in SERVE_TRAIN_MODES) for k in KERNELS}
     by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"],
                MAMBA_ARCH: sv3["launches"], HYBRID_ARCH: sv4["launches"],
+               VLM_ARCH: sv5["launches"], AUDIO_ARCH: sv6["launches"],
                "train (k)": train_rep["launches"],
                "serve+train (l)": serve_train}
     replaces = {
@@ -2304,9 +2554,10 @@ def main() -> int:
               "ssd_rows": ssd_rows, "rglru_rows": rg_rows,
               "reported_cases": {n: r["case"] for n, r in reported.items()},
               "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
-              "gang_recurrentgemma": sv4, "dave2": dave2, "fig1": fig1_rep,
+              "gang_recurrentgemma": sv4, "gang_internvl2": sv5,
+              "gang_whisper": sv6, "dave2": dave2, "fig1": fig1_rep,
               "fig6": fig6_rep, "vgang": vgang_rep, "rta": rta_rep,
-              "train": train_rep, "serve_train": st_rep,
+              "train": train_rep, "serve_train": st_rep, "smoke": smoke_rep,
               "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
@@ -2314,7 +2565,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"kernels: [flash_attention: pass ({len(rows)} shapes), moe_gmm: "
           f"pass ({len(gmm_rows)} shapes), ssd_scan: pass ({len(ssd_rows)} "
-          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]; dave2: "
+          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]; "
+          f"{VLM_ARCH} and {AUDIO_ARCH} gangs: pass; dave2: "
           f"pass (card vs CPU, B {DAVE2_BATCHES}); fig1: "
           f"{len(fig1_rep['rows'])} rows; fig6: solo / cosched / rtgang n "
           f"{[fig6_rep[m]['n'] for m in ('solo', 'cosched', 'rtgang')]}; "
@@ -2323,7 +2575,8 @@ def main() -> int:
           f"({len(rta_rep)} shards); train: pass (loss "
           f"{train_rep['losses'][0]:.3f} -> {train_rep['losses'][-1]:.3f}, "
           f"f32 card vs CPU, restart); serve+train: pass (RT-Gang, "
-          f"RT-Gang with training admitted, Co-Sched)")
+          f"RT-Gang with training admitted, Co-Sched); smoke: pass "
+          f"({len(SMOKE_ARCHS)} families, f32 card vs CPU)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,12 @@ for SSM (Mamba2), the conv weights (L, W, C); for the hybrid
 w_a,b_a,w_i,b_i,lam,w_out}``, ``groups/rec<i>/mlp/...``,
 ``groups/attn<i>/{attn,mlp}/...`` stacked over the groups, with the
 block-diagonal gates (G, nb, bw, bw), and ``tail/{mix,mlp}/...`` stacked
-over the tail layers), the layers stacked along the leading dimension,
-and the ``x @ W`` orientation — so conversion is a copy of each leaf.
+over the tail layers; for the vlm family the dense tree; for audio
+(Whisper) ``embed``, ``pos_dec``, ``enc_blocks/{attn,mlp}/...``,
+``enc_ln``, ``enc_ln_b``, ``dec_blocks/{self,cross,mlp}/...`` and
+``final_ln``, ``final_ln_b``), the layers stacked along the leading
+dimension, and the ``x @ W`` orientation — so conversion is a copy of
+each leaf.
 
 DAVE-2's flat tree (``dave2_params_from_jax_numpy``) is the exception: its
 HWIO conv weights become OIHW.

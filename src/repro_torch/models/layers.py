@@ -20,11 +20,15 @@ statistics, silu/gelu in f32, RoPE angles in f32, split-half rotation).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -93,6 +97,15 @@ def stack_defs(defs, n: int, axis_name: str = "layers"):
                               d.init, d.scale), defs)
 
 
+def unstack(tree, n: int):
+    """The n per-layer views of a tree of stacked (n, ...) leaves, from one
+    ``unbind`` a leaf (under autograd its backward is one ``stack``)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def count_params(tree) -> int:
     return int(sum(x.numel() for x in tree_leaves(tree)))
 
@@ -123,6 +136,16 @@ def swiglu(gate, up):
 
 def gelu(x):
     return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, dtype=torch.float32, device=None):
+    """(n, d) table of [sin | cos] of position / 10000^(2i/d), i < d // 2:
+    built in numpy float64 and cast once, as the JAX package builds it."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos * (1.0 / (10000 ** (2 * dim / d)))
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(table).to(device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------
@@ -290,3 +313,27 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache)
     return out.reshape(B, 1, Hq, D)
+
+
+# the matrix products that remat "dots" keeps (JAX's checkpoint_dots saves
+# every dot_general; einsum and matmul reach these at the aten level)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(body: Callable, policy: str) -> Callable:
+    """JAX's ``_remat`` policies: "none" keeps every activation; "dots"
+    keeps the matrix products' outputs and recomputes the rest in the
+    backward; any other ("block", "full") keeps only the body's inputs."""
+    if policy == "none":
+        return body
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(body, *args, **kw)

@@ -1,7 +1,8 @@
-"""ModelApi of the port: build / init / loss / prefill / decode for the
-dense, MoE, SSM (Mamba2) and hybrid (RG-LRU + local attention,
-RecurrentGemma) families (counterpart of those branches of
-``repro.models.model``).
+"""ModelApi of the port: build / init / loss / prefill / decode for every
+family of ``repro.models.model``: dense, MoE, SSM (Mamba2), hybrid (RG-LRU
++ local attention, RecurrentGemma), vlm (InternVL2: a dense LM whose first
+``n_vision_tokens`` positions take the stub vision tower's patches) and
+audio (the Whisper encoder-decoder, ``models.whisper``).
 
 Parameters are the JAX package's tree, as nested dicts of tensors with the
 same paths, shapes and ``x @ W`` orientation, and the layers stacked along
@@ -18,11 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
@@ -31,39 +31,9 @@ from repro_torch.models import mamba2
 from repro_torch.models import moe as M
 from repro_torch.models import rglru
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# the matrix products that remat "dots" keeps (JAX's checkpoint_dots saves
-# every dot_general; einsum and matmul reach these at the aten level)
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def _remat(body: Callable, policy: str) -> Callable:
-    """JAX's ``_remat`` policies: "none" keeps every activation; "dots"
-    keeps the matrix products' outputs and recomputes the rest in the
-    backward; any other ("block", "full") keeps only the body's inputs."""
-    if policy == "none":
-        return body
-    kw = {"use_reentrant": False}
-    if policy == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_dots)
-    return lambda *args: checkpoint(body, *args, **kw)
-
-
-def _unstack(tree, n: int):
-    """The n per-layer views of a tree of stacked (n, ...) leaves."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(tree.unbind(0))
 
 
 # --------------------------------------------------------------------------
@@ -165,6 +135,22 @@ class ModelApi:
                        for d in L.tree_leaves(self.defs)))
 
     # ---- forward ----------------------------------------------------------
+    def _embed_in(self, params, batch):
+        """Token embeddings in the compute dtype; for vlm the first
+        ``n_vision_tokens`` positions are replaced by batch["patches"]
+        (B, n_vision_tokens, D). A vlm sequence shorter than that raises
+        (JAX's concatenation would silently lengthen it)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        if cfg.family == "vlm":
+            nv = cfg.n_vision_tokens
+            if tokens.shape[1] < nv:
+                raise ValueError(f"a vlm sequence holds the {nv} patch "
+                                 f"positions first; got {tokens.shape[1]}")
+            x = torch.cat([batch["patches"].to(x.dtype), x[:, nv:]], dim=1)
+        return x
+
     def _layer(self, blocks, i: int):
         return L.tree_map(lambda _, a: a[i], blocks)
 
@@ -195,10 +181,10 @@ class ModelApi:
                     aux.get("router_z", 0.0))
 
         if ctx.mode == "train":
-            body = _remat(body, self.parallel.remat)
+            body = L.remat(body, self.parallel.remat)
         collected = {n: [] for n in names}
         lb = rz = 0.0
-        for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        for i, blk in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
             cache = None if caches is None else \
                 {n: caches[n][i] for n in names}
             x, c, lb_i, rz_i = body(blk, x, cache)
@@ -231,7 +217,7 @@ class ModelApi:
         units = [("groups", g, group) for g in range(n_groups)]
         units += [("tail", j, [(None, rglru.rec_block_apply)])
                   for j in range(n_tail)]
-        blocks = {part: _unstack(params[part], n)
+        blocks = {part: L.unstack(params[part], n)
                   for part, n in (("groups", n_groups), ("tail", n_tail))
                   if n}
 
@@ -247,7 +233,7 @@ class ModelApi:
         for part, j, members in units:
             fn = functools.partial(run_unit, members)
             if ctx.mode == "train":
-                fn = _remat(fn, self.parallel.remat)
+                fn = L.remat(fn, self.parallel.remat)
             cache = None if caches is None else self._layer(caches[part], j)
             x, cs = fn(blocks[part][j], x, cache)
             if ctx.mode == "prefill":
@@ -269,18 +255,16 @@ class ModelApi:
     def loss_fn(self, params, batch):
         """JAX's ``loss_fn``: ``params`` are the float32 masters (cast to
         the compute dtype here, on every call); batch {"tokens", "labels"}
-        (B, S) int, labels < 0 ignored. Returns (loss, metrics) with the
+        (B, S) int, labels < 0 ignored, with "patches" for vlm and
+        "frames" for audio. Returns (loss, metrics) with the
         MoE aux losses added as JAX adds them (``router_aux_coef`` x
         load-balance + 1e-4 x router-z) and reported in ``metrics``."""
         cfg = self.cfg
         params = self._cast(params)
-        tokens = batch["tokens"]
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)[None, :]
-        ctx = T.Ctx(cfg=cfg, mode="train", positions=positions,
-                    q_block=self.parallel.q_block,
-                    kv_block=self.parallel.kv_block)
-        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        if cfg.family == "audio":
+            return self._whisper_loss(params, batch)
+        ctx = self._ctx("train", batch["tokens"])
+        x = self._embed_in(params, batch)
         x, _, aux = self._run_blocks(params, x, ctx)
         x = T.final_norm(cfg, params, x)
         if self.parallel.fused_xent:
@@ -306,13 +290,14 @@ class ModelApi:
         (L, B, H, P, N) f32; for the hybrid the tree of ``_run_hybrid``,
         {"conv"} (n, B, W-1, Wd) in the compute dtype, {"h"} (n, B, Wd)
         f32 and {"k", "v"} (n_groups, B, S, Hkv, D). The MoE aux losses
-        are dropped, as in JAX."""
+        are dropped, as in JAX. vlm takes batch["patches"] too; audio takes
+        batch["frames"] (B, F, D) and returns the tree of
+        ``whisper.run_decoder_train``."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)[None, :]
-        ctx = T.Ctx(cfg=cfg, mode="prefill", positions=positions)
-        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        if cfg.family == "audio":
+            return self._whisper_prefill(params, batch)
+        ctx = self._ctx("prefill", batch["tokens"])
+        x = self._embed_in(params, batch)
         x, caches, _ = self._run_blocks(params, x, ctx)
         x = T.final_norm(cfg, params, x)
         logits = T.lm_logits(cfg, params, x[:, -1:, :])
@@ -324,12 +309,56 @@ class ModelApi:
         caches {"k", "v"}: (L, B, Smax, Hkv, D); for SSM the state leaves
         of ``prefill_fn``; for the hybrid its tree with every "k", "v"
         leaf grown to (n_groups, B, Smax, Hkv, D) (rows past a sequence's
-        length are never read: ``decode_attention`` masks kpos > pos).
-        Updated in place. Returns (logits (B, 1, V) f32, caches)."""
+        length are never read: ``decode_attention`` masks kpos > pos); for
+        audio the tree of ``prefill_fn`` with "self" grown to (L, B, Smax,
+        H, D). vlm embeds the tokens only, as in JAX. Updated in place.
+        Returns (logits (B, 1, V) f32, caches)."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            return self._whisper_decode(params, caches, tokens, pos)
         ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
         x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
         x, caches, _ = self._run_blocks(params, x, ctx, caches)
+        x = T.final_norm(cfg, params, x)
+        return T.lm_logits(cfg, params, x), caches
+
+    def _ctx(self, mode: str, tokens) -> T.Ctx:
+        """Train / prefill context: positions 0..S-1 of ``tokens`` (B, S)."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        return T.Ctx(cfg=self.cfg, mode=mode, positions=positions,
+                     q_block=self.parallel.q_block,
+                     kv_block=self.parallel.kv_block)
+
+    # ---- whisper ----------------------------------------------------------
+    def _whisper_forward(self, params, batch, mode: str):
+        """Encoder over batch["frames"], then the decoder over
+        batch["tokens"]: (final-normed x (B, S, D), caches or None)."""
+        ctx = self._ctx(mode, batch["tokens"])
+        enc = whisper.encode(ctx, params,
+                             batch["frames"].to(self.compute_dtype()))
+        x = whisper.decoder_embed(params, batch["tokens"], ctx.positions,
+                                  self.compute_dtype())
+        x, caches = whisper.run_decoder_train(ctx, params, x, enc)
+        return T.final_norm(self.cfg, params, x), caches
+
+    def _whisper_loss(self, params, batch):
+        """The plain ``xent_loss`` under ``fused_xent`` too, as in JAX."""
+        x, _ = self._whisper_forward(params, batch, "train")
+        loss, metrics = xent_loss(T.lm_logits(self.cfg, params, x),
+                                  batch["labels"])
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _whisper_prefill(self, params, batch):
+        x, caches = self._whisper_forward(params, batch, "prefill")
+        return T.lm_logits(self.cfg, params, x[:, -1:, :]), caches
+
+    def _whisper_decode(self, params, caches, tokens, pos):
+        cfg = self.cfg
+        ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
+        x = whisper.decoder_embed(params, tokens, pos[:, None],
+                                  self.compute_dtype())
+        x, caches = whisper.run_decoder_decode(ctx, params, x, caches)
         x = T.final_norm(cfg, params, x)
         return T.lm_logits(cfg, params, x), caches
 
@@ -338,17 +367,17 @@ class ModelApi:
 # Construction
 # --------------------------------------------------------------------------
 def build_defs(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return T.lm_defs(cfg, T.dense_block_defs)
+    if cfg.family == "audio":
+        return whisper.whisper_defs(cfg)
     if cfg.family == "moe":
         return T.lm_defs(cfg, M.moe_block_defs)
     if cfg.family == "ssm":
         return T.lm_defs(cfg, mamba2.ssm_block_defs)
     if cfg.family == "hybrid":
         return _hybrid_defs(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md, queue A); 'dense', 'moe', 'ssm' and 'hybrid' are")
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _hybrid_defs(cfg: ModelConfig):

@@ -13,7 +13,7 @@ context-parallel projections. Two differences from the JAX "tp" recipe:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -93,7 +93,8 @@ def _qkv(cfg: ModelConfig, p, h):
     return q, k, v
 
 
-def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None):
+def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None,
+               kv_override: Optional[Tuple] = None):
     """Self-attention sub-block. Returns (x + attn_out, cache).
 
     prefill: the returned cache is {"k", "v"} of shape (B, S, Hkv, D).
@@ -101,9 +102,27 @@ def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None):
     decode: ``cache`` holds this layer's (B, Smax, Hkv, D) views of the
     engine's cache; the new token's K/V are written into them in place at
     ``ctx.positions`` and the same dict is returned.
+
+    kv_override (decode only): (k, v, kv_len) with k, v (B, Sk, Hkv, D)
+    and kv_len (B,), the cross-attention of the whisper decoder. The query
+    (with its bias, without RoPE, as in JAX) attends to the first kv_len
+    rows; nothing is written and the returned cache is None.
     """
     cfg = ctx.cfg
     h = _norm(cfg, p, x)
+
+    if kv_override is not None:
+        if ctx.mode != "decode":
+            raise ValueError("kv_override is a decode-step argument")
+        B = h.shape[0]
+        q = h @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        kf, vf, kv_len = kv_override
+        out = L.decode_attention(q, kf, vf, (kv_len - 1).clamp_min(0),
+                                 window=0, softcap=cfg.logit_softcap)
+        return x + out.reshape(B, 1, cfg.q_dim) @ p["wo"], None
 
     if ctx.mode == "decode":
         B = h.shape[0]

@@ -1,6 +1,7 @@
 """The port's CheckpointManager against the JAX package's: the same
 on-disk format (manifest paths, files, shapes, dtypes), a checkpoint
-written by either restoring in the other bit for bit, bf16 leaves
+written by either restoring in the other bit for bit (the dense tree and
+whisper's: ``enc_blocks``, ``dec_blocks/{self,cross}``, ``pos_dec``), bf16 leaves
 round-tripping without ml_dtypes, async saves isolated from later
 in-place updates, retention. On the CPU; no tolerance: equality."""
 import json
@@ -29,6 +30,8 @@ from repro_torch.training import optimizer as topt  # noqa: E402
 from repro_torch.training.step import make_train_state  # noqa: E402
 
 F32 = dict(param_dtype="float32", compute_dtype="float32")
+# the round trips run on a decoder-only tree and on the encoder-decoder's
+ARCHS = ["qwen2-7b", "whisper-base"]
 
 
 def _flat(tree, path=()):
@@ -56,8 +59,8 @@ def _assert_same(torch_tree, jax_tree):
         assert _bits(t[k]) == _bits(j[k]), k
 
 
-def _port_state(seed=0):
-    api = build_model(reduced(get_config("qwen2-7b")), ParallelConfig(**F32),
+def _port_state(seed=0, arch="qwen2-7b"):
+    api = build_model(reduced(get_config(arch)), ParallelConfig(**F32),
                       device="cpu")
     opt = topt.Optimizer(topt.OptConfig())
     state = make_train_state(api, opt, seed=seed)
@@ -70,8 +73,8 @@ def _port_state(seed=0):
     return state
 
 
-def _jax_state(seed=1):
-    japi = jax_build_model(jax_reduced(jax_get_config("qwen2-7b")),
+def _jax_state(seed=1, arch="qwen2-7b"):
+    japi = jax_build_model(jax_reduced(jax_get_config(arch)),
                            JaxParallelConfig(**F32), make_local_mesh(1, 1))
     params = japi.init(jax.random.key(seed))
     opt = jopt.Optimizer(jopt.OptConfig()).init(params)
@@ -83,22 +86,28 @@ def _jax_state(seed=1):
     return {"params": params, "opt": opt, "step": jnp.int32(5)}
 
 
-def test_port_checkpoint_restores_in_jax(tmp_path):
-    state = _port_state()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_checkpoint_restores_in_jax(tmp_path, arch):
+    state = _port_state(arch=arch)
     CheckpointManager(str(tmp_path)).save(state, 7, extra={"data_step": 7},
                                           blocking=True)
-    restored, extra = JaxCkpt(str(tmp_path)).restore(_jax_state())
+    restored, extra = JaxCkpt(str(tmp_path)).restore(_jax_state(arch=arch))
     assert extra == {"data_step": 7}
     _assert_same(state, restored)
+    if arch == "whisper-base":
+        paths = _flat(restored["params"])
+        assert {"pos_dec", "enc_blocks/attn/wq", "dec_blocks/self/wk",
+                "dec_blocks/cross/bv"} <= set(paths)
 
 
-def test_jax_checkpoint_restores_in_port(tmp_path):
-    state = _jax_state()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_jax_checkpoint_restores_in_port(tmp_path, arch):
+    state = _jax_state(arch=arch)
     JaxCkpt(str(tmp_path)).save(state, 5, extra={"data_step": 5},
                                 blocking=True)
     mgr = CheckpointManager(str(tmp_path))
     assert mgr.latest_step() == 5
-    restored, extra = mgr.restore(_port_state())
+    restored, extra = mgr.restore(_port_state(arch=arch))
     assert extra == {"data_step": 5}
     _assert_same(restored, state)
 

@@ -104,7 +104,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
         build_model(cfg, parallel)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--duration", "0.1"])
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, family="audio"), parallel,
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(cfg, family="speech"), parallel,
                     device="cpu")
     assert build_model(cfg, parallel, device="cpu").device.type == "cpu"

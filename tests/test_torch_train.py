@@ -25,9 +25,12 @@ from repro.models import layers as jL  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 
+from _torch_jax_models import (GRAD_TOL, LOSS_RTOL,  # noqa: E402
+                               assert_grads_close, lm_batch, pair, to_jax,
+                               to_torch)
+
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
-from repro_torch.convert import params_from_jax_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
@@ -45,126 +48,63 @@ FAMILIES = {"dense": "qwen2-7b", "moe": "olmoe-1b-7b", "ssm": "mamba2-1.3b",
 # the hybrid with one group and a 2-layer recurrent tail, its window
 # binding inside the sequence
 OVERRIDES = {"hybrid": dict(n_layers=5, window=8)}
-# leaves that JAX initializes to ones/zeros: perturbed so that the norms,
-# biases and gates are exercised too
-PERTURB = ("ln", "final_ln", "bq", "bk", "bv", "lam", "b_a", "b_i", "bi",
-           "bo", "dt_bias", "A_log", "D_skip", "gn")
-LOSS_RTOL = 1e-5
-GRAD_TOL = 1e-4
 REMAT_TOL = 1e-6
 
 
-def _perturb(tree, rng):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = _perturb(v, rng)
-        elif k in PERTURB:
-            out[k] = v + jnp.asarray(0.1 * rng.normal(size=v.shape), v.dtype)
-        else:
-            out[k] = v
-    return out
-
-
-def _leaves(tree, path=()):
-    """[(path, leaf)] with dict keys sorted (JAX's order)."""
-    if isinstance(tree, dict):
-        return [pl for k in sorted(tree)
-                for pl in _leaves(tree[k], path + (k,))]
-    return [("/".join(path), tree)]
-
-
-def _batch(seed, B, S, vocab):
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, vocab, size=(B, S)).astype(np.int32)
-    labels = np.roll(tokens, -1, axis=1)
-    labels[:, -1] = -100
-    labels[0, :3] = -100                          # masked labels too
-    return tokens, labels.astype(np.int32)
-
-
 def _models(family, **par):
-    arch = FAMILIES[family]
-    over = OVERRIDES.get(family, {})
-    kw = dict(dict(param_dtype="float32", compute_dtype="float32",
-                   q_block=8, kv_block=8), **par)
-    japi = jax_build_model(jax_reduced(jax_get_config(arch), **over),
-                           JaxParallelConfig(**kw), make_local_mesh(1, 1))
-    jparams = _perturb(japi.init(jax.random.key(0)),
-                       np.random.default_rng(0))
-    cfg = reduced(get_config(arch), **over)
-    api = build_model(cfg, ParallelConfig(**kw), device="cpu")
-    params = params_from_jax_numpy(jax.tree.map(np.asarray, jparams), cfg,
-                                   device="cpu")
-    return japi, jparams, api, params
+    return pair(FAMILIES[family], OVERRIDES.get(family, {}), **par)
 
 
-def _jax_loss_grads(japi, jparams, tokens, labels):
+def _jax_loss_grads(japi, jparams, batch):
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
-        japi.loss_fn, has_aux=True))(
-        jparams, {"tokens": jnp.asarray(tokens),
-                  "labels": jnp.asarray(labels)})
+        japi.loss_fn, has_aux=True))(jparams, to_jax(batch))
     return float(loss), {k: float(v) for k, v in metrics.items()}, grads
 
 
-def _port_loss_grads(api, params, tokens, labels):
-    loss, metrics, grads = loss_and_grads(
-        api, params, {"tokens": torch.as_tensor(tokens),
-                      "labels": torch.as_tensor(labels)})
+def _port_loss_grads(api, params, batch):
+    loss, metrics, grads = loss_and_grads(api, params, to_torch(batch))
     return float(loss), {k: float(v) for k, v in metrics.items()}, grads
-
-
-def _assert_grads_close(got, want, tol):
-    got, want = dict(_leaves(got)), dict(_leaves(want))
-    assert set(got) == set(want)
-    for path, w in want.items():
-        w = np.asarray(w)
-        g = got[path].detach().numpy()
-        assert g.shape == w.shape, path
-        scale = max(float(np.abs(w).max()), 1e-12)
-        err = float(np.abs(g - w).max())
-        assert err <= tol * scale, (path, err, scale)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["xent", "fused_xent"])
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_loss_and_grads_match_jax(family, fused):
     japi, jparams, api, params = _models(family, fused_xent=fused)
-    tokens, labels = _batch(1, 2, 16, api.cfg.vocab_size)
-    jl, jm, jg = _jax_loss_grads(japi, jparams, tokens, labels)
-    tl, tm, tg = _port_loss_grads(api, params, tokens, labels)
+    batch = lm_batch(1, 2, 16, api.cfg.vocab_size)
+    jl, jm, jg = _jax_loss_grads(japi, jparams, batch)
+    tl, tm, tg = _port_loss_grads(api, params, batch)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     assert set(tm) == set(jm)
     for k in jm:
         np.testing.assert_allclose(tm[k], jm[k], rtol=LOSS_RTOL, atol=1e-6)
     if family == "moe":
         assert {"load_balance", "router_z"} <= set(tm)
-    _assert_grads_close(tg, jg, GRAD_TOL)
+    assert_grads_close(tg, jg, GRAD_TOL)
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_remat_policies_give_the_same_grads(family):
     _, _, api, params = _models(family)
-    tokens, labels = _batch(2, 2, 16, api.cfg.vocab_size)
-    base = _port_loss_grads(api, params, tokens, labels)   # remat "block"
+    batch = lm_batch(2, 2, 16, api.cfg.vocab_size)
+    base = _port_loss_grads(api, params, batch)   # remat "block"
     for policy in ("none", "dots"):
         other = build_model(api.cfg, ParallelConfig(
             param_dtype="float32", compute_dtype="float32", q_block=8,
             kv_block=8, remat=policy), device="cpu")
-        loss, _, grads = _port_loss_grads(other, params, tokens, labels)
+        loss, _, grads = _port_loss_grads(other, params, batch)
         assert loss == pytest.approx(base[0], rel=1e-6)
-        _assert_grads_close(grads, base[2], REMAT_TOL)
+        assert_grads_close(grads, base[2], REMAT_TOL)
 
 
 def test_dense_long_sequence_trains_through_the_blocked_attention():
     """S = 640 > 512 with q_block = kv_block = 128: JAX's dispatch takes
     its blocked ``flash_attention_jnp``; the port its blocked twin."""
     japi, jparams, api, params = _models("dense", q_block=128, kv_block=128)
-    tokens, labels = _batch(3, 1, 640, api.cfg.vocab_size)
-    jl, _, jg = _jax_loss_grads(japi, jparams, tokens, labels)
-    tl, _, tg = _port_loss_grads(api, params, tokens, labels)
+    batch = lm_batch(3, 1, 640, api.cfg.vocab_size)
+    jl, _, jg = _jax_loss_grads(japi, jparams, batch)
+    tl, _, tg = _port_loss_grads(api, params, batch)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    _assert_grads_close(tg, jg, GRAD_TOL)
+    assert_grads_close(tg, jg, GRAD_TOL)
 
 
 @pytest.mark.parametrize("case", [
@@ -253,9 +193,7 @@ def test_no_kernel_wrapper_is_called_on_the_train_path(monkeypatch):
                           device="cpu")
         opt = Optimizer(OptConfig())
         state = make_train_state(api, opt, seed=0)
-        tokens, labels = _batch(6, 2, 16, cfg.vocab_size)
-        batch = {"tokens": torch.as_tensor(tokens),
-                 "labels": torch.as_tensor(labels)}
+        batch = to_torch(lm_batch(6, 2, 16, cfg.vocab_size))
         state, metrics = make_train_step(api, opt)(state, batch)
         assert np.isfinite(float(metrics["loss"])), family
         with pytest.raises(AssertionError, match="kernel wrapper"):
