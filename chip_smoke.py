@@ -255,6 +255,36 @@ Drives the port in phases and exits non-zero if any fails:
                tolerances (whisper's key-bias gradients, zero in exact
                arithmetic without RoPE, held to 1e-6 of the largest |g| on
                either side instead), with no kernel launch.
+  (p) grid     the port's virtual-gang grid (repro_torch.vgang.grid) on
+               configs/experiments/grid_smoke.json, once with the batched RTA
+               on numpy and once on its float64 torch backend on the card
+               (the cells in this process; the backend's call counter must
+               move), each under build/: fails unless both run every cell
+               and give equal rows; then the port's schedulability sweep
+               (repro_torch.launch.sweep) on sweep_smoke.json into build/,
+               failing where RTA accepts more sets than the exact simulation
+               runs without a miss. (j)'s task sets come from the port's
+               sweep and grid (random_gang_taskset, random_vgang_taskset,
+               taskset_seed, n_tasks_for). No kernel may launch in (p);
+  (q) perfetto the executor trace of (h)'s traced RT-Gang run exported as a
+               Perfetto / Chrome trace (repro_torch.obs.perfetto) to
+               build/perfetto_fig6_rtgang.json: fails on any message of
+               validate_chrome_trace and unless the file's core tracks
+               (segments_from_json) equal the trace's labeled segments;
+  (r) roofline inside (d), (d2), (d3), (d4), (m), (n) and (f), on the weights
+               already on the card: the port's cost analysis
+               (repro_torch.roofline.op_analysis) of the decode step the
+               phase times and of its longest prefill (DAVE-2: the B=1
+               forward, whose FLOPs must equal the layer formula's), the
+               FLOPs, bytes, H100 compute / memory / collective terms
+               (repro_torch.roofline.report: 989 TFLOP/s bf16, 67 TFLOP/s
+               f32, 3.35 TB/s), the bound in ms, the measured time and the
+               share of the bound it reaches, beside the card's name and
+               power limit; an analysis restores the launch counts. At the
+               end, the reduced config of each of the six families in f32
+               from the same weights: a prefill and a decode step analysed
+               on the card and on the CPU must give the same FLOPs and
+               bytes, and the same kernel work charged.
 
 Each serving and training phase sets the kernels' launch counts to 0
 just before it drives the path and reads them just after; ssd_scan must
@@ -295,7 +325,6 @@ from repro_torch.benchmarks import fig6_dnn_cdf as fig6  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.deeppicar import CONFIG as DAVE2  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
-from repro_torch.core.gang import RTTask  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
 from repro_torch.examples import serve_with_background_training as swbt  # noqa: E402
 from repro_torch.examples import vgang_fleet  # noqa: E402
@@ -307,27 +336,41 @@ from repro_torch.kernels.rglru_scan import ops as rg  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, sweep  # noqa: E402
+from repro_torch.launch.sweep import (random_gang_taskset,  # noqa: E402
+                                      taskset_seed)
 from repro_torch.models import dave2 as DV  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import rglru as RG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.obs.perfetto import (export_trace,  # noqa: E402
+                                      segments_from_json,
+                                      validate_chrome_trace,
+                                      write_chrome_trace)
+from repro_torch.roofline import report as RR  # noqa: E402
+from repro_torch.roofline.op_analysis import analyze  # noqa: E402
+from repro_torch.roofline.work import (flash_work, gmm_work,  # noqa: E402
+                                       rglru_work, ssd_work)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.training.optimizer import OptConfig, Optimizer  # noqa: E402
 from repro_torch.training.runner import (RunnerConfig,  # noqa: E402
                                          SimulatedFailure, TrainRunner)
 from repro_torch.training.step import loss_and_grads  # noqa: E402
+from repro_torch.vgang import grid  # noqa: E402
 from repro_torch.vgang import rta as VRTA  # noqa: E402
+from repro_torch.vgang.grid import (n_tasks_for,  # noqa: E402
+                                    random_vgang_taskset)
 from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
                                          intensity_interference,
                                          singleton_vgangs)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them,
-# HBM3 bandwidth
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
+# HBM3 bandwidth (repro_torch.roofline.report, where their sources stand)
+PEAK_OPS = {dt: RR.PEAK_FLOPS[str(dt).removeprefix("torch.")]
+            for dt in (torch.bfloat16, torch.float32)}
+HBM_BYTES_PER_S = RR.HBM_BW
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -525,6 +568,13 @@ RESTART_RTOL = 1e-5
 SMOKE_ARCHS = ("qwen2-7b", "olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-9b",
                "internvl2-1b", "whisper-base")
 SMOKE_SEQ = 32
+# (p): the seeded smoke configs of the grid and the sweep
+GRID_SMOKE = ROOT / "configs" / "experiments" / "grid_smoke.json"
+SWEEP_SMOKE = ROOT / "configs" / "experiments" / "sweep_smoke.json"
+# (r): the reduced configs' prompt and decode cache for the analysis of
+# one callable on the card against the CPU
+ROOF_SEQ = 24
+ROOF_MAX_SEQ = 64
 # (l): the example's RT side (qwen2-7b bf16, full depth) beside its BE
 # side (olmoe-1b-7b at full width, bf16 compute / f32 masters, depth cut
 # 16 -> 4: 34 GB of training state beside the serving gang's 18 GB)
@@ -591,26 +641,6 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
-
-
-def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    q = np.arange(Sq)[:, None]
-    k = np.arange(Sk)[None, :]
-    mask = np.ones((Sq, Sk), bool)
-    if causal:
-        mask &= k <= q
-    if window > 0:
-        mask &= k > q - window
-    return int(mask.sum())
-
-
-def flash_work(case) -> tuple[int, int]:
-    """Operations (4 x Hq x D per unmasked (q, k) pair of the Sq x Sk) and
-    bytes (q, k, v read once, o written once) of one flash call."""
-    B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
-    ops = 4 * B * Hq * D * unmasked_pairs(Sq, Sk, causal, window)
-    elt = torch.tensor([], dtype=dt).element_size()
-    return ops, elt * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
 
 
 def bound(case) -> tuple[float, str]:
@@ -704,17 +734,6 @@ def gmm_counts(kind: str, E: int, C: int, gen, dev) -> torch.Tensor:
     return torch.bincount(tope, minlength=E).clamp(max=C).to(torch.int32)
 
 
-def gmm_work(E, C, D, F, counts, dt) -> tuple[int, int]:
-    """Operations, 2 x (rows in use) x D x F, and the bytes a call must
-    move: the rows in use of x, the weights of the experts in use, the
-    whole output, the counts."""
-    rows = int(counts.sum())
-    used = int((counts > 0).sum())
-    elt = torch.tensor([], dtype=dt).element_size()
-    return (2 * rows * D * F,
-            elt * (rows * D + used * D * F + E * C * F) + 4 * E)
-
-
 def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
     """Least time for this call: its operations over the peak rate of the
     type against its bytes over the memory rate (gmm_work)."""
@@ -785,25 +804,6 @@ def ssd_inputs(B, S, H, P, N, dt, gen, dev):
     A = -torch.exp(torch.rand((H,), generator=gen, device=dev)
                    * float(np.log(16.0)))
     return x, dtv, Bm, Cm, A
-
-
-def ssd_work(B, S, H, P, N, chunk, dt) -> tuple[int, int]:
-    """Operations: per chunk of q tokens inside the sequence, only the
-    q (q + 1) / 2 pairs j <= i of the causal triangle, C B^T once per
-    (b, chunk) (B and C are shared across heads, 2 pairs N) and per head
-    the intra-chunk product (2 pairs P), the inter-chunk term and the state
-    update (2 q N P each). Bytes: x, dt, B, C and A read once, y and the
-    final state written once."""
-    Q = min(chunk, S)
-    elt = torch.tensor([], dtype=dt).element_size()
-    ops = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        pairs = unmasked_pairs(q, q, True, 0)
-        ops += 2 * B * (pairs * N + H * (pairs * P + 2 * q * N * P))
-    nbytes = elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) \
-        + 4 * H + 4 * B * H * P * N
-    return ops, nbytes
 
 
 def ssd_bound(B, S, H, P, N, chunk, dt) -> tuple[float, str]:
@@ -883,15 +883,6 @@ def rglru_inputs(B, S, C, scale, with_h0, dt, gen, dev):
         gx = randn(B, S, C)
     h0 = randn(B, C) if with_h0 else None
     return log_a.to(dt), gx.to(dt), h0
-
-
-def rglru_work(B, S, C, with_h0, dt) -> tuple[int, int]:
-    """Operations, an exp and an FMA (3) per element, and bytes: log_a and
-    gx read once, h written once in the input type, h0 read and the last h
-    written in f32."""
-    elt = torch.tensor([], dtype=dt).element_size()
-    return (3 * B * S * C,
-            elt * 3 * B * S * C + 4 * B * C * (2 if with_h0 else 1))
 
 
 def rglru_bound(B, S, C, with_h0, dt) -> tuple[float, str]:
@@ -1031,6 +1022,41 @@ def read_launches() -> dict:
     return {name: m.launches for name, m in KERNELS.items()}
 
 
+def roofline_step(arch: str, what: str, fn, args, measured_ms: float,
+                  dtype: str, tokens: int, smi: str, cfg=None) -> dict:
+    """(r): ``fn(*args)`` once under the port's cost analysis (its launch
+    counts are restored), its FLOPs and bytes as an H100 roofline cell,
+    the bound (the larger of the compute and memory terms) against the
+    step's measured time, and the share of the bound that time reaches."""
+    res = analyze(fn, *args)
+    torch.cuda.synchronize()
+    row = RR.roofline_row(RR.cell(
+        arch, what, res, dtype=dtype, tokens=tokens,
+        n_params=cfg.n_params() if cfg is not None else None,
+        n_active_params=cfg.n_active_params() if cfg is not None else None))
+    out = {"flops": res["flops"], "bytes": res["bytes"],
+           "bytes_inner_loops": res["bytes_inner_loops"], "ops": res["ops"],
+           "kernels": res["kernels"], "collective_bytes":
+           res["collective_total"], "compute_ms": row["compute_s"] * 1e3,
+           "memory_ms": row["memory_s_kernel"] * 1e3,
+           "collective_ms": row["collective_s"] * 1e3,
+           "bound_ms": row["bound_s"] * 1e3, "bound_by": row["dominant"],
+           "model_flops": row["model_flops_per_dev"], "dtype": dtype,
+           "measured_ms": measured_ms,
+           "share": row["bound_s"] * 1e3 / measured_ms,
+           "top_bytes_ops": res["top_bytes_ops"][:6], "nvidia_smi": smi}
+    print(f"[roofline] {arch} {what}: {res['flops'] / 1e9:.6g} GFLOP, "
+          f"{res['bytes'] / 1e9:.6g} GB ({res['ops']} aten ops; "
+          f"{res['bytes_inner_loops'] / 1e9:.6g} GB more inside kernel "
+          f"wrappers; kernels {res['kernels'] or 'none'}); H100 {dtype} "
+          f"terms: compute {out['compute_ms']:.6g} ms, memory "
+          f"{out['memory_ms']:.6g} ms, collective {out['collective_ms']:.6g}"
+          f" ms; bound {out['bound_ms']:.6g} ms ({out['bound_by']}); "
+          f"measured {measured_ms:.6g} ms, {100 * out['share']:.2f}% of "
+          f"the bound [{smi}]")
+    return out
+
+
 def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     cfg = get_config(arch)
     moe = cfg.family == "moe"
@@ -1110,12 +1136,19 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
         api.prefill_fn(params, {"tokens": tokens})
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
-    del engine
     step_ms = float(np.median(steps[2:]))
     prefill_ms = float(np.median(pre[1:]))
     print(f"[serve] {arch} engine alone: decode step (4 slots) median "
           f"{step_ms:.3f} ms of {len(steps) - 2}, 1024-token prefill median "
           f"{prefill_ms:.3f} ms of {len(pre) - 1} [{smi}]")
+    roof = {"decode": roofline_step(
+        arch, "decode step (4 slots)", engine.decode_step, (), step_ms,
+        "bfloat16", 4, smi, cfg),
+        "prefill": roofline_step(
+            arch, "1024-token prefill", api.prefill_fn,
+            (params, {"tokens": tokens}), prefill_ms, "bfloat16", 1024, smi,
+            cfg)}
+    del engine
     # bf16 oracle, reported only: bf16 rounding differs between the batched
     # decode step and the oracle, so near-ties may flip (phase e/e2 checks)
     r0 = reqs[0]
@@ -1136,7 +1169,8 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
             "busy_max_ms": float(busy.max()), "busy_quanta": int(len(busy)),
             "be_quanta": res["stats"]["be_quanta"], "peak_gb": peak_gb,
             "bf16_oracle_prefix": agree, "engine_decode_step_ms": step_ms,
-            "engine_prefill_1024_ms": prefill_ms, "lines": lines}
+            "engine_prefill_1024_ms": prefill_ms, "roofline": roof,
+            "lines": lines}
 
 
 def plain_ssd_scan(xh, dt, Bm, Cm, A, *, chunk):
@@ -1374,7 +1408,6 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
         api.decode_fn(params, caches, state["tok"], lens + GANG_NEW + i)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
-    del caches
     n_long = max(prompt_lens)
     longest = batches[prompt_lens.index(n_long)]
     pre = []
@@ -1389,6 +1422,14 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
     print(f"[{arch}] alone: decode step (4 sequences) median {step_ms:.3f} "
           f"ms of {len(steps) - 2}, {n_long}-token prefill median "
           f"{prefill_ms:.3f} ms of {len(pre) - 1} [{smi}]")
+    roof = {"decode": roofline_step(
+        arch, f"decode step ({n_seq} sequences)", api.decode_fn,
+        (params, caches, state["tok"], lens + GANG_NEW + 12), step_ms,
+        "bfloat16", n_seq, smi, cfg),
+        "prefill": roofline_step(
+            arch, f"{n_long}-token prefill", api.prefill_fn,
+            (params, longest), prefill_ms, "bfloat16", n_long, smi, cfg)}
+    del caches
     return {"api": api, "params": params, "launches": launches,
             "prefills": n_seq, "decode_steps": len(out) - 1,
             "decode_p50_ms": float(np.percentile(lat, 50)),
@@ -1399,7 +1440,7 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
             "busy_max_ms": float(busy.max()), "busy_quanta": int(len(busy)),
             "be_quanta": stats["be_quanta"], "peak_gb": peak_gb,
             "decode_step_ms": step_ms, f"prefill_{n_long}_ms": prefill_ms,
-            "tokens": tokens.tolist()}
+            "roofline": roof, "tokens": tokens.tolist()}
 
 
 def phase_gang_oracle(dev, api16, params16, max_seq: int,
@@ -1649,8 +1690,19 @@ def phase_dave2(dev, smi: str) -> dict:
           f"{mflop:.2f} MFLOP a frame [{smi}]")
     print("[dave2] B=1 top device events, ms a forward: " + "; ".join(
         f"{d / 1e3 / n_fwd:.4f} {n[:60]}" for n, d in top))
-    return {"max_abs_err": errs, "tol": DAVE2_TOL, "b1_ms": ms,
-            "b1_graph_ms": g_ms, "launches_per_forward": len(events) / n_fwd,
+    roof = roofline_step("dave2", "B=1 forward", model, (x1,), ms,
+                         "float32", 1, smi)
+    roof["graph_ms"] = g_ms
+    roof["graph_share"] = roof["bound_ms"] / g_ms
+    if roof["flops"] != dave2_flops(cfg, 1):
+        fail(f"dave2: the analysis counts {roof['flops']} FLOPs a B=1 "
+             f"forward, the layer formula {dave2_flops(cfg, 1)}")
+    print(f"[roofline] dave2 B=1 forward in a CUDA graph: {g_ms:.6g} ms, "
+          f"{100 * roof['graph_share']:.2f}% of the bound; FLOPs equal the "
+          f"layer formula's {dave2_flops(cfg, 1)} [{smi}]")
+    return {"roofline": {"forward B=1": roof}, "max_abs_err": errs,
+            "tol": DAVE2_TOL, "b1_ms": ms, "b1_graph_ms": g_ms,
+            "launches_per_forward": len(events) / n_fwd,
             "b1_busy_ms": busy_ms, "kernels": names, "mflop_per_frame": mflop,
             "b1_top_ms": {n: d / 1e3 / n_fwd for n, d in top}}
 
@@ -1762,6 +1814,8 @@ def phase_fig6(dev, smi: str, dnn_kernels: list[str]) -> dict:
             def go():
                 out["row"] = bench.gang(enabled, budget, FIG6_TRACED_S)
         events = device_events(go, f"fig6_{mode}")
+        if mode == "rtgang":
+            rtgang_trace = bench.trace
         row = out["row"]
         n = row["n"]
         mine = [e for e in events if e["name"] in dnn_kernels]
@@ -1780,7 +1834,7 @@ def phase_fig6(dev, smi: str, dnn_kernels: list[str]) -> dict:
               f"); traced wall p50 {row['p50_ms']} ms, lane stream p50 "
               f"{row['dev_p50_ms']} ms; the DNN's busy time / untraced wall "
               f"p50 {t['dnn_busy_ms'] / rows[mode]['p50_ms']:.3f} [{smi}]")
-    return dict(rows, alone=alone, traced=traced)
+    return dict(rows, alone=alone, traced=traced, trace=rtgang_trace)
 
 
 def phase_vgang(dev, smi: str) -> dict:
@@ -1854,68 +1908,6 @@ def phase_vgang(dev, smi: str) -> dict:
     summary = {m: {k: v for k, v in row.items() if k != "device_quanta"}
                for m, row in doc["modes"].items()}
     return {"bench": dict(doc, modes=summary), "fleet": fleet}
-
-
-def uunifast(rng: random.Random, n: int, total_util: float) -> list:
-    """UUniFast (Bini & Buttazzo): the sweep's and the grid's split of a
-    total utilization over n tasks."""
-    utils, remaining = [], total_util
-    for i in range(n - 1):
-        nxt = remaining * rng.random() ** (1.0 / (n - 1 - i))
-        utils.append(remaining - nxt)
-        remaining = nxt
-    utils.append(remaining)
-    return utils
-
-
-def taskset_seed(seed: int, k: int, total_util: float) -> int:
-    """The per-taskset seed of the sweep and the grid."""
-    return seed + 7919 * k + int(1e6 * total_util)
-
-
-def random_gang_taskset(rng, n_cores: int, n_tasks: int, total_util: float):
-    """The Monte-Carlo sweep's random gang task set: UUniFast utilizations,
-    periods from a pool, random widths, rate-monotonic priorities."""
-    utils = uunifast(rng, n_tasks, total_util)
-    periods = [rng.choice((10.0, 20.0, 25.0, 40.0, 50.0, 100.0))
-               for _ in range(n_tasks)]
-    by_rm = sorted(range(n_tasks), key=lambda i: (periods[i], i))
-    prio_of = {idx: n_tasks - rank for rank, idx in enumerate(by_rm)}
-    tasks = []
-    for i in range(n_tasks):
-        width = rng.randint(1, n_cores)
-        cores = tuple(rng.sample(range(n_cores), width))
-        tasks.append(RTTask(
-            name=f"g{i}", wcet=max(utils[i] * periods[i], 1e-3),
-            period=periods[i], cores=cores, prio=prio_of[i],
-            release_offset=rng.uniform(0, periods[i])))
-    return tasks
-
-
-GRID_WIDTHS = {"light": lambda rng, m: rng.randint(1, max(1, m // 4)),
-               "mixed": lambda rng, m: rng.randint(1, max(1, m // 2)),
-               "heavy": lambda rng, m: rng.randint(max(1, m // 2), m)}
-
-
-def random_vgang_taskset(rng, n_cores: int, n_tasks: int, total_util: float,
-                         dist: str = "mixed"):
-    """The vgang grid's random task set: UUniFast utilizations, widths from
-    the named distribution, periods 20/40/80, memory intensity in [0, 1]."""
-    utils = uunifast(rng, n_tasks, total_util)
-    tasks = []
-    for i in range(n_tasks):
-        period = rng.choice((20.0, 40.0, 80.0))
-        width = GRID_WIDTHS[dist](rng, n_cores)
-        tasks.append(RTTask(
-            name=f"g{i}", wcet=max(utils[i] * period, 1e-3), period=period,
-            cores=tuple(range(width)), prio=n_tasks - i,
-            mem_intensity=rng.random()))
-    return tasks
-
-
-def n_tasks_for(n_cores: int) -> int:
-    """The grid's gangs a task set: 4 -> 5, 8 -> 7, 16 -> 11."""
-    return 3 + (n_cores + 1) // 2
 
 
 def rta_shards():
@@ -2003,6 +1995,134 @@ def phase_rta(dev, smi: str) -> dict:
     got = VRTA.batched_accepts(vs, intfs, backend="torch")
     if got != VRTA.batched_accepts(vs, intfs, backend="numpy"):
         fail("rta: vgang batched_accepts differs between torch and numpy")
+    return out
+
+
+def curve_rows(out_dir: Path) -> tuple[dict, dict]:
+    """{curve file: rows without their wall-clock fields} of a grid run,
+    and its summary."""
+    summary = json.loads((out_dir / "summary.json").read_text())
+    return {Path(f).name: [
+        {k: v for k, v in r.items() if not k.startswith("wall")}
+        for r in json.loads((out_dir / Path(f).name).read_text())["rows"]]
+        for f in summary["files"]}, summary
+
+
+def phase_grid(dev, smi: str) -> dict:
+    """(p) the port's virtual-gang grid on grid_smoke.json with the batched
+    RTA on numpy and on the torch backend on the card (its cells in this
+    process; its call counter must move), rows equal; then the port's
+    schedulability sweep on sweep_smoke.json (RTA never accepts a set the
+    exact simulation misses). Both write under build/; in one process,
+    since a worker forked from this one could not use the card."""
+    out = ROOT / "build"
+    times, rows = {}, {}
+    for backend in ("numpy", "torch"):
+        calls = BRTA.torch_calls
+        t0 = time.perf_counter()
+        rc = grid.main(["--config", str(GRID_SMOKE), "--out",
+                        str(out / f"vgang_smoke_{backend}"), "--backend",
+                        backend, "--procs", "1"])
+        times[backend] = time.perf_counter() - t0
+        rows[backend], summary = curve_rows(out / f"vgang_smoke_{backend}")
+        ran = BRTA.torch_calls - calls
+        print(f"[grid] {GRID_SMOKE.name} on {backend}: rc {rc}, "
+              f"{sum(map(len, rows[backend].values()))} rows, skipped cells "
+              f"{summary['skipped_cells']}, soundness violations "
+              f"{summary['soundness_violations']}, torch backend calls "
+              f"{ran}, {times[backend]:.2f} s [{smi}]")
+        if rc or summary["skipped_cells"]:
+            fail(f"grid on {backend}: rc {rc}, skipped cells "
+                 f"{summary['skipped_cells']}")
+        if (ran > 0) != (backend == "torch"):
+            fail(f"grid on {backend}: the torch backend ran {ran} times")
+    if rows["numpy"] != rows["torch"]:
+        fail("grid: the rows on the torch backend differ from numpy's")
+    path = out / "sched_sweep_torch_smoke.json"
+    sweep.main(["--config", str(SWEEP_SMOKE), "--out", str(path),
+                "--procs", "1"])
+    doc = json.loads(path.read_text())
+    for r in doc["rows"]:
+        if r["rta_sched_ratio"] > r["sim_sched_ratio"] or r["n"] != 10:
+            fail(f"sweep: RTA accepts more than the simulation misses ({r})")
+    print(f"[grid] sweep {SWEEP_SMOKE.name}: " + ", ".join(
+        f"util {r['util']} sim {r['sim_sched_ratio']} rta "
+        f"{r['rta_sched_ratio']}" for r in doc["rows"]) + f"; {path.name}")
+    return {"rows_equal": True, "grid_s": times, "sweep": doc["rows"]}
+
+
+def phase_perfetto(trace, smi: str) -> dict:
+    """(q) the executor trace of (h)'s traced RT-Gang run as a Perfetto /
+    Chrome trace under build/: fails on any message of
+    validate_chrome_trace and unless the file's core tracks invert to the
+    trace's labeled segments."""
+    data = export_trace(trace, rt_names=["dnn"], title="fig6 rtgang")
+    probs = validate_chrome_trace(data)
+    if probs:
+        fail(f"perfetto: {probs[:5]}")
+    path = ROOT / "build" / "perfetto_fig6_rtgang.json"
+    write_chrome_trace(str(path), data)
+    got = segments_from_json(json.loads(path.read_text()))
+    want = sorted(((sg.core, sg.label, sg.t0, sg.t1)
+                   for sg in trace.segments if sg.label is not None),
+                  key=lambda t: (t[0], t[2]))
+    if got != want:
+        fail(f"perfetto: the round trip gives {len(got)} segments, the "
+             f"trace has {len(want)}, or they differ")
+    cats: dict = {}
+    for e in data["traceEvents"]:
+        if e["ph"] == "X":
+            cats[e["cat"]] = cats.get(e["cat"], 0) + 1
+    print(f"[perfetto] fig6 RT-Gang executor trace: {len(got)} spans "
+          f"{cats} over {trace.n_cores} lanes, valid, round trip exact; "
+          f"{path.relative_to(ROOT)} ({path.stat().st_size} B) [{smi}]")
+    return {"spans": len(got), "by_cat": cats, "path": str(path)}
+
+
+def phase_roofline_check(dev, smi: str) -> dict:
+    """(r) the cost analysis of one callable on the card and on the CPU:
+    the reduced config of each family in f32 from the same weights (drawn
+    on the card), a prefill of ROOF_SEQ tokens and a decode step after it,
+    must give the same FLOPs and bytes on both (the kernels' work charged
+    from their shapes on the card, their plain versions' ops inside the
+    wrappers on the CPU)."""
+    parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    for arch in SMOKE_ARCHS:
+        cfg = reduced(get_config(arch))
+        params = L.init_params(build_model(cfg, parallel, dev).defs, seed=1,
+                               dtype=torch.float32, device=dev)
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, size=(1, ROOF_SEQ)), device=dev),
+            **stub_inputs(cfg, 3, dev)}
+        side = {}
+        for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            api = build_model(cfg, parallel, where)
+            p = L.tree_map(lambda _, a: a.to(where), params)
+            b = {k: v.to(where) for k, v in batch.items()}
+            pre = analyze(api.prefill_fn, p, b)
+            logits, c = api.prefill_fn(p, b)
+            caches = batch_caches([c], [ROOF_SEQ], ROOF_MAX_SEQ)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            dec = analyze(api.decode_fn, p, caches, tok,
+                          torch.tensor([ROOF_SEQ], device=where))
+            side[label] = {
+                "prefill": {k: pre[k] for k in ("flops", "bytes")},
+                "decode": {k: dec[k] for k in ("flops", "bytes")},
+                "kernels": pre["kernels"]}
+        print(f"[roofline] {arch} reduced f32, card vs CPU: prefill "
+              f"{side['card']['prefill']} / {side['cpu']['prefill']}, decode "
+              f"{side['card']['decode']} / {side['cpu']['decode']}; kernels "
+              f"charged {side['card']['kernels']}")
+        for step in ("prefill", "decode"):
+            if side["card"][step] != side["cpu"][step]:
+                fail(f"roofline {arch} {step}: the card counts "
+                     f"{side['card'][step]}, the CPU {side['cpu'][step]}")
+        if side["card"]["kernels"] != side["cpu"]["kernels"]:
+            fail(f"roofline {arch}: kernels charged on the card "
+                 f"{side['card']['kernels']}, on the CPU "
+                 f"{side['cpu']['kernels']}")
+        out[arch] = side
     return out
 
 
@@ -2408,6 +2528,21 @@ def ptxas_report(log: str) -> list[dict]:
     return kernels
 
 
+def roofline_table(*reps) -> dict:
+    """(r)'s rows of the gang phases and DAVE-2 by model and step, and a
+    summary line each: the bound against the measured time."""
+    names = ("qwen2-7b", "olmoe-1b-7b", MAMBA_ARCH, HYBRID_ARCH, VLM_ARCH,
+             AUDIO_ARCH, "dave2")
+    table = {}
+    for name, rep in zip(names, reps):
+        for step, r in rep["roofline"].items():
+            table[f"{name} {step}"] = r
+            print(f"[roofline] {name} {step}: bound {r['bound_ms']:.6g} ms "
+                  f"({r['bound_by']}), measured {r['measured_ms']:.6g} ms, "
+                  f"{100 * r['share']:.2f}% of the bound [{r['nvidia_smi']}]")
+    return table
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -2511,6 +2646,7 @@ def main() -> int:
     if any(read_launches().values()):
         fail(f"phases (f)-(h) launched {read_launches()}: DAVE-2's path "
              f"has none of the four kernels")
+    perfetto_rep = timed("q", phase_perfetto, fig6_rep.pop("trace"), smi)
     vgang_rep = timed("i", phase_vgang, dev, smi)
     if any(read_launches().values()):
         fail(f"phase (i) launched {read_launches()}: the vgang path has "
@@ -2518,11 +2654,15 @@ def main() -> int:
     rta_rep = timed("j", phase_rta, dev, smi)
     if any(read_launches().values()):
         fail(f"phase (j) launched {read_launches()}")
+    grid_rep = timed("p", phase_grid, dev, smi)
+    if any(read_launches().values()):
+        fail(f"phase (p) launched {read_launches()}")
     train_rep = timed("k", phase_train, dev, smi)
     free()
     st_rep = timed("l", phase_serve_train, dev, smi)
     free()
     smoke_rep = timed("o", phase_smoke, dev, smi)
+    roof_check = timed("r", phase_roofline_check, dev, smi)
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
@@ -2556,7 +2696,10 @@ def main() -> int:
               "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
               "gang_recurrentgemma": sv4, "gang_internvl2": sv5,
               "gang_whisper": sv6, "dave2": dave2, "fig1": fig1_rep,
-              "fig6": fig6_rep, "vgang": vgang_rep, "rta": rta_rep,
+              "fig6": fig6_rep, "perfetto": perfetto_rep, "vgang": vgang_rep,
+              "rta": rta_rep, "grid": grid_rep,
+              "roofline": roofline_table(sv, sv2, sv3, sv4, sv5, sv6, dave2),
+              "roofline_card_vs_cpu": roof_check,
               "train": train_rep, "serve_train": st_rep, "smoke": smoke_rep,
               "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
@@ -2576,7 +2719,10 @@ def main() -> int:
           f"{train_rep['losses'][0]:.3f} -> {train_rep['losses'][-1]:.3f}, "
           f"f32 card vs CPU, restart); serve+train: pass (RT-Gang, "
           f"RT-Gang with training admitted, Co-Sched); smoke: pass "
-          f"({len(SMOKE_ARCHS)} families, f32 card vs CPU)")
+          f"({len(SMOKE_ARCHS)} families, f32 card vs CPU); grid + sweep: "
+          f"pass (numpy == torch on the card); perfetto: pass "
+          f"({perfetto_rep['spans']} spans); roofline: pass "
+          f"({len(SMOKE_ARCHS)} families card == CPU)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,9 +25,10 @@ Two backends share the same iteration structure:
   iteration of the JAX package's ``jax`` backend: every lane marches
   from ``base`` with no jump start, and the hp terms are added one
   column at a time in taskset order. Select with ``backend="torch"`` or
-  ``REPRO_RTA_BACKEND=torch``. Its WCRTs agree with the numpy backend's
-  to a relative 1e-12 and its verdicts are equal; bit parity is not
-  promised (the numpy path's jump start may land an ulp away).
+  ``REPRO_RTA_BACKEND=torch``; ``REPRO_RTA_DEVICE=cpu`` runs it on the
+  host where the caller names no device. Its WCRTs agree with the numpy
+  backend's to a relative 1e-12 and its verdicts are equal; bit parity is
+  not promised (the numpy path's jump start may land an ulp away).
 """
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ def accept_bits(batch: PaddedBatch, R: np.ndarray) -> np.ndarray:
     return np.all(ok | ~batch.valid, axis=1)
 
 
+# calls of the torch backend since import: a caller that asked for it can
+# tell that it ran (nothing falls back to numpy)
+torch_calls = 0
+
+
 def default_backend() -> str:
     env = os.environ.get("REPRO_RTA_BACKEND", "").strip().lower()
     if env in ("numpy", "torch"):
@@ -148,8 +154,9 @@ def fixed_point(batch: PaddedBatch, blocking=0.0, crpd=0.0,
     Returns an ``(S, T)`` float64 array of WCRTs with NaN where the lane
     diverged (scalar ``None``) or was not analyzed.
 
-    ``device`` is read by the ``torch`` backend only: ``None`` means the
-    card (and raises without one), ``"cpu"`` runs it on the host.
+    ``device`` is read by the ``torch`` backend only: ``None`` means
+    ``REPRO_RTA_DEVICE`` if it is set, else the card (and raises without
+    one); ``"cpu"`` runs it on the host.
     """
     if backend == "auto":
         backend = default_backend()
@@ -164,6 +171,8 @@ def fixed_point(batch: PaddedBatch, blocking=0.0, crpd=0.0,
     # keep such lanes as interferers only.
     active0 = analyze & batch.valid & np.isfinite(batch.C)
     if backend == "torch":
+        if device is None:
+            device = os.environ.get("REPRO_RTA_DEVICE") or None
         return _fixed_point_torch(batch, blocking_arr, crpd_arr, active0,
                                   max_iter, device)
     if backend != "numpy":
@@ -394,7 +403,9 @@ def _fixed_point_torch(batch: PaddedBatch, blocking: np.ndarray,
     import torch
 
     from repro_torch.device import resolve_device
+    global torch_calls
     dev = resolve_device(device)
+    torch_calls += 1
     S, T = batch.shape
 
     def f64(a):

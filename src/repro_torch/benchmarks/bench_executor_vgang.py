@@ -62,7 +62,6 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
 import sys
 import threading
 import time
@@ -73,7 +72,8 @@ import torch
 from repro_torch.benchmarks.report import ROOT, device_info, write_bench_json
 from repro_torch.core.executor import BEJob
 from repro_torch.core.gang import RTTask
-from repro_torch.device import Lanes, resolve_device, synchronize
+from repro_torch.device import (Lanes, host_lanes, resolve_device,
+                                synchronize)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.vgang.family import get_family
 from repro_torch.vgang.formation import (intensity_interference,
@@ -380,41 +380,15 @@ def resolve_bench_executor_config(argv=None):
     return cfg, ap.parse_args(argv).device
 
 
-def realtime_lanes():
-    """Run this thread, and so every lane thread the executor starts from
-    it (threads inherit the policy), under ``SCHED_RR`` where the OS
-    allows it, as RT-Gang runs its real-time tasks. Returns the policy and
-    parameters to restore, or None where the OS refuses."""
-    try:
-        old = (os.sched_getscheduler(0), os.sched_getparam(0))
-        os.sched_setscheduler(0, os.SCHED_RR, os.sched_param(RT_PRIORITY))
-    except (AttributeError, OSError):
-        return None
-    return old
-
-
 def main(argv=None) -> int:
     cfg, device = resolve_bench_executor_config(argv)
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    if dev.type != "cpu":
+    # on the CPU a lane is one host thread: unpinned, the calibrated WCETs
+    # (hence periods and durations) blow up on a busy host and a released
+    # lane waits past the jitter allowance for a core (device.host_lanes)
+    with host_lanes(dev, RT_PRIORITY):
         return run(cfg, dev)
-    # on the CPU a lane is one host thread: concurrent lanes whose
-    # products each fan out over every intra-op thread oversubscribe the
-    # cores, and the calibrated WCETs (hence periods and durations) blow
-    # up on a busy host. Beside other processes that keep every core busy,
-    # a lane thread of normal priority also waits 100-300 ms for a core
-    # after its release, past the jitter allowance: the lanes run as
-    # real-time threads where the OS lets them
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    policy = realtime_lanes()
-    try:
-        return run(cfg, dev)
-    finally:
-        torch.set_num_threads(threads)
-        if policy is not None:
-            os.sched_setscheduler(0, *policy)
 
 
 def run(cfg, dev) -> int:

@@ -141,6 +141,7 @@ class Fig6:
                                bytes_per_quantum=4096 * 4.0))
         self.events.clear()
         stats = ex.run(duration)
+        self.trace = ex.trace     # the last run's, for a timeline export
         if self.errors:
             raise self.errors[0]
         # quantum *execution* time: trace segments labelled dnn

@@ -15,11 +15,17 @@ quanta would co-run with the gang unseen by the executor.
 ``quantum(fn, errors)`` adds what every caller needs on top: an exception
 in a quantum ends only its lane's worker thread, so the wrapper keeps it
 in ``errors`` for the caller to raise after the run.
+
+``host_lanes(device, priority)`` sets up the host for an executor run on
+the CPU, where a lane is one host thread and not a stream.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, List, Optional
+import gc
+import os
+from typing import Callable, Iterator, List, Optional
 
 import torch
 
@@ -36,6 +42,43 @@ def resolve_device(device: Optional[str | torch.device] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def host_lanes(device: torch.device, priority: int) -> Iterator[None]:
+    """On the CPU, run the block on one intra-op thread, with this thread
+    (and so every lane thread the executor starts from it: threads inherit
+    the policy) under ``SCHED_RR`` at ``priority`` where the OS allows it,
+    as RT-Gang runs its real-time tasks, and with the cyclic garbage
+    collector off after one full collection; all three are restored
+    afterwards. Concurrent lanes whose products each fan out over every
+    intra-op thread oversubscribe the cores; beside other processes that
+    keep every core busy a lane thread of normal priority waits 100-300 ms
+    for a core after its release; and in a process that holds a large
+    heap (one that has run other work first) a full collection holds the
+    interpreter lock for ~200 ms, stalling every lane at once. On the card
+    the block runs as it is."""
+    if device.type != "cpu":
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        policy = (os.sched_getscheduler(0), os.sched_getparam(0))
+        os.sched_setscheduler(0, os.SCHED_RR, os.sched_param(priority))
+    except (AttributeError, OSError):
+        policy = None
+    collecting = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+        torch.set_num_threads(threads)
+        if policy is not None:
+            os.sched_setscheduler(0, *policy)
 
 
 def synchronize(device: torch.device) -> None:

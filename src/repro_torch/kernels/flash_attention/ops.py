@@ -18,6 +18,7 @@ import threading
 import torch
 
 from repro_torch.kernels.flash_attention.ref import naive_attention
+from repro_torch.roofline.work import charged, flash_work
 
 SOURCES = ("flash_attention.cu",)
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -89,6 +90,20 @@ def _launched(err: int) -> None:
     launches += 1
 
 
+def _bhsd_work(q, k, v, *, causal: bool = True, window: int = 0,
+               group: int = 1):
+    BHq, Sq, D = q.shape
+    return flash_work((1, Sq, k.shape[1], BHq, k.shape[0], D, causal,
+                       window, q.dtype))
+
+
+def _work(q, k, v, *, causal: bool = True, window: int = 0):
+    B, Sq, Hq, D = q.shape
+    return flash_work((B, Sq, k.shape[1], Hq, k.shape[2], D, causal, window,
+                       q.dtype))
+
+
+@charged("flash_attention", _bhsd_work)
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
                          group: int = 1):
     """Kernel launch on the (B*H, S, D) layout. q: (B*Hq, Sq, D);
@@ -145,6 +160,7 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@charged("flash_attention", _work)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
     if q.device.type == "cpu":

@@ -16,6 +16,7 @@ import threading
 import torch
 
 from repro_torch.kernels.moe_gmm.ref import gmm_reference
+from repro_torch.roofline.work import charged, gmm_work
 
 SOURCES = ("moe_gmm.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,6 +80,12 @@ def _check(x, w, counts) -> None:
         raise ValueError("moe_gmm needs contiguous tensors")
 
 
+def _work(x, w, counts):
+    E, C, D = x.shape
+    return gmm_work(E, C, D, w.shape[2], counts, x.dtype)
+
+
+@charged("moe_gmm", _work)
 def grouped_matmul(x, w, counts):
     """x: (E, C, D); w: (E, D, F); counts: (E,) int32 -> (E, C, F) in x's
     dtype: out[e] = x[e] @ w[e] with f32 accumulation, rows >= counts[e]

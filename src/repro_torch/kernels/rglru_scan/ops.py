@@ -20,6 +20,8 @@ import threading
 
 import torch
 
+from repro_torch.roofline.work import charged, rglru_work
+
 SOURCES = ("rglru_scan.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,6 +74,12 @@ def _check(log_a, gx, h0) -> None:
         raise ValueError("log_a, gx (and h0) must lie on one CUDA device")
 
 
+def _work(log_a, gx, h0=None):
+    B, S, C = log_a.shape
+    return rglru_work(B, S, C, h0 is not None, log_a.dtype)
+
+
+@charged("rglru_scan", _work)
 def rglru_scan(log_a, gx, h0=None):
     """log_a, gx: (B, S, C); h0: (B, C) f32 or None. Returns (h_all
     (B, S, C) in log_a's dtype, h_last (B, C) f32), all arithmetic in f32.

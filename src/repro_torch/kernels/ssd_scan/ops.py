@@ -20,6 +20,8 @@ import threading
 
 import torch
 
+from repro_torch.roofline.work import charged, ssd_work
+
 SOURCES = ("ssd_scan.cu",)
 MAX_STATE = 128      # N: a block's state pass splits 128 state rows
 MAX_CHUNK = 256      # Q: a block holds its chunk's x slice, a row a thread
@@ -104,6 +106,12 @@ def _check(xh, dt, Bm, Cm, A, h0, chunk: int) -> None:
         raise ValueError("xh, dt, Bm, Cm, A must lie on one CUDA device")
 
 
+def _work(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
+    B, S, H, P = xh.shape
+    return ssd_work(B, S, H, P, Bm.shape[2], chunk, xh.dtype)
+
+
+@charged("ssd_scan", _work)
 def ssd_scan(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
     """xh: (B, S, H, P); dt: (B, S, H) (post-softplus); Bm, Cm: (B, S, N)
     (shared across heads); A: (H,) < 0; chunk: the chunk length, cut to S.

@@ -25,9 +25,15 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.executor import BEJob, GangExecutor, RTJob
-from repro_torch.device import Lanes, resolve_device
+from repro_torch.device import Lanes, host_lanes, resolve_device
 from repro_torch.models.model import ModelApi, build_model
 from repro_torch.serving.engine import Request, ServingEngine
+
+# SCHED_RR priority of a CPU run's lanes: below the CPU vgang bench's
+# (benchmarks/bench_executor_vgang.RT_PRIORITY), whose bounds allow 60 ms
+# of jitter where a serve run has seconds, so that on one host the bench's
+# lanes preempt these instead of waiting out a round-robin slice
+RT_PRIORITY = 5
 
 
 def run(cfg: ModelConfig, parallel: ParallelConfig, *,
@@ -93,9 +99,11 @@ def run_gang(rt_quantum: Callable, device: torch.device, duration: float,
     10, a 10 ms period, lane 0, a 2 MB byte budget) beside the best-effort
     background job (memory-heavy 512² f32 matmul batches, 1 MB a quantum)
     on lanes 0 and 1, for ``duration`` seconds. Every quantum runs on its
-    lane's stream and ends when that stream has drained. Returns the
-    executor's stats; an exception in a quantum, which would end only the
-    lane's worker thread, is kept and raised after the run."""
+    lane's stream and ends when that stream has drained; on the CPU the
+    run takes one intra-op thread and real-time lanes at ``RT_PRIORITY``
+    (``device.host_lanes``). Returns the executor's stats; an exception in
+    a quantum, which would end only the lane's worker thread, is kept and
+    raised after the run."""
     bg_arr = torch.ones((512, 512), dtype=torch.float32, device=device)
 
     def bg(lane):
@@ -110,7 +118,8 @@ def run_gang(rt_quantum: Callable, device: torch.device, duration: float,
                        n_jobs=int(duration / 0.01)))
     ex.submit_be(BEJob(name="bg-batch", fn=lanes.quantum(bg, errors),
                        lanes=(0, 1), bytes_per_quantum=1e6))
-    stats = ex.run(duration)
+    with host_lanes(device, RT_PRIORITY):
+        stats = ex.run(duration)
     if errors:
         raise errors[0]
     return stats

@@ -317,12 +317,12 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
 
 # the matrix products that remat "dots" keeps (JAX's checkpoint_dots saves
 # every dot_general; einsum and matmul reach these at the aten level)
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
          torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 

@@ -1,7 +1,12 @@
 """Observability for the port: the metrics registry the executor, the
-glock and the regulator share (DESIGN.md §12.1), and the per-job
-RTA-margin accounting (measured response vs the analytic bound,
-DESIGN.md §12.3)."""
+glock and the regulator share (DESIGN.md §12.1), the Perfetto /
+Chrome-trace export of ``core.tracing.Trace`` timelines (DESIGN.md
+§12.2), and the per-job RTA-margin accounting (measured response vs the
+analytic bound, DESIGN.md §12.3)."""
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                      MetricsRegistry)
 from repro_torch.obs.margins import margin_summary, merge_margins  # noqa: F401
+from repro_torch.obs.perfetto import (export_trace, export_sim,  # noqa: F401
+                                      segments_from_json,
+                                      validate_chrome_trace,
+                                      write_chrome_trace)
