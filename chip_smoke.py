@@ -284,7 +284,39 @@ Drives the port in phases and exits non-zero if any fails:
                end, the reduced config of each of the six families in f32
                from the same weights: a prefill and a decode step analysed
                on the card and on the CPU must give the same FLOPs and
-               bytes, and the same kernel work charged.
+               bytes, and the same kernel work charged;
+  (s) cp       the context-parallel flash call per rank, bf16 and f32:
+               qwen2-7b (Hq 28, Hkv 4, D 128, causal) at S 1024 over 4 and
+               16 ranks and recurrentgemma-9b (Hq 16, Hkv 1, D 256, window
+               2048) at S 4096 over 16 ranks; rank r's S / n query rows
+               against the full K/V with q_offset = r S / n, each held
+               against the plain version at (c)'s tolerances, the ranks
+               concatenated against the unsplit call, exactly n launches a
+               split; each rank's time (CUDA events, mean of 20 calls), its
+               bound (flash_work with the offset) and SDPA over the first
+               q_offset + S / n keys with the bottom-right causal mask, and
+               the slowest rank against the unsplit call;
+  (t) ep       moe_gmm at olmoe-1b-7b's expert-parallel shapes under EP 16
+               (4 experts a device): the all-to-all receive buffer of a
+               1024-token prefill rank (4, 16 x 160, 2048) and the
+               replicated decode's (4, cap, 2048) of 8 tokens under both
+               capacity formulas (cap_mult 4.0: 16 rows, 2.0: 8), both
+               SwiGLU products, every row counted, bf16 and f32, against
+               the plain version; times beside the bound and torch.bmm;
+  (u) dryrun   repro_torch.launch.dryrun on qwen2-7b train_4k / prefill_32k
+               / decode_32k (the cp recipe), olmoe-1b-7b train_4k /
+               decode_32k (tp attention, FSDP, the all-to-all and the
+               replicated experts) on 16x16 and kimi-k2-1t-a32b decode_32k
+               on pod2x16x16, one fake-backend process each, all at once
+               (no device memory; qwen2-72b train_4k traces for ~150 s and
+               is left to the sweep); fails on a missing key, on a cell
+               with no collective, or on a train cell more than 2x from 8
+               N_active tokens / chips; prints the roofline bench's table
+               of the cells (H100 model terms, not times). No kernel may
+               launch in (u).
+
+(d) and (d2) build on launch.mesh.make_local_mesh(1, 1): the mesh code
+with every parallel path on its one-device branch.
 
 Each serving and training phase sets the kernels' launch counts to 0
 just before it drives the path and reads them just after; ssd_scan must
@@ -788,6 +820,248 @@ def phase_gmm(dev, smi: str) -> list[dict]:
                  f"max_abs_err {err} > {tol}")
         rows.append(row)
     return rows
+
+
+# (s): context-parallel attention per rank, (arch, Hq, Hkv, D, S, n ranks,
+# window): qwen2-7b causal at S 1024 over 4 and 16 ranks, and
+# recurrentgemma-9b at S 4096 over 16 ranks, where the 2048 window cuts
+# the late ranks' kv walk
+CP_CASES = [("qwen2-7b", 28, 4, 128, 1024, 4, 0),
+            ("qwen2-7b", 28, 4, 128, 1024, 16, 0),
+            ("recurrentgemma-9b", 16, 1, 256, 4096, 16, 2048)]
+
+
+def cp_mask(Sq: int, Sk: int, q_offset: int, window: int, dev):
+    """The (Sq, Sk) boolean mask of query row i at key position q_offset
+    + i: SDPA's bottom-right-aligned causal mask, cut by the window."""
+    i = q_offset + torch.arange(Sq, device=dev)[:, None]
+    j = torch.arange(Sk, device=dev)[None, :]
+    mask = j <= i
+    if window:
+        mask &= j > i - window
+    return mask
+
+
+def phase_cp(dev, smi: str) -> dict:
+    """(s): each rank's flash call on its query rows against the full K/V
+    with q_offset = r S / n, f32 and bf16, held against the plain version
+    and, concatenated, against the unsplit call; exactly n launches a
+    split. Times each rank (CUDA events, mean of 20 calls) beside its
+    bound (flash_work with the offset) and SDPA over the first q_offset +
+    S / n keys with the bottom-right mask."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows, launched = [], 0
+    for arch, Hq, Hkv, D, S, n, window in CP_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn((1, S, Hq, D), generator=gen, device=dev).to(dt)
+            k = torch.randn((1, S, Hkv, D), generator=gen, device=dev).to(dt)
+            v = torch.randn((1, S, Hkv, D), generator=gen, device=dev).to(dt)
+            whole = fa.flash_attention(q, k, v, causal=True, window=window)
+            whole_ms = time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, window=window))
+            s_loc = S // n
+            parts = [q[:, r * s_loc:(r + 1) * s_loc].contiguous()
+                     for r in range(n)]
+            before = fa.launches
+            outs = [fa.flash_attention(parts[r], k, v, causal=True,
+                                       window=window, q_offset=r * s_loc)
+                    for r in range(n)]
+            torch.cuda.synchronize()
+            if fa.launches - before != n:
+                fail(f"(s) {arch} n={n}: {fa.launches - before} launches "
+                     f"for {n} ranks")
+            launched += n
+            name = (f"{arch} S={S} n={n} Hq={Hq} Hkv={Hkv} D={D}"
+                    f"{f' window={window}' if window else ''} {DT_NAME[dt]}")
+            tol = TOL[dt]
+            ranks = []
+            for r in range(n):
+                off = r * s_loc
+                ref = naive_attention(parts[r], k, v, causal=True,
+                                      window=window, q_offset=off)
+                err = (outs[r].float() - ref.float()).abs().max().item()
+                if not torch.allclose(outs[r].float(), ref.float(),
+                                      atol=tol, rtol=tol):
+                    fail(f"(s) {name} rank {r}: max_abs_err {err} > {tol}")
+                case = (1, s_loc, S, Hq, Hkv, D, True, window, dt)
+                ops, nbytes = flash_work(case, off)
+                t_ops = ops / PEAK_OPS[dt]
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                qh = parts[r].transpose(1, 2).contiguous()
+                kh = k[:, :off + s_loc].transpose(1, 2).contiguous()
+                vh = v[:, :off + s_loc].transpose(1, 2).contiguous()
+                mask = cp_mask(s_loc, off + s_loc, off, window, dev)
+                ranks.append({
+                    "rank": r, "q_offset": off, "max_abs_err": err,
+                    "ms": time_ms(lambda: fa.flash_attention(
+                        parts[r], k, v, causal=True, window=window,
+                        q_offset=off)),
+                    "plain_ms": time_ms(lambda: naive_attention(
+                        parts[r], k, v, causal=True, window=window,
+                        q_offset=off), iters=3, warmup=1),
+                    "library_ms": time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=mask, enable_gqa=True)),
+                    "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops >= t_bytes
+                    else "bytes"})
+            cat = torch.cat(outs, dim=1)
+            err_cat = (cat.float() - whole.float()).abs().max().item()
+            if not torch.allclose(cat.float(), whole.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"(s) {name}: ranks concatenated differ from the "
+                     f"unsplit call by {err_cat} > {tol}")
+            slow = max(ranks, key=lambda x: x["ms"])
+            for x in ranks:
+                print(f"[cp] {name} rank {x['rank']} q_offset "
+                      f"{x['q_offset']}: kernel {x['ms']:.4f} ms, sdpa "
+                      f"{x['library_ms']:.4f} ms, plain {x['plain_ms']:.4f} "
+                      f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
+                      f"max_abs_err {x['max_abs_err']:.3g}")
+            print(f"[cp] {name}: slowest rank {slow['rank']} "
+                  f"{slow['ms']:.4f} ms against the unsplit call "
+                  f"{whole_ms:.4f} ms ({slow['ms'] / whole_ms:.3f}x), "
+                  f"concatenation vs unsplit max_abs_err {err_cat:.3g}, "
+                  f"{n} launches [{smi}]")
+            rows.append({"case": name, "ranks": ranks,
+                         "unsplit_ms": whole_ms, "slowest_ms": slow["ms"],
+                         "concat_err": err_cat})
+    return {"rows": rows, "launches": launched}
+
+
+# (t): moe_gmm at olmoe-1b-7b's expert-parallel shapes under EP 16: 4
+# experts a device; the all-to-all receive buffer of a 1024-token prefill
+# rank (16 senders x the capacity), and the replicated decode's buffer of
+# 8 tokens a data rank under both capacity formulas (JAX's 4.0 baseline
+# and the tight one at 2.0)
+EP_N, EP_DECODE_T = 16, 8
+
+
+def ep_cases():
+    cfg = get_config("olmoe-1b-7b")
+    E, k, D, Fd = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.d_ff
+    e_loc = E // EP_N
+    cap = M._capacity(1024, k, E, cfg.moe.capacity_factor)
+    out = [("a2a prefill", e_loc, EP_N * cap, D, Fd)]
+    for mult in (4.0, 2.0):
+        c = M._decode_capacity(mult, EP_DECODE_T, k, E)
+        out.append((f"replicated decode cap_mult {mult}", e_loc, c, D, Fd))
+    return out
+
+
+def phase_ep(dev, smi: str) -> dict:
+    """(t): moe_gmm against its plain version at the EP bodies' shapes,
+    both products of the SwiGLU (D -> F and F -> D), every row counted as
+    the bodies count them; f32 and bf16."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rows, launched = [], 0
+    for label, e, C, D, Fd in ep_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            for din, dout in ((D, Fd), (Fd, D)):
+                x = torch.randn((e, C, din), generator=gen,
+                                device=dev).to(dt)
+                w = (torch.randn((e, din, dout), generator=gen, device=dev)
+                     * din ** -0.5).to(dt)
+                counts = torch.full((e,), C, dtype=torch.int32, device=dev)
+                before = gmm.launches
+                out = gmm.grouped_matmul(x, w, counts)
+                torch.cuda.synchronize()
+                launched += gmm.launches - before
+                ref = gmm_reference(x, w, counts)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = GMM_TOL[dt]
+                name = (f"olmoe EP{EP_N} {label} E_loc={e} C={C} "
+                        f"D={din} F={dout} {DT_NAME[dt]}")
+                if not torch.allclose(out.float(), ref.float(), atol=tol,
+                                      rtol=tol):
+                    fail(f"(t) {name}: max_abs_err {err} > {tol}")
+                bound_ms, bound_by = gmm_bound(e, C, din, dout, counts, dt)
+                row = {"case": name, "max_abs_err": err,
+                       "ms": time_ms(lambda: gmm.grouped_matmul(x, w,
+                                                                counts)),
+                       "plain_ms": time_ms(lambda: gmm_reference(x, w,
+                                                                 counts)),
+                       "library_ms": time_ms(lambda: torch.bmm(x, w)),
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+                print(f"[ep] {name}: kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bmm "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}), max_abs_err "
+                      f"{err:.3g} [{smi}]")
+                rows.append(row)
+    return {"rows": rows, "launches": launched}
+
+
+# (u): dry-run cells, one process each (a fake-backend group is process-
+# global): the cp recipe (qwen2-7b: 28 heads over 16), tp attention with
+# FSDP and expert parallelism (olmoe-1b-7b train: the all-to-all; decode:
+# the replicated experts) and the multi-pod mesh (kimi-k2); qwen2-72b
+# train_4k (tp, FSDP) traces for ~150 s and is left to the sweep
+DRYRUN_CELLS = [("qwen2-7b", "train_4k", False),
+                ("qwen2-7b", "prefill_32k", False),
+                ("qwen2-7b", "decode_32k", False),
+                ("olmoe-1b-7b", "train_4k", False),
+                ("olmoe-1b-7b", "decode_32k", False),
+                ("kimi-k2-1t-a32b", "decode_32k", True)]
+DRYRUN_KEYS = ("arch", "shape", "mesh", "variant", "recipe", "n_params",
+               "n_active_params", "chips", "tokens", "dtype", "lower_s",
+               "flops_per_device", "bytes_per_device",
+               "bytes_inner_loops_per_device", "collectives_per_device",
+               "memory")
+
+
+def phase_dryrun(smi: str) -> dict:
+    """(u): each cell of DRYRUN_CELLS traced by ``launch.dryrun`` in its
+    own process, all at once; fails on a missing key, on a cell of a
+    multi-device mesh with no collective, or on a train cell whose
+    FLOPs per device are more than 2x from 8 N_active tokens / chips (N
+    without the input table; forward, backward and the forward again of
+    remat "block"). Prints the roofline bench's table of the cells."""
+    from repro_torch.benchmarks import roofline_bench
+    from repro_torch.launch import dryrun
+    with ThreadPoolExecutor(len(DRYRUN_CELLS)) as pool:
+        cells = list(pool.map(
+            lambda c: dryrun.run_cell_subprocess(*c, timeout=600),
+            DRYRUN_CELLS))
+    rows = []
+    for cell in cells:
+        name = f"{cell['arch']} {cell['shape']} {cell['mesh']}"
+        missing = [k for k in DRYRUN_KEYS if k not in cell]
+        if missing:
+            fail(f"(u) {name}: missing keys {missing}")
+        n_coll = sum(cell["collectives_per_device"]["counts"].values())
+        if cell["chips"] > 1 and not n_coll:
+            fail(f"(u) {name}: no collective on {cell['chips']} devices")
+        row = {"cell": name, "recipe": cell["recipe"],
+               "flops_per_device": cell["flops_per_device"],
+               "collectives": n_coll, "lower_s": cell["lower_s"]}
+        if cell["shape"].startswith("train"):
+            cfg = get_config(cell["arch"])
+            n = cell["n_active_params"] - cfg.vocab_size * cfg.d_model
+            want = 8 * n * cell["tokens"] / cell["chips"]
+            row["model_flops_8n"] = want
+            ratio = cell["flops_per_device"] / want
+            if not 0.5 <= ratio <= 2.0:
+                fail(f"(u) {name}: {cell['flops_per_device']:.4g} FLOPs a "
+                     f"device, {ratio:.3f}x of 8 N tokens / chips "
+                     f"{want:.4g}")
+            row["ratio_to_8n"] = ratio
+        print(f"[dryrun] {name} ({cell['recipe']}): "
+              f"{cell['flops_per_device']:.6g} FLOPs, "
+              f"{cell['bytes_per_device']:.6g} B, collectives "
+              f"{cell['collectives_per_device']['counts']}, temp "
+              f"{cell['memory']['temp_size_bytes']} B, traced in "
+              f"{cell['lower_s']} s"
+              + (f", {row['ratio_to_8n']:.3f}x of 8 N tokens / chips"
+                 if "ratio_to_8n" in row else ""))
+        rows.append(row)
+    table = roofline_bench.run()
+    print(RR.markdown_table(table))
+    print(f"[dryrun] the roofline terms are the H100 model's "
+          f"(repro_torch.roofline.report), not times on [{smi}]")
+    return {"cells": rows, "roofline": table}
 
 
 def ssd_inputs(B, S, H, P, N, dt, gen, dev):
@@ -2610,6 +2884,8 @@ def main() -> int:
     gmm_rows = timed("c2", phase_gmm, dev, smi)
     ssd_rows = timed("c3", phase_ssd, dev, smi)
     rg_rows = timed("c4", phase_rglru, dev, smi)
+    cp_rep = timed("s", phase_cp, dev, smi)
+    ep_rep = timed("t", phase_ep, dev, smi)
     sv = timed("d", phase_serving, dev, smi, "qwen2-7b", duration=6.0)
     timed("e", phase_oracle, dev, sv.pop("api"), sv.pop("params"))
     free()                                        # qwen2-7b's weights go
@@ -2663,6 +2939,10 @@ def main() -> int:
     free()
     smoke_rep = timed("o", phase_smoke, dev, smi)
     roof_check = timed("r", phase_roofline_check, dev, smi)
+    before = read_launches()
+    dry_rep = timed("u", phase_dryrun, smi)
+    if read_launches() != before:
+        fail(f"phase (u) launched {read_launches()}: the dry run traces")
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
@@ -2675,7 +2955,11 @@ def main() -> int:
                MAMBA_ARCH: sv3["launches"], HYBRID_ARCH: sv4["launches"],
                VLM_ARCH: sv5["launches"], AUDIO_ARCH: sv6["launches"],
                "train (k)": train_rep["launches"],
-               "serve+train (l)": serve_train}
+               "serve+train (l)": serve_train,
+               "cp ranks (s)": {k: cp_rep["launches"] if k ==
+                                "flash_attention" else 0 for k in KERNELS},
+               "expert parallel (t)": {k: ep_rep["launches"] if k ==
+                                       "moe_gmm" else 0 for k in KERNELS}}
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:82",
@@ -2701,6 +2985,7 @@ def main() -> int:
               "roofline": roofline_table(sv, sv2, sv3, sv4, sv5, sv6, dave2),
               "roofline_card_vs_cpu": roof_check,
               "train": train_rep, "serve_train": st_rep, "smoke": smoke_rep,
+              "cp": cp_rep, "ep": ep_rep, "dryrun": dry_rep,
               "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
@@ -2722,7 +3007,10 @@ def main() -> int:
           f"({len(SMOKE_ARCHS)} families, f32 card vs CPU); grid + sweep: "
           f"pass (numpy == torch on the card); perfetto: pass "
           f"({perfetto_rep['spans']} spans); roofline: pass "
-          f"({len(SMOKE_ARCHS)} families card == CPU)")
+          f"({len(SMOKE_ARCHS)} families card == CPU); cp ranks: pass "
+          f"({len(cp_rep['rows'])} splits); expert parallel: pass "
+          f"({len(ep_rep['rows'])} shapes); dry run: pass "
+          f"({len(dry_rep['cells'])} cells)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -162,14 +162,14 @@ def main() -> int:
             print(f"[flash] {name}: build failed: {info}")
             continue
         fn = ctypes.CDLL(str(lib)).repro_flash_attention_fwd_bshd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
             [ctypes.c_float, ctypes.c_void_p]
         row = []
         for d, S, Hq, Hkv, window, q, k, v, ref, _ in cases:
             o = torch.empty_like(q)
             call = lambda: fn(  # noqa: E731
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
-                Hq, Hkv, S, S, d, 1, window, d ** -0.5, stream())
+                Hq, Hkv, S, S, d, 1, window, 0, d ** -0.5, stream())
             rc = call()
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()

@@ -1,8 +1,8 @@
 """Roofline benchmark of the port: reads the port's dry-run cells
 (results/dryrun_torch/*.json) and computes the three H100 roofline terms
 per (arch x shape x mesh); files without ``flops_per_device`` (a skip
-list, say) are passed over. The port has no dry run yet (ROADMAP A7), so
-until it writes cells this prints ``(no dry-run cells found)``.
+list, say) are passed over. ``repro_torch.launch.dryrun`` (one cell) and
+``repro_torch.launch.sweep`` (every cell) write the cells.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.roofline_bench
 """

@@ -37,16 +37,18 @@ from repro_torch.models.model import build_defs
 
 def params_from_jax_numpy(tree, cfg: ModelConfig,
                           device: Optional[str | torch.device] = None,
-                          dtype: Optional[torch.dtype] = None):
+                          dtype: Optional[torch.dtype] = None, *, api=None):
     """``tree``: the JAX parameter tree as numpy arrays, as
     ``jax.tree.map(np.asarray, api.init(key))`` gives it. Returns the same
     tree as torch tensors on ``device`` (default ``cuda``), in ``dtype``
     (default: each array's own float type; bfloat16 arrays come across
-    bit for bit).
+    bit for bit). With ``api`` (a ``ModelApi`` on a mesh of more than one
+    device) each leaf is this rank's shard, placed by ``api.rules_p``:
+    the numbers are those of one device.
 
     Raises if a path is missing or extra, or a shape differs from the
     port's definitions for ``cfg``."""
-    defs = build_defs(cfg)
+    defs = build_defs(cfg) if api is None else api.defs
     device = resolve_device(device)
 
     def walk(d, t, path):
@@ -60,7 +62,8 @@ def params_from_jax_numpy(tree, cfg: ModelConfig,
         if tuple(a.shape) != tuple(d.shape):
             raise ValueError(f"param {'/'.join(path)}: shape {a.shape}, "
                              f"expected {d.shape}")
-        return _to_torch(a, device, dtype)
+        out = _to_torch(a, device, dtype)
+        return out if api is None else api._place(path, out)
     return walk(defs, tree, ())
 
 

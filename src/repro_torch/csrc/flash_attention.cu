@@ -9,7 +9,9 @@
 // block per (b*h, q-tile) with a loop over kv tiles inside the block (the
 // loop replaces the TPU's sequential "arbitrary" grid axis); m, l and the
 // accumulator are f32; kv tiles fully masked by causality or the window
-// are never visited; the output is acc / max(l, 1e-20). Unlike the Pallas
+// are never visited; the output is acc / max(l, 1e-20). A q_offset (>= 0)
+// places q row i at key position q_offset + i, for context parallelism:
+// a rank's query rows against the keys gathered from every rank. Unlike the Pallas
 // kernel, the ragged edge is masked here, so Sq and Sk need not be
 // multiples of the tile.
 //
@@ -106,7 +108,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(Tiles<D>::NT, Tiles<D>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int group, int Sq,
-          int Sk, int causal, int window, float scale) {
+          int Sk, int causal, int window, int q_offset, float scale) {
   using Tl = Tiles<D>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, NT = Tl::NT;
   static_assert(BQ == BK, "Q and KV tiles share the loader");
@@ -154,9 +156,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  // kv range any row of this q-tile can see
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  // kv range any row of this q-tile can see; q row i sits at key
+  // position q_offset + i
+  const int p0 = q_offset + q0;
+  const int k_end = causal ? min(Sk, p0 + BQ) : Sk;
+  const int k_first = window > 0 ? max(0, p0 - window + 1) : 0;
 
   for (int k0 = (k_first / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's P @ V is done with KVs and Ss
@@ -183,7 +187,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int i = 0; i < SR; ++i) {
-      const int qpos = q0 + r1 + i;
+      const int qpos = p0 + r1 + i;
 #pragma unroll
       for (int j = 0; j < SC; ++j) {
         const int kpos = k0 + c1 + Tl::SC_T * j;
@@ -250,7 +254,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < OR; ++i) {
-    const int row = q0 + r3 + i;
+    // q0 + r3 + i, with q0 = p0 - q_offset: one row base stays live
+    const int row = p0 - q_offset + r3 + i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l_s[r3 + i], 1e-20f);
 #pragma unroll
@@ -268,7 +273,7 @@ constexpr size_t fma_smem_bytes() {
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bhq, int group, int sq, int sk, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   int q_offset, float scale, cudaStream_t stream) {
   constexpr int BQ = Tiles<D>::BQ, NT = Tiles<D>::NT;
   const size_t smem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -278,21 +283,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, causal,
-      window, scale);
+      window, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        void* o, int bhq, int group, int sq, int sk,
-                       int causal, int window, float scale,
+                       int causal, int window, int q_offset, float scale,
                        cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, bhq, group, sq, sk, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bhq, group, sq, sk, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bhq, group, sq, sk, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bhq, group, sq, sk, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, bhq, group, sq, sk, causal, window, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -347,7 +352,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ o, Layout lay, int hq, int group,
-             int Sq, int Sk, int causal, int window, float scale_log2) {
+             int Sq, int Sk, int causal, int window, int q_offset,
+             float scale_log2) {
   constexpr int BQ = TC_BQ, BK = TC_BK, RS = D + 8;
   constexpr bool Q_REGS = tc_q_regs<D>();
   constexpr int KS = D / 16;   // k-steps of S = Q K^T
@@ -373,9 +379,10 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vp = v + kv_off;
   __nv_bfloat16* op = o + q_off;
 
-  // kv range any row of this q-tile can see, in tiles
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  // kv range any row of this q-tile can see, in tiles; q row i sits at key
+  // position q_offset + i
+  const int k_end = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
+  const int k_first = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int t_first = k_first / BK, t_end = (k_end + BK - 1) / BK;
 
   tc_load_rows<BQ, D>(Qs, qp, lay.q_s, q0, Sq);
@@ -385,10 +392,11 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   }
   tc::cp_async_commit();
 
-  // this warp's rows: row[0] = r_lo + g (c0, c1), row[1] = r_lo + g + 8
-  // (c2, c3)
-  const int r_lo = q0 + 16 * warp;
-  const int row[2] = {r_lo + g, r_lo + g + 8};
+  // this warp's rows sit at key positions p_lo .. p_lo + 15; the positions
+  // of this lane's: row[0] = p_lo + g (c0, c1), row[1] = p_lo + g + 8 (c2,
+  // c3)
+  const int p_lo = q_offset + q0 + 16 * warp;
+  const int row[2] = {p_lo + g, p_lo + g + 8};
   // ldmatrix row addresses of this lane (see tc_bf16.cuh)
   const __nv_bfloat16* q_lane = Qs + (16 * warp + (lane & 15)) * RS +
                                 (lane >> 4) * 8;
@@ -456,8 +464,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     }
 
     // mask, where some pair of this warp's rows and this tile needs it
-    const bool need_mask = k0 + BK > Sk || (causal && k0 + BK - 1 > r_lo) ||
-                           (window > 0 && k0 <= r_lo + 15 - window);
+    const bool need_mask = k0 + BK > Sk || (causal && k0 + BK - 1 > p_lo) ||
+                           (window > 0 && k0 <= p_lo + 15 - window);
     if (need_mask) {
 #pragma unroll
       for (int j = 0; j < NS; ++j)
@@ -545,6 +553,9 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   }
   __syncwarp();
   constexpr int CH = D / 8;
+  // the warp's first row; q_offset is a parameter, so no register holds
+  // the row across the kv loop beside p_lo
+  const int r_lo = p_lo - q_offset;
   for (int i = lane; i < 16 * CH; i += 32) {
     const int r = i / CH, c = (i % CH) * 8;
     if (r_lo + r < Sq)
@@ -556,8 +567,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const Layout& lay, int bhq, int hq, int group, int sq,
-                      int sk, int causal, int window, float scale,
-                      cudaStream_t stream) {
+                      int sk, int causal, int window, int q_offset,
+                      float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -568,7 +579,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lay, hq, group, sq, sk, causal, window, scale * 1.4426950408889634f);
+      lay, hq, group, sq, sk, causal, window, q_offset,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -577,17 +589,17 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch_tc(int d, const void* q, const void* k, const void* v,
                         void* o, const Layout& lay, int bhq, int hq,
                         int group, int sq, int sk, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        int q_offset, float scale, cudaStream_t stream) {
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
        15) != 0)
     return cudaErrorMisalignedAddress;  // cp.async moves 16-byte chunks
   switch (d) {
-    case 16: return launch_tc<16>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, scale, stream);
-    case 256: return launch_tc<256>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, scale, stream);
+    case 16: return launch_tc<16>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 32: return launch_tc<32>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 64: return launch_tc<64>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 128: return launch_tc<128>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 256: return launch_tc<256>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -596,24 +608,27 @@ cudaError_t dispatch_tc(int d, const void* q, const void* k, const void* v,
 
 // q: (bhq, sq, d); k, v: (bhq / group, sk, d); o: (bhq, sq, d); all
 // contiguous, of one dtype (0 = float32, 1 = bfloat16). The kv row of q row
-// bh is bh / group. Launches on ``stream``, allocates nothing, and returns
+// bh is bh / group; q row i sits at key position q_offset + i (>= 0).
+// Launches on ``stream``, allocates nothing, and returns
 // the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, int dtype,
                                          int bhq, int group, int sq, int sk,
                                          int d, int causal, int window,
-                                         float scale, void* stream) {
+                                         int q_offset, float scale,
+                                         void* stream) {
   if (bhq <= 0 || group <= 0 || sq <= 0 || sk <= 0 || bhq % group != 0 ||
-      bhq > 65535)
+      bhq > 65535 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(d, q, k, v, o, bhq, group, sq, sk, causal, window, scale, st);
+    err = dispatch_d<float>(d, q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, st);
   else if (dtype == 1)
     err = dispatch_tc(d, q, k, v, o,
                       Layout{0, (long long)sq * d, d, 0, (long long)sk * d, d},
-                      bhq, bhq, group, sq, sk, causal, window, scale, st);
+                      bhq, bhq, group, sq, sk, causal, window, q_offset,
+                      scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -621,21 +636,23 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
 
 // The model's layout, read and written in place, bf16 only (the tensor-core
 // kernel): q: (b, sq, hq, d); k, v: (b, sk, hkv, d); o: (b, sq, hq, d); all
-// contiguous. The kv head of q head h is h / (hq / hkv). Launches on
+// contiguous. The kv head of q head h is h / (hq / hkv); q row i sits at
+// key position q_offset + i (>= 0). Launches on
 // ``stream``, allocates nothing, and returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
                                               const void* v, void* o, int b,
                                               int hq, int hkv, int sq, int sk,
                                               int d, int causal, int window,
-                                              float scale, void* stream) {
+                                              int q_offset, float scale,
+                                              void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || sk <= 0 || hq % hkv != 0 ||
-      (long long)b * hq > 65535)
+      (long long)b * hq > 65535 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const Layout lay{(long long)sq * hq * d, d, (long long)hq * d,
                    (long long)sk * hkv * d, d, (long long)hkv * d};
   return (int)dispatch_tc(d, q, k, v, o, lay, b * hq, hq, hq / hkv, sq, sk,
-                          causal, window, scale,
+                          causal, window, q_offset, scale,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -3,14 +3,18 @@ memory-mapped token files, with step-indexed sampling so that a restart
 from a checkpoint resumes the exact batch sequence (counterpart of
 ``repro.data.pipeline``). ``DataConfig`` and ``TokenSource`` are numpy and
 are the JAX package's, as they are; ``ShardedLoader`` puts each batch on
-the device (the mesh and its batch axes wait for the mesh port)."""
+the device, or on a mesh with its batch dim over the batch axes."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import multi_device
 
 
 @dataclasses.dataclass
@@ -78,15 +82,27 @@ class TokenSource:
 
 
 class ShardedLoader:
-    """Puts host batches on the device; resumable from any step."""
+    """Puts host batches on the device, or with a ``mesh`` (a DeviceMesh of
+    more than one device) as DTensors with the batch dim sharded over
+    ``batch_axes`` (each rank keeps its rows of the same host batch);
+    resumable from any step."""
 
-    def __init__(self, source: TokenSource, device: torch.device):
+    def __init__(self, source: TokenSource, device=None, mesh=None,
+                 batch_axes: Tuple[str, ...] = ()):
         self.source = source
-        self.device = device
+        self.mesh = mesh if multi_device(mesh) else None
+        self.device = torch.device(mesh.device_type) if device is None \
+            else torch.device(device)
+        self.batch_axes = batch_axes
 
     def _shard(self, batch: Dict[str, np.ndarray]):
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(v).to(self.device)
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        pl = spmd.placements(self.mesh, **{a: 0 for a in self.batch_axes})
+        return {k: distribute_tensor(v, self.mesh, pl, src_data_rank=None)
+                for k, v in out.items()}
 
     def iterate(self, start_step: int = 0) -> Iterator:
         step = start_step

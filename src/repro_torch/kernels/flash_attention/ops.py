@@ -9,6 +9,13 @@ to, so the f32 call makes those copies; neither falls back to the other.
 CPU tensor goes to the plain version (``ref.naive_attention``); a CUDA
 tensor goes to the kernel, or the call raises. The kernel is built at its
 first launch (``repro_torch.kernels.build``).
+
+``q_offset`` (>= 0) places query row i at key position ``q_offset + i``:
+the causal mask keeps k <= q_offset + i and the window k > q_offset + i -
+window. Context parallelism calls the kernel on a rank's query rows
+against the gathered keys with its rank's offset. Under a
+``FakeTensorMode`` (the dry run) a wrapper launches nothing and returns
+an empty output of the right shape; the analysis charges its work.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import ctypes
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.flash_attention.ref import naive_attention
 from repro_torch.roofline.work import charged, flash_work
@@ -44,11 +52,11 @@ def build():
             from repro_torch.kernels.build import build as nvcc_build
             built = nvcc_build("flash_attention", SOURCES)
             fn = built.lib.repro_flash_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
                 [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = built.lib.repro_flash_attention_fwd_bshd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
                 [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             built.lib.repro_flash_attention_smem.argtypes = [ctypes.c_int] * 2
@@ -62,7 +70,7 @@ def smem_bytes(dtype, head_dim: int) -> int:
     return build().lib.repro_flash_attention_smem(_DTYPES[dtype], head_dim)
 
 
-def _check(q, k, v, window: int) -> None:
+def _check(q, k, v, window: int, q_offset: int) -> None:
     """Raise on what either layout's kernel does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
@@ -72,8 +80,9 @@ def _check(q, k, v, window: int) -> None:
     if q.shape[-1] not in HEAD_DIMS or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"head_dim {q.shape[-1]} (k: {k.shape[-1]}) not in "
                          f"{HEAD_DIMS}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"window and q_offset must be >= 0, got {window}, "
+                         f"{q_offset}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous tensors")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
@@ -91,25 +100,28 @@ def _launched(err: int) -> None:
 
 
 def _bhsd_work(q, k, v, *, causal: bool = True, window: int = 0,
-               group: int = 1):
+               group: int = 1, q_offset: int = 0):
     BHq, Sq, D = q.shape
     return flash_work((1, Sq, k.shape[1], BHq, k.shape[0], D, causal,
-                       window, q.dtype))
+                       window, q.dtype), q_offset)
 
 
-def _work(q, k, v, *, causal: bool = True, window: int = 0):
+def _work(q, k, v, *, causal: bool = True, window: int = 0,
+          q_offset: int = 0):
     B, Sq, Hq, D = q.shape
     return flash_work((B, Sq, k.shape[1], Hq, k.shape[2], D, causal, window,
-                       q.dtype))
+                       q.dtype), q_offset)
 
 
 @charged("flash_attention", _bhsd_work)
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
-                         group: int = 1):
+                         group: int = 1, q_offset: int = 0):
     """Kernel launch on the (B*H, S, D) layout. q: (B*Hq, Sq, D);
     k, v: (B*Hkv, Sk, D), all contiguous on one CUDA device; the kv row of
     q row bh is bh // group. Returns (B*Hq, Sq, D) in q's dtype."""
-    _check(q, k, v, window)
+    if is_fake(q):
+        return torch.empty_like(q)
+    _check(q, k, v, window, q_offset)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"expected q (B*Hq,Sq,D), k = v (B*Hkv,Sk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -128,14 +140,14 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPES[q.dtype], BHq, group, Sq, Sk, D, int(causal),
-            int(window), float(D ** -0.5), stream)
+            int(window), int(q_offset), float(D ** -0.5), stream)
     _launched(err)
     return o
 
 
-def _flash_bshd(q, k, v, causal: bool, window: int):
+def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int):
     """bf16 kernel launch on the model layout, read and written in place."""
-    _check(q, k, v, window)
+    _check(q, k, v, window, q_offset)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     if min(B, Sq, Sk) == 0 or B * Hq > 65535:
@@ -147,8 +159,8 @@ def _flash_bshd(q, k, v, causal: bool, window: int):
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd_bshd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
-            Hkv, Sq, Sk, D, int(causal), int(window), float(D ** -0.5),
-            stream)
+            Hkv, Sq, Sk, D, int(causal), int(window), int(q_offset),
+            float(D ** -0.5), stream)
     _launched(err)
     return o
 
@@ -161,10 +173,14 @@ def _aligned(t):
 
 
 @charged("flash_attention", _work)
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+    if is_fake(q):
+        return torch.empty_like(q)
     if q.device.type == "cpu":
-        return naive_attention(q, k, v, causal=causal, window=window)
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             k.shape[0] != q.shape[0] or k.shape[2] == 0 or \
             q.shape[2] % k.shape[2]:
@@ -173,12 +189,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype == torch.bfloat16:
         return _flash_bshd(_aligned(q), _aligned(k), _aligned(v), causal,
-                           window)
+                           window, q_offset)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     qt = q.transpose(1, 2).reshape(B * Hq, Sq, D).contiguous()
     kt = k.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
     vt = v.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
     out = flash_attention_bhsd(qt, kt, vt, causal=causal, window=window,
-                               group=Hq // Hkv)
+                               group=Hq // Hkv, q_offset=q_offset)
     return out.reshape(B, Hq, Sq, D).transpose(1, 2)

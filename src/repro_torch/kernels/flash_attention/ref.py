@@ -15,15 +15,17 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 
-def naive_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D); query
+    row i sits at key position ``q_offset + i``."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     kr = k.repeat_interleave(G, dim=2).float()
     vr = v.repeat_interleave(G, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * (D ** -0.5)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -19,6 +19,7 @@ import ctypes
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.roofline.work import charged, rglru_work
 
@@ -85,6 +86,9 @@ def rglru_scan(log_a, gx, h0=None):
     (B, S, C) in log_a's dtype, h_last (B, C) f32), all arithmetic in f32.
     Any S and C."""
     global launches
+    if is_fake(log_a):          # the dry run: no data, nothing launched
+        return torch.empty_like(log_a), log_a.new_empty(
+            (log_a.shape[0], log_a.shape[2]), dtype=torch.float32)
     if log_a.device.type == "cpu":
         from repro_torch.models.rglru import _rglru_scan
         return _rglru_scan(log_a, gx, h0)

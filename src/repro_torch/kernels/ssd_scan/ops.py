@@ -19,6 +19,7 @@ import functools
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.roofline.work import charged, ssd_work
 
@@ -120,6 +121,10 @@ def ssd_scan(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
     padded with dt = 0 tokens, as the JAX model pads it. ``h0`` (an initial
     state) is taken by the plain version only."""
     global launches
+    if is_fake(xh):             # the dry run: no data, nothing launched
+        B, S, H, P = xh.shape
+        return torch.empty_like(xh), xh.new_empty(
+            (B, H, P, Bm.shape[2]), dtype=torch.float32)
     if xh.device.type == "cpu":
         from repro_torch.models.mamba2 import _ssd_chunked
         y, h = _ssd_chunked(xh, dt, Bm, Cm, A, h0=h0, chunk=chunk)

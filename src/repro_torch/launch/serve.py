@@ -26,6 +26,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.executor import BEJob, GangExecutor, RTJob
 from repro_torch.device import Lanes, host_lanes, resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import ModelApi, build_model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -52,7 +53,8 @@ def run(cfg: ModelConfig, parallel: ParallelConfig, *,
     requests to refill or decode, in ms."""
     dev = resolve_device(device)
     if api is None:
-        api = build_model(cfg, parallel, dev)
+        api = build_model(cfg, parallel, dev,
+                          mesh=make_local_mesh(1, 1, dev))
     if params is None:
         params = api.init(seed)
     engine = ServingEngine(api, params, max_batch=max_batch, max_seq=max_seq)

@@ -22,11 +22,14 @@
    evaluation grid (formation heuristics x width distributions x
    4/8/16 cores) extends this driver in ``repro_torch.vgang.grid``.
 
-2. The dry-run compile sweep over every (arch x shape) cell is not
-   ported yet: it needs the port's mesh, sharding and dry run, and until
-   they exist that mode raises ``NotImplementedError``. Its cells will
-   land in results/dryrun_torch/ (``OUT``), which the roofline bench
-   reads.
+2. The dry-run sweep (the default mode): every (arch x shape) cell on
+   the single-pod mesh and the multi-pod mesh through
+   ``repro_torch.launch.dryrun``, each cell in a fresh process (a process
+   group is process-global), cached as results/dryrun_torch/*.json
+   (``OUT``), which the roofline bench reads.
+
+       python -m repro_torch.launch.sweep [--single-pod-only |
+           --multi-pod-only] [--force] [--arch A] [--shape S]
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import json
 import multiprocessing
 import os
 import random
+import subprocess
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -43,10 +47,57 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 OUT = os.path.join(ROOT, "results", "dryrun_torch")
 SWEEP_OUT_DEFAULT = os.path.join(ROOT, "results", "sched_sweep_torch.json")
 
-DRYRUN_MISSING = ("the dry-run compile sweep needs the port's mesh, "
-                  "sharding and dry run (ROADMAP A7), which are not ported "
-                  "yet; run the schedulability sweep with --schedulability "
-                  "or --config")
+
+
+def run_one(arch: str, shape: str, multi_pod: bool, force: bool,
+            timeout: float = 3600) -> dict:
+    """One dry-run cell, from its cache unless ``force``; a failed cell
+    returns its error instead of raising."""
+    from repro_torch.launch import dryrun
+    path = dryrun.cell_path(arch, shape, multi_pod)
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return {"cached": True, **json.load(f)}
+    t0 = time.time()
+    try:
+        return dryrun.run_cell_subprocess(arch, shape, multi_pod, out=path,
+                                          timeout=timeout)
+    except (RuntimeError, subprocess.TimeoutExpired) as e:
+        return {"error": str(e)[-2000:], "arch": arch, "shape": shape,
+                "multi_pod": multi_pod, "wall_s": time.time() - t0}
+
+
+def dryrun_sweep(meshes: Sequence[bool], force: bool = False,
+                 archs: Optional[Sequence[str]] = None,
+                 shapes: Optional[Sequence[str]] = None) -> List[tuple]:
+    """Every runnable cell (``valid_cells``, cut to ``archs`` / ``shapes``)
+    on each mesh (False: 16x16, True: pod2x16x16); writes the skip list
+    beside the cells and returns the failed cells."""
+    from repro_torch.configs import valid_cells
+    runnable, skipped = valid_cells()
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "skipped.json"), "w") as f:
+        json.dump({f"{a}|{s}": r for (a, s), r in skipped.items()}, f,
+                  indent=1)
+    failures = []
+    for multi_pod in meshes:
+        tag = "pod2x16x16" if multi_pod else "16x16"
+        for arch, shape in runnable:
+            if (archs and arch not in archs) or \
+                    (shapes and shape not in shapes):
+                continue
+            t0 = time.time()
+            res = run_one(arch, shape, multi_pod, force)
+            if "error" in res:
+                failures.append((arch, shape, tag))
+                print(f"[FAIL] {arch} {shape} {tag}: {res['error'][-400:]}",
+                      flush=True)
+            else:
+                cached = " (cached)" if res.get("cached") else ""
+                print(f"[ok] {arch} {shape} {tag} trace={res['lower_s']}s "
+                      f"wall={time.time() - t0:.0f}s{cached}", flush=True)
+    print(f"\nSWEEP DONE failures={len(failures)}: {failures}")
+    return failures
 
 
 # ---------------------------------------------------------------------
@@ -336,9 +387,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                         add_flags, default_sweep_config,
                                         derive_flags, resolve_config)
     ap = argparse.ArgumentParser()
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--single-pod-only", action="store_true")
+    ap.add_argument("--multi-pod-only", action="store_true")
+    ap.add_argument("--arch", action="append", default=[],
+                    help="dry-run only these archs")
+    ap.add_argument("--shape", action="append", default=[],
+                    help="dry-run only these shapes")
     ap.add_argument("--schedulability", action="store_true",
                     help="Monte-Carlo gang schedulability sweep instead "
-                         "of the dry-run compile sweep (not ported yet)")
+                         "of the dry-run sweep")
     base = default_sweep_config()
     flags = derive_flags(ExperimentConfig, SWEEP_FLAG_PATHS,
                          aliases=SWEEP_FLAG_ALIASES,
@@ -353,7 +411,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             ap.error(str(e))
         run_schedulability(cfg)
         return
-    raise NotImplementedError(DRYRUN_MISSING)
+    meshes = [m for m in (False, True)
+              if not (m and args.single_pod_only)
+              and not (not m and args.multi_pod_only)]
+    dryrun_sweep(meshes, args.force, args.arch, args.shape)
 
 
 if __name__ == "__main__":

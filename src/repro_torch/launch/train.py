@@ -3,7 +3,8 @@
 ``--device``).
 
 Trains the reduced (or, with --full-size, the full) config of ``--arch``
-on one device through the runner: data resumable by step,
+on a (data, 1) mesh through the runner, data the number of ranks of an
+initialized process group (1 without one): data resumable by step,
 checkpoint/restart (``--fail-at-step`` injects a failure, then a second
 runner resumes from the latest checkpoint, as the JAX launcher does). The
 card unless ``--device cpu``.
@@ -14,9 +15,12 @@ import argparse
 import os
 import tempfile
 
+import torch.distributed as dist
+
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import build_model
 from repro_torch.training.optimizer import OptConfig, Optimizer
 from repro_torch.training.runner import (RunnerConfig, SimulatedFailure,
@@ -45,7 +49,9 @@ def main(argv=None) -> TrainRunner:
         cfg = reduced(cfg)
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32",
                               q_block=64, kv_block=64)
-    api = build_model(cfg, parallel, args.device)
+    data = dist.get_world_size() if dist.is_initialized() else 1
+    api = build_model(cfg, parallel, args.device,
+                      mesh=make_local_mesh(data, 1, args.device))
     opt = Optimizer(OptConfig(name="adamw", lr=args.lr, warmup=10,
                               decay_steps=max(args.steps, 20)))
     data_cfg = DataConfig(

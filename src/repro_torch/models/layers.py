@@ -27,10 +27,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding import spmd
 
 
 # --------------------------------------------------------------------------
@@ -106,8 +108,63 @@ def unstack(tree, n: int):
     return list(tree.unbind(0))
 
 
+def param_logical(defs):
+    """The tree of each leaf's logical axis names (JAX's ``param_logical``)."""
+    return tree_map(lambda _, d: d.logical, defs)
+
+
+def param_shapes(defs, dtype: torch.dtype = torch.float32):
+    """The tree of (shape, dtype) of each leaf: JAX's ``param_shapes``,
+    whose ``ShapeDtypeStruct`` leaves become ``torch.Size`` + dtype
+    pairs (``ShapeDtype``)."""
+    return tree_map(lambda _, d: ShapeDtype(torch.Size(d.shape), dtype),
+                    defs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    shape: torch.Size
+    dtype: torch.dtype
+
+
 def count_params(tree) -> int:
     return int(sum(x.numel() for x in tree_leaves(tree)))
+
+
+def dense(x, w):
+    """``x @ w`` (w 2-D) over x's last dim, as one 2-D product: the same
+    numbers as ``@``. On a mesh, where x's sharded dims and w's columns
+    make the product local, it is one per-device product
+    (``_local_placements``): DTensor's own matmul flattens x's leading
+    dims, which turns two sharded dims into a strided sharding it cannot
+    trace without data, and broadcasts w into a batched product when a
+    dim has size 1 (a decode step's (B, 1, D))."""
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        out = _local_placements(x, w)
+        if out is not None:
+            return spmd.shard_map(lambda a, b: a @ b, x.device_mesh,
+                                  (x.placements, w.placements), out)(x, w)
+    return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1],
+                                                    w.shape[-1])
+
+
+def _local_placements(x, w):
+    """The placements of x @ w when every device can compute its block of
+    the output from its own blocks of x and w (x not sharded on its last
+    dim, w not on its rows, no mesh dim sharding both); else None."""
+    last = x.dim() - 1
+    out = []
+    for px, pw in zip(x.placements, w.placements):
+        if isinstance(px, Partial) or isinstance(pw, Partial) or \
+                (isinstance(pw, Shard) and pw.dim == 0):
+            return None
+        if isinstance(px, Shard):
+            if px.dim == last or isinstance(pw, Shard):
+                return None
+            out.append(px)
+        else:
+            out.append(Shard(last) if isinstance(pw, Shard) else px)
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -203,30 +260,34 @@ def masked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, q_offset: int = 0):
-    """Prefill attention. q: (B, S, Hq, D); k, v: (B, S, Hkv, D) with GQA
-    left to the kernel (group = Hq // Hkv).
+    """Prefill attention. q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) with GQA
+    left to the kernel (group = Hq // Hkv); query row i sits at key
+    position ``q_offset + i`` (context parallelism passes its rank's
+    offset among the gathered keys).
 
     A CUDA tensor goes to the flash kernel at every length, and the call
-    raises where the kernel cannot compute it (``softcap``, ``q_offset``).
-    A CPU tensor goes to the kernel's plain version through the same
-    wrapper."""
-    if q.is_cuda and (softcap != 0.0 or q_offset != 0):
-        raise NotImplementedError(
-            "the CUDA flash kernel has no logit softcap and no q_offset")
-    if softcap != 0.0 or q_offset != 0:
+    raises where the kernel cannot compute it (``softcap``). A CPU tensor
+    goes to the kernel's plain version through the same wrapper."""
+    if q.is_cuda and softcap != 0.0:
+        raise NotImplementedError("the CUDA flash kernel has no logit "
+                                  "softcap")
+    if softcap != 0.0:
         return masked_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, softcap=softcap)
-    return flash_attention(q, k, v, causal=causal, window=window)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
 
 
 def flash_attention_blocked(q, k, v, *, causal: bool = True,
-                            window: int = 0, q_block: int = 512,
-                            kv_block: int = 1024, softcap: float = 0.0):
+                            window: int = 0, q_offset: int = 0,
+                            q_block: int = 512, kv_block: int = 1024,
+                            softcap: float = 0.0):
     """Blocked online-softmax attention in torch ops (JAX's
-    ``flash_attention_jnp``, without the context-parallel ``q_offset``).
+    ``flash_attention_jnp``).
 
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), Sq a multiple of q_block and
-    Sk of kv_block. Kv blocks that the causal mask or the window hide
+    Sk of kv_block; ``q_offset`` is the key position of q[0] (context
+    parallelism passes ``rank * local_len``). Kv blocks that the causal mask or the window hide
     entirely are skipped, as JAX's ``lax.cond`` skips them. Scores and the
     softmax statistics are f32; the running output is in v's dtype, as in
     JAX. Returns (B, Sq, Hq, D)."""
@@ -238,8 +299,9 @@ def flash_attention_blocked(q, k, v, *, causal: bool = True,
                          f"{q_block} / kv_block {kv_block}")
     dev = q.device
     outs = []
-    for q_start in range(0, Sq, q_block):
-        qblk = q[:, q_start:q_start + q_block].reshape(
+    for q_row in range(0, Sq, q_block):
+        q_start = q_offset + q_row
+        qblk = q[:, q_row:q_row + q_block].reshape(
             B, q_block, Hkv, G, D) * (D ** -0.5)
         qpos = q_start + torch.arange(q_block, device=dev)[:, None]
         m = torch.full((B, Hkv, G, q_block), NEG_INF, dtype=torch.float32,
@@ -274,6 +336,10 @@ def flash_attention_blocked(q, k, v, *, causal: bool = True,
         out = acc / l.clamp_min(1e-20)[..., None].to(acc.dtype)
         outs.append(out.permute(0, 3, 1, 2, 4))     # (B, q_block, Hkv, G, D)
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
+
+
+# context-parallel entry point: the same math, an explicit q_offset
+flash_attention_cp = flash_attention_blocked
 
 
 def train_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -313,6 +379,31 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache)
     return out.reshape(B, 1, Hq, D)
+
+
+def decode_attention_partial(q, k_cache, v_cache, pos, row0: int, *,
+                             window: int = 0, softcap: float = 0.0):
+    """``decode_attention`` over a slice of the cache whose first row is at
+    position ``row0``, as the softmax's partial terms in f32: the row max
+    m (B, Hkv, G), the sum l of exp(s - m) and acc = sum exp(s - m) v
+    (B, Hkv, G, D). Slices combine as exp(m_i - max m) weights of their l
+    and acc (a slice with no valid row has m = NEG_INF and weight 0)."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D) * (D ** -0.5)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = row0 + torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    mask = kpos <= pos[:, None]
+    if window > 0:
+        mask &= kpos > pos[:, None] - window
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return m, p.sum(dim=-1), acc
 
 
 # the matrix products that remat "dots" keeps (JAX's checkpoint_dots saves

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import layers as L
+from repro_torch.sharding.partition import constrain
 
 CACHE_NAMES = ("conv_x", "conv_B", "conv_C", "h")
 
@@ -151,6 +152,8 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     Bsz, S, _ = x.shape
 
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    if ctx.recipe == "tp" and ctx.mode != "decode":
+        h = constrain(h, ctx.rules, ("batch", None, None))
     z = h @ p["in_z"]
     xin = h @ p["in_x"]
     Bm = h @ p["in_B"]
@@ -168,7 +171,8 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    xh = xin.reshape(Bsz, S, H, P)
+    xh = constrain(xin.reshape(Bsz, S, H, P), ctx.rules,
+                   ("batch", None, "ssm_heads", None))
 
     if ctx.mode == "decode":
         assert cache is not None and S == 1
@@ -195,5 +199,5 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float())
     y = L.rms_norm(y.to(x.dtype), p["gn"], cfg.norm_eps)
-    out = y @ p["out"]
+    out = constrain(y @ p["out"], ctx.rules, ("batch", "seq", None))
     return x + out, new_cache

@@ -14,6 +14,15 @@ float32 parameter to the compute dtype on every call (fused away under
 ``jit``). Eagerly that would copy the weights on every decode step, so
 serving casts once, in :meth:`ModelApi.load`; ``loss_fn`` casts on every
 call, as JAX does, so that gradients reach the float32 masters.
+
+``build_model(cfg, parallel, device, mesh=...)`` puts the model on a mesh
+(``repro_torch.launch.mesh``): the logical-axis rules (``rules_p`` for
+parameters, ``rules_a`` for activations) and the recipe (``tp`` / ``cp``)
+are JAX's. On a mesh of more than one device every parameter leaf is a
+DTensor placed by ``rules_p``, each layer's weights are gathered over the
+FSDP axes where the layer runs (JAX's ZeRO-3 gather inside the scan), and
+the forward is the parallel paths of ``transformer`` and ``moe``. On a
+one-device mesh, or none, nothing is a DTensor.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import functools
 from typing import Any, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -32,6 +43,9 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import (Rules, constrain, make_rules,
+                                            mesh_shape, multi_device)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -39,24 +53,49 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # --------------------------------------------------------------------------
 # Loss
 # --------------------------------------------------------------------------
-def xent_loss(logits, labels):
+def _gold(logits, labels, ctx=None):
+    """logits (B, S, V) at labels (B, S) (clamped to >= 0). On a mesh the
+    vocab is over model: each device reads the labels in its columns and
+    the partial sums are reduced where they are read."""
+    labels = labels.clamp_min(0).long()
+    if ctx is None or not ctx.sharded or \
+            tuple(logits.placements) == ctx.place(batch=0):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    axis = ctx.parallel.model_axis
+
+    def local(lg, lb):
+        V = lg.shape[-1]
+        lo = spmd.axis_index(ctx.mesh, axis) * V
+        inside = (lb >= lo) & (lb < lo + V)
+        g = lg.gather(-1, (lb - lo).clamp(0, V - 1)[..., None])[..., 0]
+        return torch.where(inside, g, 0.0)
+
+    return spmd.shard_map(local, ctx.mesh,
+                          (ctx.place(batch=0, model=2), ctx.place(batch=0)),
+                          ctx.place(batch=0, model="partial"))(logits, labels)
+
+
+def xent_loss(logits, labels, ctx=None):
     """Masked softmax cross-entropy in f32; labels < 0 are ignored.
     Returns (mean nll over the kept tokens, {"tokens": their count})."""
     mask = labels >= 0
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    gold = _gold(logits, labels, ctx)
     nll = (lse - gold) * mask
     n = mask.sum()
     return nll.sum() / n.clamp_min(1), {"tokens": n}
 
 
-def fused_xent_loss(x, table, labels, tied: bool, chunk: int = 1024):
+def fused_xent_loss(x, table, labels, tied: bool, chunk: int = 1024,
+                    ctx=None):
     """Chunked-vocab fused softmax-xent (JAX's ``fused_xent_loss``): the
     sequence in ``max(1, S // chunk)`` chunks, each chunk's f32 logits
     reduced to (lse, gold) and dropped; the backward recomputes them a
     chunk at a time (checkpointed), so the (B, S, V) logits never exist."""
     B, S, D = x.shape
+    rules = None if ctx is None else ctx.rules
+    x = constrain(x, rules, ("batch", None, None))
     mask = labels >= 0
     labels_c = labels.clamp_min(0).long()
     nchunk = max(1, S // chunk)
@@ -67,11 +106,11 @@ def fused_xent_loss(x, table, labels, tied: bool, chunk: int = 1024):
     def step(xc, lc, mc, table):
         xf = xc.float()
         logits = xf @ (table.float().T if tied else table.float())
+        logits = constrain(logits, rules, ("batch", None, "vocab"))
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lc[..., None])[..., 0]
-        return ((lse - gold) * mc).sum()
+        return ((lse - _gold(logits, lc, ctx)) * mc).sum()
 
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = 0.0
     for c in range(nchunk):
         sl = slice(c * cs, (c + 1) * cs)
         total = total + checkpoint(step, x[:, sl], labels_c[:, sl],
@@ -86,6 +125,66 @@ class ModelApi:
     parallel: ParallelConfig
     defs: Any
     device: torch.device
+    mesh: Any = None
+    rules_p: Optional[Rules] = None
+    rules_a: Optional[Rules] = None
+    recipe: str = "tp"
+
+    @property
+    def sharded(self) -> bool:
+        """On a mesh of more than one device (the leaves are DTensors)."""
+        return multi_device(self.mesh)
+
+    def param_shapes(self):
+        """JAX's ``param_shapes``: (shape, dtype) of every leaf."""
+        return L.param_shapes(self.defs, DTYPES[self.parallel.param_dtype])
+
+    def param_pspecs(self):
+        """JAX's ``param_pspecs``: each leaf's ``Rules.spec`` tuple."""
+        return L.tree_map(lambda _, d: self.rules_p.spec(d.logical, d.shape),
+                          self.defs)
+
+    def param_shardings(self):
+        """Each leaf's DTensor placements on the mesh (JAX's
+        ``param_shardings``)."""
+        return L.tree_map(
+            lambda _, d: self.rules_p.placements(d.logical, d.shape),
+            self.defs)
+
+    def _place(self, path, a):
+        """A full tensor (the same on every rank) as this rank's shard of
+        the leaf at ``path``, placed by ``rules_p``; a plain tensor on a
+        one-device mesh."""
+        if not self.sharded or isinstance(a, DTensor):
+            return a
+        d = self._def_at(path)
+        return distribute_tensor(
+            a, self.mesh, self.rules_p.placements(d.logical, d.shape),
+            src_data_rank=None)
+
+    def _gather_fsdp(self, tree, defs):
+        """A tree of DTensor leaves redistributed for compute: the FSDP
+        axes gathered, the model axis kept (JAX's per-layer ZeRO-3 gather);
+        ``defs`` gives the leaves' logical names, a stacked leaf's without
+        its layer dim."""
+        if not self.sharded:
+            return tree
+        rules_c = self._rules_c
+
+        def one(path, a):
+            d = defs
+            for k in path:
+                d = d[k]
+            logical = d.logical[-a.dim():] if a.dim() else ()
+            return a.redistribute(self.mesh,
+                                  rules_c.placements(logical, a.shape))
+        return L.tree_map(one, tree)
+
+    @functools.cached_property
+    def _rules_c(self) -> Rules:
+        """``rules_p`` with the FSDP dims ("embed", "vocab_in") whole."""
+        table = dict(self.rules_p.table, embed=None, vocab_in=None)
+        return Rules(table, self.mesh)
 
     # ---- params ----------------------------------------------------------
     def compute_dtype(self) -> torch.dtype:
@@ -94,7 +193,8 @@ class ModelApi:
 
     def init(self, seed: int = 0):
         """Random parameters drawn on the device from ``seed`` at JAX's
-        scale, cast once for the forward pass."""
+        scale, cast once for the forward pass (on a mesh each rank draws
+        the same full leaves and keeps its shards)."""
         params = L.init_params(self.defs, seed=seed,
                                dtype=DTYPES[self.parallel.param_dtype],
                                device=self.device)
@@ -104,7 +204,8 @@ class ModelApi:
         """Move a parameter tree to the device and cast its float leaves
         to the compute dtype, once. For float32 leaves this is JAX's
         per-call ``_cast``; a bfloat16 leaf under a float32 compute dtype
-        is widened, which is exactly JAX's type promotion at each use."""
+        is widened, which is exactly JAX's type promotion at each use. On
+        a mesh each leaf is placed by ``rules_p`` (``_place``)."""
         cd = self.compute_dtype()
 
         def one(path, a):
@@ -112,8 +213,10 @@ class ModelApi:
             if tuple(a.shape) != want:
                 raise ValueError(f"param {'/'.join(path)}: shape "
                                  f"{tuple(a.shape)}, expected {want}")
-            a = a.to(self.device)
-            return a.to(cd) if a.is_floating_point() else a
+            if not isinstance(a, DTensor):
+                a = a.to(self.device)
+            a = a.to(cd) if a.is_floating_point() else a
+            return self._place(path, a)
         return L.tree_map(one, params)
 
     def _cast(self, params):
@@ -135,20 +238,22 @@ class ModelApi:
                        for d in L.tree_leaves(self.defs)))
 
     # ---- forward ----------------------------------------------------------
-    def _embed_in(self, params, batch):
+    def _embed_in(self, params, batch, ctx=None):
         """Token embeddings in the compute dtype; for vlm the first
         ``n_vision_tokens`` positions are replaced by batch["patches"]
         (B, n_vision_tokens, D). A vlm sequence shorter than that raises
         (JAX's concatenation would silently lengthen it)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype(), ctx)
         if cfg.family == "vlm":
             nv = cfg.n_vision_tokens
             if tokens.shape[1] < nv:
                 raise ValueError(f"a vlm sequence holds the {nv} patch "
                                  f"positions first; got {tokens.shape[1]}")
+            x = constrain(x, self.rules_a, ("batch", None, None))
             x = torch.cat([batch["patches"].to(x.dtype), x[:, nv:]], dim=1)
+            x = constrain(x, self.rules_a, ("batch", "seq", None))
         return x
 
     def _layer(self, blocks, i: int):
@@ -185,6 +290,7 @@ class ModelApi:
         collected = {n: [] for n in names}
         lb = rz = 0.0
         for i, blk in enumerate(L.unstack(params["blocks"], cfg.n_layers)):
+            blk = self._gather_fsdp(blk, self.defs["blocks"])
             cache = None if caches is None else \
                 {n: caches[n][i] for n in names}
             x, c, lb_i, rz_i = body(blk, x, cache)
@@ -235,7 +341,8 @@ class ModelApi:
             if ctx.mode == "train":
                 fn = L.remat(fn, self.parallel.remat)
             cache = None if caches is None else self._layer(caches[part], j)
-            x, cs = fn(blocks[part][j], x, cache)
+            blk = self._gather_fsdp(blocks[part][j], self.defs[part])
+            x, cs = fn(blk, x, cache)
             if ctx.mode == "prefill":
                 for (key, _), c in zip(members, cs):
                     collected.setdefault((part, key), []).append(c)
@@ -264,17 +371,18 @@ class ModelApi:
         if cfg.family == "audio":
             return self._whisper_loss(params, batch)
         ctx = self._ctx("train", batch["tokens"])
-        x = self._embed_in(params, batch)
+        params = self._top(params)
+        x = self._embed_in(params, batch, ctx)
         x, _, aux = self._run_blocks(params, x, ctx)
         x = T.final_norm(cfg, params, x)
         if self.parallel.fused_xent:
             table = params["embed"] if cfg.tie_embeddings \
                 else params["lm_head"]
             loss, metrics = fused_xent_loss(x, table, batch["labels"],
-                                            cfg.tie_embeddings)
+                                            cfg.tie_embeddings, ctx=ctx)
         else:
-            loss, metrics = xent_loss(T.lm_logits(cfg, params, x),
-                                      batch["labels"])
+            loss, metrics = xent_loss(T.lm_logits(cfg, params, x, ctx),
+                                      batch["labels"], ctx)
         if aux:
             loss = loss + (cfg.moe.router_aux_coef * aux["load_balance"]
                            + 1e-4 * aux["router_z"])
@@ -297,10 +405,12 @@ class ModelApi:
         if cfg.family == "audio":
             return self._whisper_prefill(params, batch)
         ctx = self._ctx("prefill", batch["tokens"])
-        x = self._embed_in(params, batch)
+        params = self._top(params)
+        x = self._embed_in(params, batch, ctx)
         x, caches, _ = self._run_blocks(params, x, ctx)
-        x = T.final_norm(cfg, params, x)
-        logits = T.lm_logits(cfg, params, x[:, -1:, :])
+        x = constrain(T.final_norm(cfg, params, x), self.rules_a,
+                      ("batch", None, None))
+        logits = T.lm_logits(cfg, params, x[:, -1:, :], ctx)
         return logits, caches
 
     @torch.no_grad()
@@ -316,18 +426,30 @@ class ModelApi:
         cfg = self.cfg
         if cfg.family == "audio":
             return self._whisper_decode(params, caches, tokens, pos)
-        ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
-        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype())
+        ctx = self._ctx("decode", positions=pos)
+        params = self._top(params)
+        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype(), ctx)
         x, caches, _ = self._run_blocks(params, x, ctx, caches)
         x = T.final_norm(cfg, params, x)
-        return T.lm_logits(cfg, params, x), caches
+        return T.lm_logits(cfg, params, x, ctx), caches
 
-    def _ctx(self, mode: str, tokens) -> T.Ctx:
-        """Train / prefill context: positions 0..S-1 of ``tokens`` (B, S)."""
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    def _top(self, params):
+        """The leaves outside the layer stacks gathered for compute."""
+        blocks = ("blocks", "groups", "tail", "enc_blocks", "dec_blocks")
+        top = {k: v for k, v in params.items() if k not in blocks}
+        return dict(params, **self._gather_fsdp(top, self.defs))
+
+    def _ctx(self, mode: str, tokens=None, positions=None) -> T.Ctx:
+        """Train / prefill context: positions 0..S-1 of ``tokens`` (B, S);
+        decode: ``positions`` (B,)."""
+        if positions is None:
+            positions = torch.arange(tokens.shape[1],
+                                     device=self.device)[None]
         return T.Ctx(cfg=self.cfg, mode=mode, positions=positions,
                      q_block=self.parallel.q_block,
-                     kv_block=self.parallel.kv_block)
+                     kv_block=self.parallel.kv_block,
+                     parallel=self.parallel, rules=self.rules_a,
+                     mesh=self.mesh, recipe=self.recipe)
 
     # ---- whisper ----------------------------------------------------------
     def _whisper_forward(self, params, batch, mode: str):
@@ -338,14 +460,16 @@ class ModelApi:
                              batch["frames"].to(self.compute_dtype()))
         x = whisper.decoder_embed(params, batch["tokens"], ctx.positions,
                                   self.compute_dtype())
+        x = constrain(x, self.rules_a, ("batch", "seq", None))
         x, caches = whisper.run_decoder_train(ctx, params, x, enc)
         return T.final_norm(self.cfg, params, x), caches
 
     def _whisper_loss(self, params, batch):
         """The plain ``xent_loss`` under ``fused_xent`` too, as in JAX."""
         x, _ = self._whisper_forward(params, batch, "train")
-        loss, metrics = xent_loss(T.lm_logits(self.cfg, params, x),
-                                  batch["labels"])
+        ctx = self._ctx("train", batch["tokens"])
+        loss, metrics = xent_loss(T.lm_logits(self.cfg, params, x, ctx),
+                                  batch["labels"], ctx)
         metrics["loss"] = loss
         return loss, metrics
 
@@ -355,7 +479,7 @@ class ModelApi:
 
     def _whisper_decode(self, params, caches, tokens, pos):
         cfg = self.cfg
-        ctx = T.Ctx(cfg=cfg, mode="decode", positions=pos)
+        ctx = self._ctx("decode", positions=pos)
         x = whisper.decoder_embed(params, tokens, pos[:, None],
                                   self.compute_dtype())
         x, caches = whisper.run_decoder_decode(ctx, params, x, caches)
@@ -372,7 +496,8 @@ def build_defs(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None):
     if cfg.family == "audio":
         return whisper.whisper_defs(cfg)
     if cfg.family == "moe":
-        return T.lm_defs(cfg, M.moe_block_defs)
+        ws = bool(parallel and parallel.moe_weight_stationary)
+        return T.lm_defs(cfg, lambda c: M.moe_block_defs(c, ws))
     if cfg.family == "ssm":
         return T.lm_defs(cfg, mamba2.ssm_block_defs)
     if cfg.family == "hybrid":
@@ -408,8 +533,23 @@ def _hybrid_defs(cfg: ModelConfig):
 
 
 def build_model(cfg: ModelConfig, parallel: ParallelConfig,
-                device: Optional[str | torch.device] = None) -> ModelApi:
-    """``device`` defaults to ``cuda`` (see ``repro_torch.device``)."""
+                device: Optional[str | torch.device] = None, *,
+                mesh=None) -> ModelApi:
+    """``device`` defaults to ``cuda`` (see ``repro_torch.device``);
+    ``mesh`` (``launch.mesh``) sets the rules, the recipe and the
+    ``pad_attention_heads`` lever as JAX's ``build_model`` does."""
+    rules_p, rules_a = make_rules(mesh, parallel)
+    tp = mesh_shape(mesh).get(parallel.model_axis, 1)
+    if parallel.pad_attention_heads and tp > 1 and cfg.n_heads % tp:
+        # hillclimb lever: pad Hq to a TP multiple so head-parallel
+        # attention applies; the padded count must stay a GQA multiple
+        padded = ((cfg.n_heads + tp - 1) // tp) * tp
+        if cfg.n_kv_heads and padded % cfg.n_kv_heads == 0:
+            cfg = dataclasses.replace(cfg, n_heads=padded)
+    if isinstance(mesh, DeviceMesh) and mesh.size() > 1:
+        spmd.allow_implicit_replication()
     return ModelApi(cfg=cfg, parallel=parallel,
                     defs=build_defs(cfg, parallel),
-                    device=resolve_device(device))
+                    device=resolve_device(device), mesh=mesh,
+                    rules_p=rules_p, rules_a=rules_a,
+                    recipe=T.recipe_for(cfg, tp))

@@ -32,6 +32,7 @@ from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.mamba2 import _causal_conv
+from repro_torch.sharding.partition import constrain
 
 
 def _n_blocks(cfg: ModelConfig) -> int:
@@ -105,10 +106,13 @@ def rglru_mixer_apply(ctx, p, x, cache: Optional[dict] = None):
     S = x.shape[1]
 
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    if ctx.recipe == "tp" and ctx.mode != "decode":
+        h = constrain(h, ctx.rules, ("batch", None, None))
     gate = L.gelu(h @ p["w_gate_branch"])
     xb = h @ p["w_x_branch"]
     conv_state = cache.get("conv") if cache else None
     xb, conv_new = _causal_conv(xb, p["conv"], conv_state)
+    xb = constrain(xb, ctx.rules, ("batch", None, "lru"))
 
     r = torch.sigmoid(_block_diag_apply(xb, p["w_a"], p["b_a"], nb).float())
     i = torch.sigmoid(_block_diag_apply(xb, p["w_i"], p["b_i"], nb).float())
@@ -132,6 +136,7 @@ def rglru_mixer_apply(ctx, p, x, cache: Optional[dict] = None):
                      if ctx.mode == "prefill" else None)
 
     y = (y.to(x.dtype) * gate) @ p["w_out"]
+    y = constrain(y, ctx.rules, ("batch", "seq", None))
     return x + y, new_cache
 
 

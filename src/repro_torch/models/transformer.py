@@ -1,14 +1,39 @@
-"""Dense decoder-only transformer of the port (qwen2-*, minitron, granite).
+"""Dense decoder-only transformer of the port (qwen2-*, minitron, granite,
+the internvl2 LM), on one device or on a mesh (counterpart of
+``repro.models.transformer``).
 
-Counterpart of the dense path of ``repro.models.transformer`` on one
-device: no mesh, so no ``shard_map``/``constrain`` and no sequence- or
-context-parallel projections. Two differences from the JAX "tp" recipe:
+Sharding recipes (decided per arch at build time, ``recipe_for``):
+
+* ``tp`` -- Megatron-style tensor parallel: the residual is ("batch",
+  "seq"->model); inside a block the hidden is gathered over model, q runs
+  head-sharded over model, and the output projections reduce back to the
+  residual's layout (with ``explicit_rs`` the in- and out-projections are
+  ``_sp_in_project`` / ``_rs_project``, an explicit all-gather and
+  reduce-scatter over the sequence). Requires n_heads % tp == 0.
+* ``cp`` -- context parallel for archs whose head counts don't divide the
+  model axis: the residual stays seq-sharded, the attention weights are
+  gathered whole, and attention runs per device on its query rows against
+  K/V all-gathered over model, the flash kernel taking the rank's
+  ``q_offset`` (``_cp_attention``).
+
+On a mesh the tensors are DTensors and each of JAX's ``constrain`` points
+redistributes to its rule's placements; the per-device bodies of JAX's
+``shard_map`` are ``sharding.spmd.shard_map``. On one device (no mesh, or
+every axis of size 1) every parallel path takes its ``n == 1`` branch and
+nothing is a DTensor.
+
+Differences from JAX's "tp" recipe, kept on purpose:
 
 * GQA is left to the attention kernel (group = Hq // Hkv) instead of
-  repeating K and V to Hq heads first — the same math with Hq/Hkv times
-  less KV traffic;
+  repeating K and V to Hq heads: K and V are gathered over model, and each
+  device selects the kv heads its q heads read at the shard boundary
+  (``_local_kv``), repeating them only where a kv head serves q heads of
+  two devices;
 * the decode-step cache update is an in-place indexed write into the
-  caller's cache (the JAX engine donates its cache buffer instead).
+  caller's cache (the JAX engine donates its cache buffer instead); on a
+  mesh whose cache is sequence-sharded ("kv_seq"), each device writes the
+  rows it holds and decode attention combines the devices' partial
+  softmax sums (``_decode_attention_sharded``).
 """
 from __future__ import annotations
 
@@ -16,9 +41,13 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import (Rules, batch_axes, constrain,
+                                            mesh_shape, multi_device)
 
 
 @dataclasses.dataclass
@@ -28,6 +57,219 @@ class Ctx:
     positions: Any = None           # (1, S) train/prefill, (B,) decode
     q_block: int = 512              # train attention's blocks (JAX's
     kv_block: int = 1024            # ParallelConfig.q_block / kv_block)
+    parallel: Optional[ParallelConfig] = None
+    rules: Optional[Rules] = None   # activation rules
+    mesh: Any = None                # DeviceMesh / OneDeviceMesh / None
+    recipe: str = "tp"              # tp | cp
+
+    @property
+    def model_axis_size(self) -> int:
+        if self.mesh is None or self.parallel is None:
+            return 1
+        return mesh_shape(self.mesh).get(self.parallel.model_axis, 1)
+
+    def batch_axes(self) -> Tuple[str, ...]:
+        if self.parallel is None:
+            return ()
+        return batch_axes(self.mesh, self.parallel)
+
+    @property
+    def sharded(self) -> bool:
+        """On a mesh of more than one device (the tensors are DTensors)."""
+        return multi_device(self.mesh)
+
+    def place(self, **dims) -> tuple:
+        """Placements of a tensor whose batch dim is ``batch`` (over the
+        batch axes) and whose dim ``model`` is over the model axis; see
+        ``spmd.placements``."""
+        want = {a: dims.get("batch") for a in self.batch_axes()}
+        want[self.parallel.model_axis] = dims.get("model")
+        return spmd.placements(self.mesh, **want)
+
+
+def recipe_for(cfg: ModelConfig, tp_size: int) -> str:
+    if cfg.n_heads and cfg.n_heads % max(tp_size, 1) == 0:
+        return "tp"
+    return "cp"
+
+
+def _replicate(p, ctx: Ctx):
+    """A weight tree gathered whole (the cp recipe's ZeRO-3 gather of the
+    attention weights)."""
+    return {k: v.redistribute(ctx.mesh, spmd.placements(ctx.mesh))
+            if isinstance(v, DTensor) else v for k, v in p.items()}
+
+
+def _sp_in_project(ctx: Ctx, x, ws):
+    """Fused Megatron-SP input projection: all-gather the seq-sharded
+    residual over model and apply K output-dim-sharded weights in one
+    per-device body, so the backward x-grad is one reduce-scatter.
+    x: (B, S/n, D); ws: list of (D, K_i) sharded on K_i. Returns
+    [(B, S, K_i/n) sharded over model on the last dim]."""
+    n = ctx.model_axis_size
+    if not ctx.sharded or n == 1 or x.shape[1] % n != 0:
+        return [x @ w for w in ws]
+    axis = ctx.parallel.model_axis
+
+    def local(xl, *wl):
+        h = spmd.all_gather(xl, ctx.mesh, axis, dim=1)
+        return tuple(h @ w for w in wl)
+
+    outs = spmd.shard_map(
+        local, ctx.mesh,
+        (ctx.place(batch=0, model=1),) + (ctx.place(model=1),) * len(ws),
+        (ctx.place(batch=0, model=2),) * len(ws))(x, *ws)
+    return list(outs)
+
+
+def _rs_project(ctx: Ctx, h, w):
+    """Megatron-SP output projection: the local partial product and a
+    reduce-scatter over the sequence (half the bytes of an all-reduce,
+    landing in the seq-sharded residual's layout). h: (B, S, K) with K
+    sharded over model; w: (K, D) sharded on K. Returns (B, S, D) with S
+    sharded over model."""
+    n = ctx.model_axis_size
+    if not ctx.sharded or n == 1 or h.shape[1] % n != 0:
+        return h @ w
+    axis = ctx.parallel.model_axis
+
+    def local(hl, wl):
+        return spmd.reduce_scatter(hl @ wl, ctx.mesh, axis, dim=1)
+
+    return spmd.shard_map(local, ctx.mesh,
+                          (ctx.place(batch=0, model=2),
+                           ctx.place(model=0)),
+                          ctx.place(batch=0, model=1))(h, w)
+
+
+def _local_kv(k, v, h0: int, hl: int, G: int):
+    """The kv heads that q heads [h0, h0 + hl) read (kv head of q head h:
+    h // G), as (k, v, group): a slice when the q heads cover whole kv
+    heads, one head when they share one, else the kv heads repeated to q
+    heads and sliced (group 1)."""
+    if hl % G == 0 and h0 % G == 0:
+        return k[:, :, h0 // G:(h0 + hl) // G], \
+            v[:, :, h0 // G:(h0 + hl) // G], G
+    if h0 // G == (h0 + hl - 1) // G:
+        j = h0 // G
+        return k[:, :, j:j + 1], v[:, :, j:j + 1], hl
+    idx = torch.arange(h0, h0 + hl, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx], 1
+
+
+def _attend(ctx: Ctx, q, k, v, *, causal=True, window=0, q_offset=0):
+    """Train: JAX's dispatch in torch ops (``train_attention``, or the
+    blocked form with an offset); prefill: the flash kernel's wrapper."""
+    cfg = ctx.cfg
+    if ctx.mode == "train":
+        if q_offset:
+            return L.flash_attention_cp(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                softcap=cfg.logit_softcap,
+                q_block=min(ctx.q_block, q.shape[1]),
+                kv_block=min(ctx.kv_block, k.shape[1]))
+        return L.train_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cfg.logit_softcap,
+                                 q_block=ctx.q_block, kv_block=ctx.kv_block)
+    return L.attention(q, k, v, causal=causal, window=window,
+                       softcap=cfg.logit_softcap, q_offset=q_offset)
+
+
+def _tp_attention(ctx: Ctx, q, k, v, *, causal=True, window=0):
+    """tp recipe: q head-sharded over model, K and V whole over model; each
+    device attends its q heads to the kv heads they read."""
+    cfg = ctx.cfg
+    n = ctx.model_axis_size
+    if not ctx.sharded or n == 1:
+        return _attend(ctx, q, k, v, causal=causal, window=window)
+    axis = ctx.parallel.model_axis
+    G = cfg.n_heads // cfg.n_kv_heads
+    hl = cfg.n_heads // n
+
+    def local(ql, kl, vl):
+        h0 = spmd.axis_index(ctx.mesh, axis) * hl
+        kl, vl, _ = _local_kv(kl, vl, h0, hl, G)
+        return _attend(ctx, ql, kl, vl, causal=causal, window=window)
+
+    qspec = ctx.place(batch=0, model=2)
+    kvspec = ctx.place(batch=0)
+    return spmd.shard_map(local, ctx.mesh, (qspec, kvspec, kvspec),
+                          qspec)(q, k, v)
+
+
+def _cp_attention(ctx: Ctx, q, k, v, *, causal=True, window=0):
+    """Context-parallel attention: q/k/v seq-sharded over the model axis;
+    K/V all-gathered per device, the causal mask offset by the device's
+    first query position (``q_offset = rank * s_loc``)."""
+    n = ctx.model_axis_size
+    if not ctx.sharded or n == 1 or q.shape[1] % n != 0:
+        return _attend(ctx, q, k, v, causal=causal, window=window)
+    axis = ctx.parallel.model_axis
+
+    def local(ql, kl, vl):
+        kf = spmd.all_gather(kl, ctx.mesh, axis, dim=1)
+        vf = spmd.all_gather(vl, ctx.mesh, axis, dim=1)
+        s_loc = ql.shape[1]
+        offset = spmd.axis_index(ctx.mesh, axis) * s_loc
+        return _attend(ctx, ql, kf, vf, causal=causal, window=window,
+                       q_offset=offset)
+
+    spec = ctx.place(batch=0, model=1)
+    return spmd.shard_map(local, ctx.mesh, (spec, spec, spec), spec)(q, k, v)
+
+
+def _write_cache(kc, vc, knew, vnew, pos, row0: int = 0):
+    """Write each slot's new K/V row at ``pos - row0`` of the caches
+    (B, Smax_local, Hkv, D), in place. JAX's dynamic_update_slice clamps
+    the start into range, so a slot past the end (finished, still
+    stepping) writes the last row of the whole cache: only the device
+    holding that row writes it."""
+    B, S_loc = kc.shape[0], kc.shape[1]
+    rows = torch.arange(B, device=kc.device)
+    at = pos - row0
+    mine = (at >= 0) & (at < S_loc)
+    at = at.clamp(0, S_loc - 1)
+    kc[rows, at] = torch.where(mine[:, None, None], knew[:, 0], kc[rows, at])
+    vc[rows, at] = torch.where(mine[:, None, None], vnew[:, 0], vc[rows, at])
+
+
+def _decode_attention_sharded(ctx: Ctx, q, knew, vnew, kc, vc, pos):
+    """Decode attention on a mesh: each device writes the new K/V rows it
+    holds (the cache is sequence-sharded over model when "kv_seq" is) and
+    attends the query to its rows; the devices' partial softmax sums are
+    combined with one max and one sum over model."""
+    cfg = ctx.cfg
+    axis = ctx.parallel.model_axis
+    seq_sharded = isinstance(kc.placements[list(ctx.mesh.mesh_dim_names)
+                                           .index(axis)], Shard)
+    S_total = kc.shape[1]
+
+    def local(ql, kn, vn, kl, vl, pl):
+        S_loc = kl.shape[1]
+        row0 = spmd.axis_index(ctx.mesh, axis) * S_loc if seq_sharded else 0
+        clamped = pl.clamp(max=S_total - 1)
+        _write_cache(kl, vl, kn, vn, clamped, row0)
+        if not seq_sharded:
+            return L.decode_attention(ql, kl, vl, pl, window=cfg.window,
+                                      softcap=cfg.logit_softcap)
+        m, l, acc = L.decode_attention_partial(
+            ql, kl, vl, pl, row0, window=cfg.window,
+            softcap=cfg.logit_softcap)
+        m_all = spmd.pmax(m, ctx.mesh, axis)
+        corr = torch.exp(m - m_all)
+        l = spmd.psum(l * corr, ctx.mesh, axis)
+        acc = spmd.psum(acc * corr[..., None], ctx.mesh, axis)
+        out = acc / l.clamp_min(1e-20)[..., None]
+        B, Hkv, G, D = out.shape
+        return out.reshape(B, 1, Hkv * G, D).to(vl.dtype)
+
+    # the caches pass as their local tensors, written in place (never
+    # redistributed: a copy would lose the write)
+    rep = ctx.place(batch=0)
+    return spmd.shard_map(local, ctx.mesh,
+                          (rep, rep, rep, None, None, rep),
+                          rep)(q, knew, vnew, kc.to_local(), vc.to_local(),
+                               pos)
 
 
 # --------------------------------------------------------------------------
@@ -78,19 +320,32 @@ def _norm(cfg, p, x):
     return L.rms_norm(x, p["ln"], cfg.norm_eps)
 
 
-def _qkv(cfg: ModelConfig, p, h):
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+def _split_heads(ctx: Ctx, q, k, v):
+    """(B, S, Q) / (B, S, KV) projections -> (B, S, H, D) heads. On a mesh
+    q is constrained head-sharded over model (tp) and K/V whole over
+    model, since the kv heads rarely divide the model axis (JAX gathers
+    them the same way on its fused path)."""
+    cfg = ctx.cfg
+    if ctx.recipe == "tp":
+        q = constrain(q, ctx.rules, ("batch", None, "heads"))
+        k = constrain(k, ctx.rules, ("batch", None, None))
+        v = constrain(v, ctx.rules, ("batch", None, None))
+    B, S = q.shape[0], q.shape[1]
+    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
+            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+
+
+def _qkv(ctx: Ctx, p, h):
+    cfg = ctx.cfg
+    q = L.dense(h, p["wq"])
+    k = L.dense(h, p["wk"])
+    v = L.dense(h, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    B, S = h.shape[0], h.shape[1]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    return q, k, v
+    return _split_heads(ctx, q, k, v)
 
 
 def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None,
@@ -109,67 +364,109 @@ def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None,
     rows; nothing is written and the returned cache is None.
     """
     cfg = ctx.cfg
+    if ctx.sharded and ctx.recipe == "cp":
+        p = _replicate(p, ctx)
     h = _norm(cfg, p, x)
+    use_sp_fused = (ctx.parallel is not None and ctx.parallel.explicit_rs
+                    and ctx.recipe == "tp" and ctx.mode != "decode")
+    if ctx.recipe == "tp" and not use_sp_fused:
+        h = constrain(h, ctx.rules, ("batch", None, None))
 
     if kv_override is not None:
         if ctx.mode != "decode":
             raise ValueError("kv_override is a decode-step argument")
         B = h.shape[0]
-        q = h @ p["wq"]
+        q = L.dense(h, p["wq"])
         if cfg.qkv_bias:
             q = q + p["bq"]
         q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
         kf, vf, kv_len = kv_override
         out = L.decode_attention(q, kf, vf, (kv_len - 1).clamp_min(0),
                                  window=0, softcap=cfg.logit_softcap)
-        return x + out.reshape(B, 1, cfg.q_dim) @ p["wo"], None
+        return x + L.dense(out.reshape(B, 1, cfg.q_dim), p["wo"]), None
 
     if ctx.mode == "decode":
         B = h.shape[0]
-        q, knew, vnew = _qkv(cfg, p, h)                  # S = 1
+        q, knew, vnew = _qkv(ctx, p, h)                  # S = 1
         pos = ctx.positions                              # (B,)
         if cfg.rope_theta > 0:
             q = L.rope(q, pos[:, None], cfg.rope_theta)
             knew = L.rope(knew, pos[:, None], cfg.rope_theta)
         kc, vc = cache["k"], cache["v"]
-        # dynamic_update_slice clamps the start index into range; slots
-        # past the end (finished, still stepping) write the last row
-        rows = torch.arange(B, device=x.device)
-        at = pos.clamp(max=kc.shape[1] - 1)
-        kc[rows, at] = knew[:, 0]
-        vc[rows, at] = vnew[:, 0]
-        out = L.decode_attention(q, kc, vc, pos, window=cfg.window,
-                                 softcap=cfg.logit_softcap)
-        attn_out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+        if ctx.sharded:
+            out = _decode_attention_sharded(ctx, q, knew, vnew, kc, vc, pos)
+        else:
+            # dynamic_update_slice clamps the start index into range; slots
+            # past the end (finished, still stepping) write the last row
+            rows = torch.arange(B, device=x.device)
+            at = pos.clamp(max=kc.shape[1] - 1)
+            kc[rows, at] = knew[:, 0]
+            vc[rows, at] = vnew[:, 0]
+            out = L.decode_attention(q, kc, vc, pos, window=cfg.window,
+                                     softcap=cfg.logit_softcap)
+        attn_out = L.dense(out.reshape(B, 1, cfg.q_dim), p["wo"])
+        attn_out = constrain(attn_out, ctx.rules, ("batch", "seq", None))
         return x + attn_out, cache
 
-    q, k, v = _qkv(cfg, p, h)
+    if use_sp_fused:
+        qf, kf, vf = _sp_in_project(ctx, h, [p["wq"], p["wk"], p["wv"]])
+        if cfg.qkv_bias:
+            qf, kf, vf = qf + p["bq"], kf + p["bk"], vf + p["bv"]
+        q, k, v = _split_heads(ctx, qf, kf, vf)
+    else:
+        q, k, v = _qkv(ctx, p, h)
     if cfg.rope_theta > 0:
         q = L.rope(q, ctx.positions, cfg.rope_theta)
         k = L.rope(k, ctx.positions, cfg.rope_theta)
-    if ctx.mode == "train":
-        new_cache = None
-        out = L.train_attention(q, k, v, causal=True, window=cfg.window,
-                                softcap=cfg.logit_softcap,
-                                q_block=ctx.q_block, kv_block=ctx.kv_block)
+    new_cache = None
+    if ctx.mode == "prefill":
+        new_cache = {
+            "k": constrain(k, ctx.rules, ("batch", "kv_seq", None, None)),
+            "v": constrain(v, ctx.rules, ("batch", "kv_seq", None, None))}
+    if ctx.recipe == "tp":
+        out = _tp_attention(ctx, q, k, v, causal=True, window=cfg.window)
     else:
-        new_cache = {"k": k, "v": v}
-        out = L.attention(q, k, v, causal=True, window=cfg.window,
-                          softcap=cfg.logit_softcap)
+        out = _cp_attention(ctx, q, k, v, causal=True, window=cfg.window)
     B, S = x.shape[0], x.shape[1]
-    attn_out = out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    flat = out.reshape(B, S, cfg.q_dim)
+    if use_sp_fused:
+        attn_out = _rs_project(ctx, flat, p["wo"])
+    else:
+        attn_out = L.dense(flat, p["wo"])
+    attn_out = constrain(attn_out, ctx.rules, ("batch", "seq", None))
     return x + attn_out, new_cache
 
 
 def mlp_apply(ctx: Ctx, p, x):
     cfg = ctx.cfg
     h = _norm(cfg, p, x)
+    use_rs = (ctx.parallel is not None and ctx.parallel.explicit_rs
+              and ctx.recipe == "tp" and ctx.mode != "decode")
+    if not use_rs:
+        # JAX constrains h in the tp recipe and leaves the cp recipe's
+        # gather to GSPMD through the "mlp" constraint on the product;
+        # here both gather h, so that no product meets two shardings
+        h = constrain(h, ctx.rules, ("batch", None, None))
     if cfg.act == "swiglu":
-        hidden = L.swiglu(h @ p["wg"], h @ p["wu"])
-        out = hidden @ p["wd"]
+        if use_rs:
+            g, u = _sp_in_project(ctx, h, [p["wg"], p["wu"]])
+        else:
+            g, u = L.dense(h, p["wg"]), L.dense(h, p["wu"])
+        g = constrain(g, ctx.rules, ("batch", None, "mlp"))
+        u = constrain(u, ctx.rules, ("batch", None, "mlp"))
+        hidden = L.swiglu(g, u)
+        out = _rs_project(ctx, hidden, p["wd"]) if use_rs \
+            else L.dense(hidden, p["wd"])
     else:
-        hh = L.gelu(h @ p["wi"] + p["bi"])
-        out = hh @ p["wo_mlp"] + p["bo"]
+        if use_rs:
+            (hi,) = _sp_in_project(ctx, h, [p["wi"]])
+        else:
+            hi = L.dense(h, p["wi"])
+        hh = L.gelu(hi + p["bi"])
+        out = (_rs_project(ctx, hh, p["wo_mlp"]) if use_rs
+               else L.dense(hh, p["wo_mlp"]))
+        out = constrain(out, ctx.rules, ("batch", "seq", None)) + p["bo"]
+    out = constrain(out, ctx.rules, ("batch", "seq", None))
     return x + out
 
 
@@ -199,16 +496,36 @@ def lm_defs(cfg: ModelConfig, block_defs_fn) -> Dict[str, Any]:
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens,
-                 compute_dtype=torch.bfloat16):
-    return params["embed"][tokens].to(compute_dtype)
+                 compute_dtype=torch.bfloat16, ctx: Optional[Ctx] = None):
+    """Rows of the input table in the compute dtype, constrained to
+    ("batch", "seq", None). On a mesh each device looks its tokens up in
+    its columns of the table (an untied table's "embed_in" is over model;
+    a tied table, rows over model, is gathered whole first)."""
+    table = params["embed"]
+    if ctx is None or not ctx.sharded:
+        return table[tokens].to(compute_dtype)
+    axis = ctx.parallel.model_axis
+    col = table.placements[list(ctx.mesh.mesh_dim_names).index(axis)]
+    if col != Shard(1):
+        table = table.redistribute(ctx.mesh, spmd.placements(ctx.mesh))
+        col = None
+    out = spmd.shard_map(
+        lambda t, tok: t[tok].to(compute_dtype), ctx.mesh,
+        (tuple(table.placements), ctx.place(batch=0)),
+        ctx.place(batch=0, model=None if col is None else 2))(table, tokens)
+    return constrain(out, ctx.rules, ("batch", "seq", None))
 
 
-def lm_logits(cfg: ModelConfig, params, x):
-    """f32 logits, as the JAX package computes them."""
-    xf = x.float()
+def lm_logits(cfg: ModelConfig, params, x, ctx: Optional[Ctx] = None):
+    """f32 logits, as the JAX package computes them, constrained to
+    ("batch", None, "vocab")."""
+    rules = None if ctx is None else ctx.rules
+    xf = constrain(x, rules, ("batch", None, None)).float()
     if cfg.tie_embeddings:
-        return xf @ params["embed"].float().T
-    return xf @ params["lm_head"].float()
+        logits = L.dense(xf, params["embed"].float().T)
+    else:
+        logits = L.dense(xf, params["lm_head"].float())
+    return constrain(logits, rules, ("batch", None, "vocab"))
 
 
 def final_norm(cfg, params, x):

@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (Ctx, _qkv, attn_apply, attn_defs,
                                             mlp_apply, mlp_defs)
+from repro_torch.sharding.partition import constrain
 
 MAX_DECODER_POS = 32768  # JAX's table: its decode_32k shape exceeds 448
 
@@ -71,7 +72,7 @@ def _enc_attn(ctx: Ctx, p, x):
     """Non-causal encoder self-attention."""
     cfg = ctx.cfg
     h = L.layer_norm(x, p["ln"], p["ln_b"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, h)
+    q, k, v = _qkv(ctx, p, h)
     out = _full_attention(ctx, q, k, v)
     B, S = x.shape[0], x.shape[1]
     return x + out.reshape(B, S, cfg.q_dim) @ p["wo"]
@@ -103,6 +104,7 @@ def encode(ctx: Ctx, params, frames):
     F = frames.shape[1]
     x = frames + L.sinusoidal_positions(F, cfg.d_model, frames.dtype,
                                         frames.device)[None]
+    x = constrain(x, ctx.rules, ("batch", None, None))
 
     def body(blk, x):
         return mlp_apply(ctx, blk["mlp"], _enc_attn(ctx, blk["attn"], x))

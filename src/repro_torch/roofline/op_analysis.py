@@ -31,12 +31,22 @@ Pallas kernels keep in VMEM. So one callable gives the same ``flops`` and
 
 The callable really runs. The kernels' launch counters are restored
 afterwards, so an analysis never moves the counts a card check holds.
+
+On a mesh the analysis counts one device: an op on DTensors is passed on
+(the mode returns ``NotImplemented`` for it) to DTensor's dispatch, whose
+ops on the local shards, and the collectives of its redistributions, are
+the ones counted. Under a ``FakeTensorMode`` (the dry run) nothing is
+computed; ``memory=True`` then also tracks the bytes of the tensors the
+call's ops allocate while they live, for ``peak_bytes``.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
+import weakref
+
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -61,7 +71,7 @@ _COLLECTIVE_OPS = {
 # ops that move no data: allocations left uninitialised, and the view the
 # matmul decompositions return without a schema alias
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
-               "new_empty_strided", "_unsafe_view"}
+               "new_empty_strided", "_unsafe_view", "device"}
 # indexed reads and writes: the first operand is the table or the buffer
 _GATHERS = {"index", "embedding", "index_select", "gather"}
 _SCATTERS = {"index_put", "index_put_", "index_copy", "index_copy_",
@@ -96,8 +106,11 @@ def _flops(func, args, out) -> int:
 
 
 class _Counter(TorchDispatchMode):
-    def __init__(self):
+    def __init__(self, memory: bool = False):
         super().__init__()
+        self.memory = memory
+        self.live = 0           # bytes of op outputs alive (memory=True)
+        self.peak = 0
         self.flops = 0
         self.bytes = 0
         self.bytes_inner = 0
@@ -114,12 +127,30 @@ class _Counter(TorchDispatchMode):
                ) -> "_Kernel":
         return _Kernel(self, name, work)
 
+    def _alloc(self, out) -> None:
+        """Count each output tensor while it lives."""
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            n = t.numel() * t.element_size()
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(t, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented      # count DTensor's local ops instead
         out = func(*args, **(kwargs or {}))
         if self.paused:
             return out
         self.ops += 1
         op = func.overloadpacket.__name__
+        if self.memory and not func.is_view and not op.endswith("_") \
+                and not func._schema.is_mutable:
+            self._alloc(out)
         if func.is_view or op in _NO_TRAFFIC:
             return out
         if op in _GATHERS:        # the rows read, the indices, the output
@@ -186,19 +217,38 @@ def _top(recs: Dict[str, List], n: int) -> List[Dict]:
              "sig": sig[:90]} for b, name, calls, sig in rows]
 
 
-def analyze(fn, *args, **kw) -> Dict[str, object]:
+def analyze(fn, *args, memory: bool = False, result: list | None = None,
+            **kw) -> Dict[str, object]:
     """Run ``fn(*args, **kw)`` once and count its FLOPs, bytes and
     collective bytes (see the module docstring); the keys of
     ``repro.roofline.hlo_analysis.analyze``, plus ``ops`` (the aten ops
-    dispatched) and ``kernels`` (per kernel wrapper: calls and the
-    operations and bytes charged). A wrapper that raises raises here."""
-    counter = _Counter()
+    dispatched), ``kernels`` (per kernel wrapper: calls and the
+    operations and bytes charged) and, with ``memory``, ``peak_bytes``.
+    ``result``, a list, receives ``fn``'s return value. A wrapper that
+    raises raises here."""
+    counter = _Counter(memory)
     saved = [m.launches for m in _KERNEL_MODULES]
     prev = work.set_current(counter)
+    prop = DTensor._op_dispatcher.sharding_propagator
+    meta = prop._propagate_tensor_meta_non_cached
+
+    def shapes_only(*a, **k):
+        # DTensor runs an op on fake tensors of the global shapes to find
+        # its output's shape: no device runs that
+        paused, counter.paused = counter.paused, True
+        try:
+            return meta(*a, **k)
+        finally:
+            counter.paused = paused
+
+    prop._propagate_tensor_meta_non_cached = shapes_only
     try:
         with counter:
-            fn(*args, **kw)
+            out = fn(*args, **kw)
+            if result is not None:
+                result.append(out)
     finally:
+        del prop._propagate_tensor_meta_non_cached
         work.set_current(prev)
         for m, n in zip(_KERNEL_MODULES, saved):
             m.launches = n
@@ -216,4 +266,5 @@ def analyze(fn, *args, **kw) -> Dict[str, object]:
         "top_bytes_ops": _top(counter.by_op, 25),
         "ops": counter.ops,
         "kernels": counter.kernels,
+        "peak_bytes": float(counter.peak),
     }

@@ -7,7 +7,7 @@
 
 A cell is one analysed callable per device: ``cell`` builds one from
 ``op_analysis.analyze``, and the port's dry-run cells (results/
-dryrun_torch/, once the port has a dry run) carry the same keys. The
+dryrun_torch/, ``repro_torch.launch.dryrun``) carry the same keys. The
 port's ``bytes_per_device`` is already the traffic with the kernels
 deployed (a kernel's inputs and outputs once); ``bytes_inner_loops_per_
 device`` is what the kernels' plain versions move on top, so the memory

@@ -16,35 +16,41 @@ import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+from torch._subclasses.fake_tensor import is_fake
 
 _local = threading.local()
 
 
-def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                   q_offset: int = 0) -> int:
     """(q, k) pairs of an Sq x Sk attention that the mask keeps: k <= q
-    when ``causal``, k > q - window when ``window`` > 0 (positions from
-    0 on both sides)."""
-    i = np.arange(Sq)
+    when ``causal``, k > q - window when ``window`` > 0, with key
+    positions from 0 and query row i at position ``q_offset + i``."""
+    i = q_offset + np.arange(Sq)
     hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq, int)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_work(case) -> Tuple[int, int]:
+def flash_work(case, q_offset: int = 0) -> Tuple[int, int]:
     """Operations (4 x Hq x D per unmasked (q, k) pair of the Sq x Sk) and
     bytes (q, k, v read once, o written once) of one flash call;
     ``case`` is (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype)."""
     B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
-    ops = 4 * B * Hq * D * unmasked_pairs(Sq, Sk, causal, window)
+    ops = 4 * B * Hq * D * unmasked_pairs(Sq, Sk, causal, window, q_offset)
     return ops, dt.itemsize * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
 
 
 def gmm_work(E, C, D, F, counts, dt) -> Tuple[int, int]:
     """Operations, 2 x (rows in use) x D x F, and the bytes a call must
     move: the rows in use of x, the weights of the experts in use, the
-    whole output, the counts."""
-    rows = int(counts.sum())
-    used = int((counts > 0).sum())
+    whole output, the counts. Counts without data (a fake tensor of the
+    dry run) count every row of every expert."""
+    if is_fake(counts):
+        rows, used = E * C, E
+    else:
+        rows = int(counts.sum())
+        used = int((counts > 0).sum())
     return (2 * rows * D * F,
             dt.itemsize * (rows * D + used * D * F + E * C * F) + 4 * E)
 

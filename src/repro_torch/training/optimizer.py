@@ -12,8 +12,10 @@ none of these the same way.
 them (JAX donates both to the jitted step). The step count ``count`` is a
 0-d int32 tensor on the CPU: the schedule is computed on the host, so a
 step reads nothing back from the card. ``state_dtype`` "bfloat16" keeps
-the moments in bf16, each update computed in f32. The state's shardings
-(``state_pspecs``) wait for the mesh.
+the moments in bf16, each update computed in f32. ``state_pspecs``
+gives the state's partition specs from the parameters' (JAX's): the
+moments as their parameters, Adafactor's factored rows and columns
+without the factored dim, the step count replicated.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.models.layers import tree_leaves, tree_map
 
@@ -73,9 +77,25 @@ def clip_by_global_norm(grads, max_norm: float):
     return grads, g
 
 
-def _zeros(p, dtype, shape=None):
-    return torch.zeros(p.shape if shape is None else shape, dtype=dtype,
-                       device=p.device)
+def _zeros(p, dtype, shape=None, drop=None):
+    """Zeros of ``shape`` (default p's) on p's device. On a mesh (p a
+    DTensor) laid out as p, with p's dim ``drop`` removed when ``shape``
+    drops it (Adafactor's factored rows and columns, as ``state_pspecs``
+    gives them)."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(p.shape if shape is None else shape, dtype=dtype,
+                           device=p.device)
+    if shape is None:
+        return torch.zeros_like(p, dtype=dtype)
+    pl = []
+    for x in p.placements:
+        if isinstance(x, Shard):
+            d = x.dim % p.dim()
+            x = Replicate() if d == drop else Shard(d - (d > drop))
+        pl.append(x)
+    return distribute_tensor(
+        torch.zeros(shape, dtype=dtype, device=p.device_mesh.device_type),
+        p.device_mesh, pl, src_data_rank=None)
 
 
 def _count():
@@ -137,8 +157,10 @@ class Optimizer:
 
         def st(_, p):
             if p.dim() >= 2:
-                return {"vr": _zeros(p, dt, p.shape[:-1]),
-                        "vc": _zeros(p, dt, p.shape[:-2] + p.shape[-1:])}
+                n = p.dim()
+                return {"vr": _zeros(p, dt, p.shape[:-1], n - 1),
+                        "vc": _zeros(p, dt, p.shape[:-2] + p.shape[-1:],
+                                     n - 2)}
             return {"v": _zeros(p, dt)}
         return {"f": tree_map(st, params), "count": _count()}
 
@@ -193,6 +215,24 @@ class Optimizer:
     def init(self, params):
         return getattr(self, f"_{self.cfg.name}_init")(params)
 
+    def state_pspecs(self, param_pspecs, param_shapes):
+        """The state's ``Rules.spec`` tuples from the parameters' specs
+        and shapes (trees of tuples and of anything with ``.shape``)."""
+        if self.cfg.name == "adamw":
+            return {"m": param_pspecs, "v": param_pspecs, "count": ()}
+        if self.cfg.name == "adafactor":
+            def st(spec, shape):
+                if isinstance(spec, dict):
+                    return {k: st(spec[k], shape[k]) for k in spec}
+                dims = len(getattr(shape, "shape", shape))
+                parts = list(spec) + [None] * (dims - len(spec))
+                if dims >= 2:
+                    return {"vr": _trim(parts[:-1]),
+                            "vc": _trim(parts[:-2] + parts[-1:])}
+                return {"v": _trim(parts)}
+            return {"f": st(param_pspecs, param_shapes), "count": ()}
+        return {"count": ()}
+
     @torch.no_grad()
     def update(self, grads, state, params):
         """One step: clip ``grads`` (in place) when ``grad_clip`` > 0, then
@@ -201,6 +241,14 @@ class Optimizer:
             grads, _ = clip_by_global_norm(grads, self.cfg.grad_clip)
         return getattr(self, f"_{self.cfg.name}_update")(grads, state,
                                                          params)
+
+
+def _trim(parts) -> tuple:
+    """A spec without its trailing Nones, as ``PartitionSpec`` prints."""
+    parts = list(parts)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
 
 
 def _at(tree, path):

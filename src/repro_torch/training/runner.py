@@ -17,6 +17,7 @@ from typing import Optional
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, ShardedLoader, TokenSource
 from repro_torch.models.model import ModelApi
+from repro_torch.sharding.partition import batch_axes
 from repro_torch.training.optimizer import Optimizer
 from repro_torch.training.step import make_train_state, make_train_step
 
@@ -43,7 +44,10 @@ class TrainRunner:
         self.opt = opt
         self.run_cfg = run_cfg
         self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep)
-        self.loader = ShardedLoader(TokenSource(data_cfg), api.device)
+        self.loader = ShardedLoader(
+            TokenSource(data_cfg), api.device,
+            mesh=api.mesh if api.sharded else None,
+            batch_axes=batch_axes(api.mesh, api.parallel))
         self.step_fn = make_train_step(api, opt)
         self.metrics_log: list = []
         self.straggler_steps: list = []

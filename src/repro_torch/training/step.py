@@ -5,12 +5,14 @@ compression, then the optimizer update (counterpart of
 
 The state is {"params": float32 masters, "opt": the optimizer's state,
 "step": 0-d int32 on the CPU}, and a step updates it in place where JAX
-donates it (``donate_argnums=(0,)``). The state's shardings
-(``state_pspecs``) wait for the mesh.
+donates it (``donate_argnums=(0,)``). ``state_pspecs`` gives the
+state's partition specs (JAX's), and on a mesh of more than one device
+``make_train_state`` places the parameters, and so the state, by them.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import layers as L
 from repro_torch.models.model import DTYPES, ModelApi
@@ -24,8 +26,17 @@ def make_train_state(api: ModelApi, opt: Optimizer, seed: int = 0):
     params = L.init_params(api.defs, seed=seed,
                            dtype=DTYPES[api.parallel.param_dtype],
                            device=api.device)
+    params = L.tree_map(api._place, params)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32)}
+
+
+def state_pspecs(api: ModelApi, opt: Optimizer):
+    """JAX's ``state_pspecs``: the state tree's ``Rules.spec`` tuples."""
+    pspecs = api.param_pspecs()
+    return {"params": pspecs,
+            "opt": opt.state_pspecs(pspecs, api.param_shapes()),
+            "step": ()}
 
 
 # --------------------------------------------------------------------------
@@ -62,10 +73,18 @@ def loss_and_grads(api: ModelApi, params, batch):
         gs = torch.autograd.grad(loss, flat, allow_unused=True,
                                  materialize_grads=True)
     it = iter(gs)
-    grads = L.tree_map(lambda _, p: next(it), params)
+    # on a mesh, each gradient in its parameter's placements (a replicated
+    # leaf's comes back as a partial sum over the batch axes)
+    grads = L.tree_map(lambda _, p: _like(next(it), p), params)
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
     return loss.detach(), metrics, grads
+
+
+def _like(g, p):
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(api: ModelApi, opt: Optimizer):

@@ -1,8 +1,8 @@
 """The port's virtual-gang grid (``repro_torch.vgang.grid``) and
 schedulability sweep (``repro_torch.launch.sweep``) against the JAX
 package's, on the arguments of tests/test_vgang.py and on the seeded
-smoke configs; their default outputs; the dry-run mode, which the port
-does not have yet; and the torch RTA backend of the grid, which runs on
+smoke configs; their default outputs; the dry-run mode's dispatch of its
+cells; and the torch RTA backend of the grid, which runs on
 torch or raises.
 
 Rows are compared whole except their wall-clock fields.
@@ -132,9 +132,24 @@ def test_default_outputs_leave_the_jax_artifacts_alone():
             assert json.load(f)["output"]["out"] is None
 
 
-def test_sweep_dry_run_mode_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        sweep.main([])
+def test_sweep_dry_run_mode_raises(tmp_path, monkeypatch):
+    """The dry-run mode (no --schedulability, no --config) no longer
+    raises: it runs each selected cell through ``run_one`` (stubbed here;
+    tests/test_torch_dryrun.py runs real cells) and writes the skip list
+    beside the cells."""
+    calls = []
+
+    def one(arch, shape, multi_pod, force):
+        calls.append((arch, shape, multi_pod, force))
+        return {"lower_s": 0.0}
+
+    monkeypatch.setattr(sweep, "OUT", str(tmp_path))
+    monkeypatch.setattr(sweep, "run_one", one)
+    sweep.main(["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
+                "--single-pod-only"])
+    assert calls == [("olmoe-1b-7b", "decode_32k", False, False)]
+    with open(tmp_path / "skipped.json") as f:
+        assert "qwen2-7b|long_500k" in json.load(f)
 
 
 def test_schedulability_sweep_equals_jax():
