@@ -345,6 +345,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "scripts"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -369,6 +370,7 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E40
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 from repro_torch.launch import serve, sweep  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.sweep import (random_gang_taskset,  # noqa: E402
                                       taskset_seed)
 from repro_torch.models import dave2 as DV  # noqa: E402
@@ -397,6 +399,8 @@ from repro_torch.vgang.grid import (n_tasks_for,  # noqa: E402
 from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
                                          intensity_interference,
                                          singleton_vgangs)
+from torch_flash_cases import (AUDIO_FRAMES, AUDIO_PROMPTS,  # noqa: E402
+                               CP_CASES, TIMED, VLM_PROMPTS)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them,
 # HBM3 bandwidth (repro_torch.roofline.report, where their sources stand)
@@ -407,7 +411,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype): tests/test_kernels.py's
-# cases, then the serve paths' prefill shapes and a local-window case
+# cases (the serve paths' prefill shapes, TIMED, and the (s) splits are in
+# scripts/torch_flash_cases.py)
 KERNEL_CASES = [
     (2, 256, 256, 4, 2, 64, True, 0, torch.float32),
     (1, 128, 128, 8, 1, 32, True, 0, torch.float32),
@@ -415,43 +420,10 @@ KERNEL_CASES = [
     (1, 256, 256, 2, 2, 128, False, 0, torch.float32),
     (1, 128, 128, 4, 2, 64, True, 0, torch.bfloat16),
 ]
-MAIN_SHAPES = [(1, S, S, Hq, Hkv, 128, True, 0, dt)
-               for Hq, Hkv in ((28, 4), (16, 16))      # qwen2-7b, olmoe-1b-7b
-               for dt in (torch.bfloat16, torch.float32)
-               for S in (32, 200, 1024)]
-WINDOW_CASE = (1, 1024, 1024, 28, 4, 128, True, 64, torch.bfloat16)
-# recurrentgemma-9b's local attention (Hq 16, Hkv 1, D 256, window 2048,
-# which never binds at these lengths), then a window that binds at D 256
-HYBRID_SHAPES = [(1, S, S, 16, 1, 256, True, 2048, dt)
-                 for dt in (torch.bfloat16, torch.float32)
-                 for S in (32, 200, 300, 1024)]
-HYBRID_WINDOW_CASE = (1, 1024, 1024, 16, 1, 256, True, 256, torch.bfloat16)
-# (m) / (n): the families with a stub tower. internvl2-1b's prompts are 256
-# patch positions plus 32 / 200 / 768 / 300 text tokens, batched into 2048
-# cache rows; whisper-base's are decoder prompts beside 1500 frames each,
-# the self cache grown to whisper's own decoder context of 448
 VLM_ARCH = "internvl2-1b"
-VLM_PROMPTS = (288, 456, 1024, 556)
 VLM_MAX_SEQ = 2048
 AUDIO_ARCH = "whisper-base"
-AUDIO_PROMPTS = (4, 32, 200, 300)
 AUDIO_MAX_SEQ = 448
-AUDIO_FRAMES = 1500                     # whisper-base's n_encoder_frames
-# every flash call of the (m) and (n) prefills: internvl2-1b's attention
-# (Hq 14 over Hkv 2: group 7, D 64, causal) at each gang prompt;
-# whisper-base's encoder self-attention (non-causal over the 1500 frames),
-# and at each decoder prompt its causal self-attention and its non-causal
-# cross-attention (Sq prompt tokens against the 1500 frames)
-VLM_SHAPES = [(1, S, S, 14, 2, 64, True, 0, dt)
-              for dt in (torch.bfloat16, torch.float32) for S in VLM_PROMPTS]
-WHISPER_SHAPES = [(1, Sq, Sk, 8, 8, 64, causal, 0, dt)
-                  for dt in (torch.bfloat16, torch.float32)
-                  for Sq, Sk, causal in (
-                      [(AUDIO_FRAMES, AUDIO_FRAMES, False)]
-                      + [(S, S, True) for S in AUDIO_PROMPTS]
-                      + [(S, AUDIO_FRAMES, False) for S in AUDIO_PROMPTS])]
-TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE] \
-    + VLM_SHAPES + WHISPER_SHAPES
 # the edges of the bf16 tensor-core path (tests/test_torch_flash_attention.
 # py's EDGES): S not a multiple of 16 or 64, every head dim, GQA groups 1,
 # 4, 7 and 16, one warp's q rows all masked in the first kv tile visited
@@ -820,15 +792,6 @@ def phase_gmm(dev, smi: str) -> list[dict]:
                  f"max_abs_err {err} > {tol}")
         rows.append(row)
     return rows
-
-
-# (s): context-parallel attention per rank, (arch, Hq, Hkv, D, S, n ranks,
-# window): qwen2-7b causal at S 1024 over 4 and 16 ranks, and
-# recurrentgemma-9b at S 4096 over 16 ranks, where the 2048 window cuts
-# the late ranks' kv walk
-CP_CASES = [("qwen2-7b", 28, 4, 128, 1024, 4, 0),
-            ("qwen2-7b", 28, 4, 128, 1024, 16, 0),
-            ("recurrentgemma-9b", 16, 1, 256, 4096, 16, 2048)]
 
 
 def cp_mask(Sq: int, Sk: int, q_offset: int, window: int, dev):
@@ -1336,7 +1299,10 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     moe = cfg.family == "moe"
     parallel = ParallelConfig(param_dtype="bfloat16",
                               compute_dtype="bfloat16")
-    api = build_model(cfg, parallel, dev)
+    # on a one-device mesh, as launch.serve builds it: nothing a DTensor
+    api = build_model(cfg, parallel, dev, mesh=make_local_mesh(1, 1, dev))
+    if api.sharded:
+        fail(f"{arch}: a (1, 1) mesh gave a sharded model")
     t0 = time.perf_counter()
     params = api.init(seed=0)
     torch.cuda.synchronize()

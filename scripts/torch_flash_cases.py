@@ -1,0 +1,50 @@
+"""The flash-attention shapes of ``chip_smoke.py``: the prefill shapes
+its phase (c) checks and times, and the context-parallel splits of its
+phase (s). ``scripts/torch_flash_times.py`` times the same lists. A case
+is (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype); a split is (arch, Hq,
+Hkv, D, S, n ranks, window). Imports torch only.
+"""
+import torch
+
+# the serve paths' prefill shapes and a local-window case
+MAIN_SHAPES = [(1, S, S, Hq, Hkv, 128, True, 0, dt)
+               for Hq, Hkv in ((28, 4), (16, 16))      # qwen2-7b, olmoe-1b-7b
+               for dt in (torch.bfloat16, torch.float32)
+               for S in (32, 200, 1024)]
+WINDOW_CASE = (1, 1024, 1024, 28, 4, 128, True, 64, torch.bfloat16)
+# recurrentgemma-9b's local attention (Hq 16, Hkv 1, D 256, window 2048,
+# which never binds at these lengths), then a window that binds at D 256
+HYBRID_SHAPES = [(1, S, S, 16, 1, 256, True, 2048, dt)
+                 for dt in (torch.bfloat16, torch.float32)
+                 for S in (32, 200, 300, 1024)]
+HYBRID_WINDOW_CASE = (1, 1024, 1024, 16, 1, 256, True, 256, torch.bfloat16)
+# (m) / (n): the families with a stub tower. internvl2-1b's prompts are 256
+# patch positions plus 32 / 200 / 768 / 300 text tokens, batched into 2048
+# cache rows; whisper-base's are decoder prompts beside 1500 frames each,
+# the self cache grown to whisper's own decoder context of 448
+VLM_PROMPTS = (288, 456, 1024, 556)
+AUDIO_PROMPTS = (4, 32, 200, 300)
+AUDIO_FRAMES = 1500                     # whisper-base's n_encoder_frames
+# every flash call of the (m) and (n) prefills: internvl2-1b's attention
+# (Hq 14 over Hkv 2: group 7, D 64, causal) at each gang prompt;
+# whisper-base's encoder self-attention (non-causal over the 1500 frames),
+# and at each decoder prompt its causal self-attention and its non-causal
+# cross-attention (Sq prompt tokens against the 1500 frames)
+VLM_SHAPES = [(1, S, S, 14, 2, 64, True, 0, dt)
+              for dt in (torch.bfloat16, torch.float32) for S in VLM_PROMPTS]
+WHISPER_SHAPES = [(1, Sq, Sk, 8, 8, 64, causal, 0, dt)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for Sq, Sk, causal in (
+                      [(AUDIO_FRAMES, AUDIO_FRAMES, False)]
+                      + [(S, S, True) for S in AUDIO_PROMPTS]
+                      + [(S, AUDIO_FRAMES, False) for S in AUDIO_PROMPTS])]
+TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE] \
+    + VLM_SHAPES + WHISPER_SHAPES
+
+# (s): context-parallel attention per rank, (arch, Hq, Hkv, D, S, n ranks,
+# window): qwen2-7b causal at S 1024 over 4 and 16 ranks, and
+# recurrentgemma-9b at S 4096 over 16 ranks, where the 2048 window cuts
+# the late ranks' kv walk
+CP_CASES = [("qwen2-7b", 28, 4, 128, 1024, 4, 0),
+            ("qwen2-7b", 28, 4, 128, 1024, 16, 0),
+            ("recurrentgemma-9b", 16, 1, 256, 4096, 16, 2048)]

@@ -8,13 +8,13 @@ ranks of its phase (s).
 Each call is timed two ways: 20 wrapper calls back to back between CUDA
 events (``chip_smoke.py``'s ``ms``: a call that short is timed by its
 wrapper's host dispatch), and the same 20 calls captured in a CUDA graph
-and replayed (device time only). The (c) shapes are the model-layout
-calls of (c)'s timed cases (qwen2-7b, olmoe-1b-7b, recurrentgemma-9b,
-internvl2-1b, whisper-base; f32 and bf16); the ranks are (s)'s splits
-(qwen2-7b S 1024 over 4 and 16 ranks, recurrentgemma-9b S 4096 over 16
-with its 2048 window): rank r's S / n query rows against the full K/V at
-``q_offset`` r S / n, and the unsplit call. A checkout whose kernel takes
-no ``q_offset`` times the (c) shapes only. The kernel comes from whichever
+and replayed (device time only); beside them, the largest absolute
+difference from the plain version (``ref.naive_attention``). The shapes are (c)'s timed cases
+(``TIMED``) and (s)'s splits (``CP_CASES``), both from
+``scripts/torch_flash_cases.py``, which ``chip_smoke.py`` imports too: for
+a split, rank r's S / n query rows against the full K/V at ``q_offset``
+r S / n, and the unsplit call. A checkout whose kernel takes no
+``q_offset`` times the (c) shapes only. The kernel comes from whichever
 checkout's ``src`` is first on ``PYTHONPATH`` (each builds into its own
 ``build/``), so one copy of this script times two commits' kernels in
 one call. Prints one line a case with the card's name and power limit.
@@ -28,26 +28,19 @@ import subprocess
 import sys
 
 import torch
+from torch_flash_cases import CP_CASES, TIMED
 
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention.ref import naive_attention
 
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# (label, B, Sq, Sk, Hq, Hkv, D, causal, window): (c)'s timed shapes
-SHAPES = ([("qwen2-7b", 1, S, S, 28, 4, 128, True, 0) for S in (32, 200, 1024)]
-          + [("olmoe-1b-7b", 1, S, S, 16, 16, 128, True, 0)
-             for S in (32, 200, 1024)]
-          + [("qwen2-7b window 64", 1, 1024, 1024, 28, 4, 128, True, 64)]
-          + [("recurrentgemma-9b", 1, S, S, 16, 1, 256, True, 2048)
-             for S in (32, 200, 300, 1024)]
-          + [("internvl2-1b", 1, S, S, 14, 2, 64, True, 0)
-             for S in (288, 456, 1024, 556)]
-          + [("whisper-base encoder", 1, 1500, 1500, 8, 8, 64, False, 0)]
-          + [("whisper-base cross", 1, S, 1500, 8, 8, 64, False, 0)
-             for S in (4, 32, 200, 300)])
-# (label, Hq, Hkv, D, S, n ranks, window): (s)'s splits
-CP_SPLITS = [("qwen2-7b", 28, 4, 128, 1024, 4, 0),
-             ("qwen2-7b", 28, 4, 128, 1024, 16, 0),
-             ("recurrentgemma-9b", 16, 1, 256, 4096, 16, 2048)]
+DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def label(case) -> str:
+    B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+    mask = ("causal" if causal else "full") + \
+        (f" window {window}" if window else "")
+    return f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} {mask}"
 
 
 def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -109,18 +102,20 @@ def main() -> int:
                 torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt),
                 torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt))
 
-    for name, dt in DTYPES.items():
-        for label, B, Sq, Sk, Hq, Hkv, D, causal, window in SHAPES:
-            q, k, v = qkv(B, Sq, Sk, Hq, Hkv, D, dt)
-            call = lambda: fa.flash_attention(  # noqa: E731
-                q, k, v, causal=causal, window=window)
-            print(f"[{args.tag}] {label} Sq={Sq} Sk={Sk} {name}: calls back "
-                  f"to back {eager_ms(call):.4f} ms, CUDA graph "
-                  f"{graph_ms(call):.4f} ms [{smi}]", flush=True)
+    for case in TIMED:
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, D, dt)
+        call = lambda: fa.flash_attention(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        err = (call().float() - naive_attention(
+            q, k, v, causal=causal, window=window).float()).abs().max()
+        print(f"[{args.tag}] {label(case)} {DT_NAME[dt]}: max_abs_err "
+              f"{float(err):.6g}, calls back to back {eager_ms(call):.4f} "
+              f"ms, CUDA graph {graph_ms(call):.4f} ms [{smi}]", flush=True)
     if "q_offset" not in inspect.signature(fa.flash_attention).parameters:
         return 0
-    for name, dt in DTYPES.items():
-        for label, Hq, Hkv, D, S, n, window in CP_SPLITS:
+    for dt, name in DT_NAME.items():
+        for arch, Hq, Hkv, D, S, n, window in CP_CASES:
             q, k, v = qkv(1, S, S, Hq, Hkv, D, dt)
             s = S // n
             for r in [None] + list(range(n)):
@@ -129,7 +124,7 @@ def main() -> int:
                 call = lambda: fa.flash_attention(  # noqa: E731
                     part, k, v, causal=True, window=window, q_offset=off)
                 what = "unsplit" if r is None else f"rank {r} of {n}"
-                print(f"[{args.tag}] cp {label} S={S} {what} {name}: calls "
+                print(f"[{args.tag}] cp {arch} S={S} {what} {name}: calls "
                       f"back to back {eager_ms(call):.4f} ms, CUDA graph "
                       f"{graph_ms(call):.4f} ms [{smi}]", flush=True)
     return 0

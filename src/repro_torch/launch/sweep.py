@@ -29,7 +29,7 @@
    (``OUT``), which the roofline bench reads.
 
        python -m repro_torch.launch.sweep [--single-pod-only |
-           --multi-pod-only] [--force] [--arch A] [--shape S]
+           --multi-pod-only] [--force]
 """
 from __future__ import annotations
 
@@ -67,12 +67,10 @@ def run_one(arch: str, shape: str, multi_pod: bool, force: bool,
                 "multi_pod": multi_pod, "wall_s": time.time() - t0}
 
 
-def dryrun_sweep(meshes: Sequence[bool], force: bool = False,
-                 archs: Optional[Sequence[str]] = None,
-                 shapes: Optional[Sequence[str]] = None) -> List[tuple]:
-    """Every runnable cell (``valid_cells``, cut to ``archs`` / ``shapes``)
-    on each mesh (False: 16x16, True: pod2x16x16); writes the skip list
-    beside the cells and returns the failed cells."""
+def dryrun_sweep(meshes: Sequence[bool], force: bool = False) -> List[tuple]:
+    """Every runnable cell (``valid_cells``) on each mesh (False: 16x16,
+    True: pod2x16x16); writes the skip list beside the cells and returns
+    the failed cells."""
     from repro_torch.configs import valid_cells
     runnable, skipped = valid_cells()
     os.makedirs(OUT, exist_ok=True)
@@ -83,9 +81,6 @@ def dryrun_sweep(meshes: Sequence[bool], force: bool = False,
     for multi_pod in meshes:
         tag = "pod2x16x16" if multi_pod else "16x16"
         for arch, shape in runnable:
-            if (archs and arch not in archs) or \
-                    (shapes and shape not in shapes):
-                continue
             t0 = time.time()
             res = run_one(arch, shape, multi_pod, force)
             if "error" in res:
@@ -390,10 +385,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--single-pod-only", action="store_true")
     ap.add_argument("--multi-pod-only", action="store_true")
-    ap.add_argument("--arch", action="append", default=[],
-                    help="dry-run only these archs")
-    ap.add_argument("--shape", action="append", default=[],
-                    help="dry-run only these shapes")
     ap.add_argument("--schedulability", action="store_true",
                     help="Monte-Carlo gang schedulability sweep instead "
                          "of the dry-run sweep")
@@ -414,7 +405,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     meshes = [m for m in (False, True)
               if not (m and args.single_pod_only)
               and not (not m and args.multi_pod_only)]
-    dryrun_sweep(meshes, args.force, args.arch, args.shape)
+    dryrun_sweep(meshes, args.force)
 
 
 if __name__ == "__main__":

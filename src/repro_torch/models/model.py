@@ -31,7 +31,6 @@ import functools
 from typing import Any, Optional
 
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
@@ -119,6 +118,18 @@ def fused_xent_loss(x, table, labels, tied: bool, chunk: int = 1024,
     return total / n.clamp_min(1), {"tokens": n}
 
 
+def _on_mesh(method):
+    """An entry point of ``ModelApi`` that, on a mesh of more than one
+    device, runs under ``spmd.implicit_replication``."""
+    @functools.wraps(method)
+    def call(self, *args, **kw):
+        if not self.sharded:
+            return method(self, *args, **kw)
+        with spmd.implicit_replication():
+            return method(self, *args, **kw)
+    return call
+
+
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
@@ -129,11 +140,12 @@ class ModelApi:
     rules_p: Optional[Rules] = None
     rules_a: Optional[Rules] = None
     recipe: str = "tp"
+    # set once from the mesh: on a mesh of more than one device (the
+    # leaves are DTensors)
+    sharded: bool = dataclasses.field(init=False)
 
-    @property
-    def sharded(self) -> bool:
-        """On a mesh of more than one device (the leaves are DTensors)."""
-        return multi_device(self.mesh)
+    def __post_init__(self):
+        self.sharded = multi_device(self.mesh)
 
     def param_shapes(self):
         """JAX's ``param_shapes``: (shape, dtype) of every leaf."""
@@ -251,9 +263,9 @@ class ModelApi:
             if tokens.shape[1] < nv:
                 raise ValueError(f"a vlm sequence holds the {nv} patch "
                                  f"positions first; got {tokens.shape[1]}")
-            x = constrain(x, self.rules_a, ("batch", None, None))
+            x = constrain(x, ctx.rules, ("batch", None, None))
             x = torch.cat([batch["patches"].to(x.dtype), x[:, nv:]], dim=1)
-            x = constrain(x, self.rules_a, ("batch", "seq", None))
+            x = constrain(x, ctx.rules, ("batch", "seq", None))
         return x
 
     def _layer(self, blocks, i: int):
@@ -359,6 +371,7 @@ class ModelApi:
                 out[part][key] = leaves
         return x, out, {}
 
+    @_on_mesh
     def loss_fn(self, params, batch):
         """JAX's ``loss_fn``: ``params`` are the float32 masters (cast to
         the compute dtype here, on every call); batch {"tokens", "labels"}
@@ -390,6 +403,7 @@ class ModelApi:
         metrics["loss"] = loss
         return loss, metrics
 
+    @_on_mesh
     @torch.no_grad()
     def prefill_fn(self, params, batch):
         """batch["tokens"]: (B, S) int. Returns (logits (B, 1, V) f32,
@@ -408,11 +422,12 @@ class ModelApi:
         params = self._top(params)
         x = self._embed_in(params, batch, ctx)
         x, caches, _ = self._run_blocks(params, x, ctx)
-        x = constrain(T.final_norm(cfg, params, x), self.rules_a,
+        x = constrain(T.final_norm(cfg, params, x), ctx.rules,
                       ("batch", None, None))
         logits = T.lm_logits(cfg, params, x[:, -1:, :], ctx)
         return logits, caches
 
+    @_on_mesh
     @torch.no_grad()
     def decode_fn(self, params, caches, tokens, pos):
         """tokens: (B, 1) int; pos: (B,) position of the new token;
@@ -435,6 +450,8 @@ class ModelApi:
 
     def _top(self, params):
         """The leaves outside the layer stacks gathered for compute."""
+        if not self.sharded:
+            return params
         blocks = ("blocks", "groups", "tail", "enc_blocks", "dec_blocks")
         top = {k: v for k, v in params.items() if k not in blocks}
         return dict(params, **self._gather_fsdp(top, self.defs))
@@ -448,7 +465,8 @@ class ModelApi:
         return T.Ctx(cfg=self.cfg, mode=mode, positions=positions,
                      q_block=self.parallel.q_block,
                      kv_block=self.parallel.kv_block,
-                     parallel=self.parallel, rules=self.rules_a,
+                     parallel=self.parallel,
+                     rules=self.rules_a if self.sharded else None,
                      mesh=self.mesh, recipe=self.recipe)
 
     # ---- whisper ----------------------------------------------------------
@@ -460,7 +478,7 @@ class ModelApi:
                              batch["frames"].to(self.compute_dtype()))
         x = whisper.decoder_embed(params, batch["tokens"], ctx.positions,
                                   self.compute_dtype())
-        x = constrain(x, self.rules_a, ("batch", "seq", None))
+        x = constrain(x, ctx.rules, ("batch", "seq", None))
         x, caches = whisper.run_decoder_train(ctx, params, x, enc)
         return T.final_norm(self.cfg, params, x), caches
 
@@ -546,8 +564,6 @@ def build_model(cfg: ModelConfig, parallel: ParallelConfig,
         padded = ((cfg.n_heads + tp - 1) // tp) * tp
         if cfg.n_kv_heads and padded % cfg.n_kv_heads == 0:
             cfg = dataclasses.replace(cfg, n_heads=padded)
-    if isinstance(mesh, DeviceMesh) and mesh.size() > 1:
-        spmd.allow_implicit_replication()
     return ModelApi(cfg=cfg, parallel=parallel,
                     defs=build_defs(cfg, parallel),
                     device=resolve_device(device), mesh=mesh,

@@ -61,22 +61,20 @@ class Ctx:
     rules: Optional[Rules] = None   # activation rules
     mesh: Any = None                # DeviceMesh / OneDeviceMesh / None
     recipe: str = "tp"              # tp | cp
+    # set once from the mesh: on a mesh of more than one device (the
+    # tensors are DTensors), and the model axis's size
+    sharded: bool = dataclasses.field(init=False)
+    model_axis_size: int = dataclasses.field(init=False)
 
-    @property
-    def model_axis_size(self) -> int:
-        if self.mesh is None or self.parallel is None:
-            return 1
-        return mesh_shape(self.mesh).get(self.parallel.model_axis, 1)
+    def __post_init__(self):
+        self.sharded = multi_device(self.mesh)
+        self.model_axis_size = 1 if self.parallel is None else \
+            mesh_shape(self.mesh).get(self.parallel.model_axis, 1)
 
     def batch_axes(self) -> Tuple[str, ...]:
         if self.parallel is None:
             return ()
         return batch_axes(self.mesh, self.parallel)
-
-    @property
-    def sharded(self) -> bool:
-        """On a mesh of more than one device (the tensors are DTensors)."""
-        return multi_device(self.mesh)
 
     def place(self, **dims) -> tuple:
         """Placements of a tensor whose batch dim is ``batch`` (over the

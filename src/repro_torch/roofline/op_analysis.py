@@ -230,7 +230,9 @@ def analyze(fn, *args, memory: bool = False, result: list | None = None,
     saved = [m.launches for m in _KERNEL_MODULES]
     prev = work.set_current(counter)
     prop = DTensor._op_dispatcher.sharding_propagator
-    meta = prop._propagate_tensor_meta_non_cached
+    name = "_propagate_tensor_meta_non_cached"
+    outer = vars(prop).get(name)          # an enclosing analysis's patch
+    meta = getattr(prop, name)
 
     def shapes_only(*a, **k):
         # DTensor runs an op on fake tensors of the global shapes to find
@@ -241,14 +243,17 @@ def analyze(fn, *args, memory: bool = False, result: list | None = None,
         finally:
             counter.paused = paused
 
-    prop._propagate_tensor_meta_non_cached = shapes_only
+    setattr(prop, name, shapes_only)
     try:
         with counter:
             out = fn(*args, **kw)
             if result is not None:
                 result.append(out)
     finally:
-        del prop._propagate_tensor_meta_non_cached
+        if outer is None:
+            delattr(prop, name)
+        else:
+            setattr(prop, name, outer)
         work.set_current(prev)
         for m, n in zip(_KERNEL_MODULES, saved):
             m.launches = n

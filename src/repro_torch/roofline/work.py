@@ -32,13 +32,25 @@ def unmasked_pairs(Sq: int, Sk: int, causal: bool, window: int,
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def visible_keys(Sq: int, Sk: int, causal: bool, window: int,
+                 q_offset: int = 0) -> int:
+    """Keys that at least one query row of the call may see: the mask keeps
+    a contiguous run of keys, from the first row's window start to the
+    last row's causal end."""
+    lo = max(q_offset - window + 1, 0) if window > 0 else 0
+    hi = min(q_offset + Sq, Sk) if causal else Sk
+    return max(hi - lo, 0)
+
+
 def flash_work(case, q_offset: int = 0) -> Tuple[int, int]:
     """Operations (4 x Hq x D per unmasked (q, k) pair of the Sq x Sk) and
-    bytes (q, k, v read once, o written once) of one flash call;
-    ``case`` is (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype)."""
+    bytes (q read and o written once, and of k and v only the keys some
+    row may see); ``case`` is (B, Sq, Sk, Hq, Hkv, D, causal, window,
+    dtype)."""
     B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
     ops = 4 * B * Hq * D * unmasked_pairs(Sq, Sk, causal, window, q_offset)
-    return ops, dt.itemsize * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
+    keys = visible_keys(Sq, Sk, causal, window, q_offset)
+    return ops, dt.itemsize * (2 * B * Sq * Hq * D + 2 * B * keys * Hkv * D)
 
 
 def gmm_work(E, C, D, F, counts, dt) -> Tuple[int, int]:

@@ -20,6 +20,7 @@ decode paths.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence, Tuple, Union
 
 import torch
@@ -153,10 +154,18 @@ def placements(mesh, **dims) -> tuple:
     return tuple(out)
 
 
-def allow_implicit_replication() -> None:
-    """Let plain tensors (positions, masks, RoPE frequencies) enter DTensor
-    ops as replicated, for the rest of the process: what the
-    ``implicit_replication`` context does, but also for the recompute of
-    a checkpointed block, which runs inside ``backward`` outside any
-    context the forward set."""
-    DTensor._op_dispatcher._allow_implicit_replication = True
+@contextlib.contextmanager
+def implicit_replication(on: bool = True):
+    """Inside, plain tensors (positions, masks, RoPE frequencies) enter
+    DTensor ops as replicated, as in torch's ``implicit_replication``;
+    on exit the previous setting comes back, so a nested use keeps the
+    outer one and the setting never outlives the call. The model's entry
+    points hold it for their forward, the train step for its backward too
+    (the recompute of a checkpointed block runs there)."""
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = prev or on
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev

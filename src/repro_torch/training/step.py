@@ -16,6 +16,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models import layers as L
 from repro_torch.models.model import DTYPES, ModelApi
+from repro_torch.sharding import spmd
 from repro_torch.training.optimizer import Optimizer
 
 
@@ -67,7 +68,7 @@ def loss_and_grads(api: ModelApi, params, batch):
     (no copy) into leaves that require grad, so autograd's graph never
     reaches the state."""
     leaves = L.tree_map(lambda _, p: p.detach().requires_grad_(), params)
-    with torch.enable_grad():
+    with torch.enable_grad(), spmd.implicit_replication(api.sharded):
         loss, metrics = api.loss_fn(leaves, batch)
         flat = L.tree_leaves(leaves)
         gs = torch.autograd.grad(loss, flat, allow_unused=True,
@@ -99,8 +100,8 @@ def make_train_step(api: ModelApi, opt: Optimizer):
     def accumulate(params, batch):
         B = next(iter(batch.values())).shape[0]
         mb = B // accum
-        gacc = L.tree_map(lambda _, p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        gacc = L.tree_map(
+            lambda _, p: torch.zeros_like(p, dtype=torch.float32), params)
         lsum = 0.0
         for i in range(accum):
             loss, metrics, grads = loss_and_grads(
@@ -114,6 +115,10 @@ def make_train_step(api: ModelApi, opt: Optimizer):
         return lsum / accum, metrics, gacc
 
     def train_step(state, batch):
+        with spmd.implicit_replication(api.sharded):
+            return step(state, batch)
+
+    def step(state, batch):
         if accum > 1:
             loss, metrics, grads = accumulate(state["params"], batch)
         else:
@@ -123,8 +128,8 @@ def make_train_step(api: ModelApi, opt: Optimizer):
         if use_compress:
             ef = opt_state.pop("ef", None)
             if ef is None:
-                ef = L.tree_map(lambda _, p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device),
+                ef = L.tree_map(
+                    lambda _, p: torch.zeros_like(p, dtype=torch.float32),
                     state["params"])
             grads, ef = compress_grads(grads, ef)
             opt.update(grads, opt_state, state["params"])

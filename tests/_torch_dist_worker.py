@@ -25,6 +25,10 @@ def _tree(fn, tree):
     return fn(tree)
 
 
+def _replicating():
+    return DTensor._op_dispatcher._allow_implicit_replication
+
+
 def _placed(api, logical, a):
     return distribute_tensor(torch.as_tensor(a), api.mesh,
                              api.rules_a.placements(logical, a.shape),
@@ -43,10 +47,13 @@ def run_job(job, mesh):
     if job["moe"]:
         cfg = dataclasses.replace(cfg, moe=MoEConfig(**job["moe"]))
     api = build_model(cfg, ParallelConfig(**job["par"]), "cpu", mesh=mesh)
+    # DTensor's implicit replication after each call: on only inside one
+    flags = [_replicating()]
     params = params_from_jax_numpy(job["params"], cfg, "cpu", api=api)
     batch = {k: _placed(api, ("batch", None), v)
              for k, v in job["batch"].items()}
     loss, metrics, grads = loss_and_grads(api, params, batch)
+    flags.append(_replicating())
     out = {"recipe": api.recipe, "loss": float(_full(loss)),
            "metrics": {k: float(_full(v)) for k, v in metrics.items()},
            "grads": _tree(_full, grads),
@@ -56,6 +63,7 @@ def run_job(job, mesh):
     prefill = analyze(api.prefill_fn, served, {"tokens": batch["tokens"]},
                       result=(res := []))
     logits, caches = res[0]
+    flags.append(_replicating())
     out["prefill_collectives"] = prefill["collective_counts"]
     out["prefill_logits"] = _full(logits)
     out["prefill_caches"] = _tree(_full, caches)
@@ -69,6 +77,8 @@ def run_job(job, mesh):
     decode = analyze(api.decode_fn, served, grown, tok, pos,
                      result=(res := []))
     logits, caches = res[0]
+    flags.append(_replicating())
+    out["replication_after_calls"] = flags
     out["decode_collectives"] = decode["collective_counts"]
     out["decode_logits"] = _full(logits)
     out["decode_caches"] = _tree(_full, caches)

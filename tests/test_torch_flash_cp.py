@@ -92,6 +92,26 @@ def test_unmasked_pairs_with_offsets_sum_to_unsplit(S, n, window):
             work.unmasked_pairs(s, S, True, 0, 0)
 
 
+@pytest.mark.parametrize("window", [0, 5, 40])
+@pytest.mark.parametrize("S,n", [(64, 4), (96, 3), (64, 16), (33, 1)])
+def test_flash_work_bytes_count_the_keys_a_rank_sees(S, n, window):
+    """A rank reads only the keys some row of its slice keeps: the columns
+    of the mask with at least one kept pair."""
+    s = S // n
+    B, Hq, Hkv, D = 2, 4, 2, 16
+    for r in range(n):
+        i = r * s + np.arange(s)[:, None]
+        j = np.arange(S)[None, :]
+        mask = (j <= i) & ((j > i - window) if window else True)
+        seen = int(mask.any(axis=0).sum())
+        assert work.visible_keys(s, S, True, window, r * s) == seen
+        _, nbytes = work.flash_work(
+            (B, s, S, Hq, Hkv, D, True, window, torch.bfloat16), r * s)
+        assert nbytes == 2 * (2 * B * s * Hq * D + 2 * B * seen * Hkv * D)
+    # a call without the causal mask reads every key
+    assert work.visible_keys(4, S, False, 0) == S
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,n,window",
                          [(1, 64, 4, 2, 16, 4, 0), (2, 64, 6, 3, 32, 2, 0),
                           (1, 128, 4, 1, 16, 4, 40)])

@@ -132,11 +132,12 @@ def test_default_outputs_leave_the_jax_artifacts_alone():
             assert json.load(f)["output"]["out"] is None
 
 
-def test_sweep_dry_run_mode_raises(tmp_path, monkeypatch):
-    """The dry-run mode (no --schedulability, no --config) no longer
-    raises: it runs each selected cell through ``run_one`` (stubbed here;
+def test_sweep_dry_run_mode_dispatches_every_cell(tmp_path, monkeypatch):
+    """The dry-run mode (no --schedulability, no --config) runs every
+    runnable cell once on each mesh through ``run_one`` (stubbed here;
     tests/test_torch_dryrun.py runs real cells) and writes the skip list
     beside the cells."""
+    from repro_torch.configs import valid_cells
     calls = []
 
     def one(arch, shape, multi_pod, force):
@@ -145,9 +146,14 @@ def test_sweep_dry_run_mode_raises(tmp_path, monkeypatch):
 
     monkeypatch.setattr(sweep, "OUT", str(tmp_path))
     monkeypatch.setattr(sweep, "run_one", one)
-    sweep.main(["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
-                "--single-pod-only"])
-    assert calls == [("olmoe-1b-7b", "decode_32k", False, False)]
+    sweep.main([])
+    runnable, _ = valid_cells()
+    assert runnable
+    assert calls == [(a, s, pod, False) for pod in (False, True)
+                     for a, s in runnable]
+    calls.clear()
+    sweep.main(["--single-pod-only", "--force"])
+    assert calls == [(a, s, False, True) for a, s in runnable]
     with open(tmp_path / "skipped.json") as f:
         assert "qwen2-7b|long_500k" in json.load(f)
 

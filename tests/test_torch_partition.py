@@ -166,3 +166,26 @@ def test_tree_specs_and_param_logical():
     assert specs == api.param_pspecs()
     assert tpart.mesh_shape(StubMesh({"data": 2, "model": 4})) == \
         {"data": 2, "model": 4}
+
+
+def test_implicit_replication_is_scoped_and_nests():
+    """``spmd.implicit_replication`` holds only inside its block: a nested
+    use keeps the outer setting, and the previous one comes back on exit
+    (an exception included)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import spmd
+    disp = DTensor._op_dispatcher
+    assert disp._allow_implicit_replication is False
+    with spmd.implicit_replication():
+        assert disp._allow_implicit_replication is True
+        with spmd.implicit_replication(False):
+            assert disp._allow_implicit_replication is True
+        assert disp._allow_implicit_replication is True
+    assert disp._allow_implicit_replication is False
+    with pytest.raises(RuntimeError):
+        with spmd.implicit_replication():
+            raise RuntimeError("inside")
+    assert disp._allow_implicit_replication is False
+    with spmd.implicit_replication(False):
+        assert disp._allow_implicit_replication is False

@@ -152,6 +152,26 @@ def _check_charged(r, name, formula):
     assert r["bytes_inner_loops"] > 0      # the plain version's ops
 
 
+def test_nested_analyses_keep_the_outer_patch():
+    """An analysis inside another restores the outer one's shape-only
+    propagation on its way out, and the outer removes its own."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    name = "_propagate_tensor_meta_non_cached"
+    seen = []
+
+    def outer():
+        mine = vars(prop)[name]
+        inner = analyze(torch.matmul, f32(4, 8), f32(8, 2, seed=1))
+        seen.append(vars(prop).get(name) is mine)
+        return inner
+
+    r = analyze(outer)
+    assert seen == [True]
+    assert name not in vars(prop)
+    assert r["flops"] == 2 * 4 * 8 * 2
+
+
 @pytest.mark.parametrize("Sq,Sk,Hq,Hkv,causal,window", [
     (16, 16, 4, 2, True, 0), (12, 20, 4, 4, False, 0),
     (24, 24, 2, 1, True, 8)])

@@ -183,6 +183,15 @@ def test_recipe_and_sharded_run(runs, name):
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
+def test_implicit_replication_ends_with_each_call(runs, name):
+    """Plain tensors enter DTensor ops as replicated only inside the
+    model's calls: not after ``build_model``, the loss and gradients, the
+    prefill or the decode step."""
+    _, _, dist_out = runs
+    assert dist_out[name]["replication_after_calls"] == [False] * 4
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
 def test_loss_matches_single_device_and_jax(runs, name):
     refs, singles, dist_out = runs
     d, s, j = dist_out[name], singles[name], refs[name]
