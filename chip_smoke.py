@@ -315,6 +315,23 @@ Drives the port in phases and exits non-zero if any fails:
                of the cells (H100 model terms, not times). No kernel may
                launch in (u).
 
+               Also mamba2-1.3b prefill_32k (its scan under shard_map
+               over the heads), recurrentgemma-9b long_500k (batch 1,
+               replicated over data) and whisper-base train_4k (8 heads
+               over model 16: the cp recipe).
+  (v) mesh     the sharded path on the card: a one-rank NCCL group and a
+               DeviceMesh("cuda", (1, 1)), the models built sharded=True
+               on it (every leaf a DTensor, every parallel path on its
+               shard_map body); mamba2-1.3b and recurrentgemma-9b at full
+               width and depth, f32, one 200-token prompt each: logits and
+               every cache leaf equal to the same prefill without a mesh
+               (atol 1e-3 as (c3), 1e-5 as (c4)), exactly 48 ssd_scan, 26
+               rglru_scan and 12 flash_attention launches a prefill; then
+               a reduced recurrentgemma training state, one step in on the
+               mesh, saved and restored through the mesh-aware
+               checkpoint/ckpt.py onto the mesh and onto one device, bit
+               for bit.
+
 (d) and (d2) build on launch.mesh.make_local_mesh(1, 1): the mesh code
 with every parallel path on its one-device branch.
 
@@ -960,14 +977,19 @@ def phase_ep(dev, smi: str) -> dict:
 # (u): dry-run cells, one process each (a fake-backend group is process-
 # global): the cp recipe (qwen2-7b: 28 heads over 16), tp attention with
 # FSDP and expert parallelism (olmoe-1b-7b train: the all-to-all; decode:
-# the replicated experts) and the multi-pod mesh (kimi-k2); qwen2-72b
-# train_4k (tp, FSDP) traces for ~150 s and is left to the sweep
+# the replicated experts), the multi-pod mesh (kimi-k2), the Mamba2 scan
+# under shard_map, a batch of 1 (recurrentgemma-9b long_500k) and
+# whisper's 8 heads over 16 in training; qwen2-72b train_4k (tp, FSDP)
+# traces for ~130 s and is left to the sweep
 DRYRUN_CELLS = [("qwen2-7b", "train_4k", False),
                 ("qwen2-7b", "prefill_32k", False),
                 ("qwen2-7b", "decode_32k", False),
                 ("olmoe-1b-7b", "train_4k", False),
                 ("olmoe-1b-7b", "decode_32k", False),
-                ("kimi-k2-1t-a32b", "decode_32k", True)]
+                ("kimi-k2-1t-a32b", "decode_32k", True),
+                ("mamba2-1.3b", "prefill_32k", False),
+                ("recurrentgemma-9b", "long_500k", False),
+                ("whisper-base", "train_4k", False)]
 DRYRUN_KEYS = ("arch", "shape", "mesh", "variant", "recipe", "n_params",
                "n_active_params", "chips", "tokens", "dtype", "lower_s",
                "flops_per_device", "bytes_per_device",
@@ -1025,6 +1047,121 @@ def phase_dryrun(smi: str) -> dict:
     print(f"[dryrun] the roofline terms are the H100 model's "
           f"(repro_torch.roofline.report), not times on [{smi}]")
     return {"cells": rows, "roofline": table}
+
+
+# (v): the models on a one-rank DeviceMesh, every leaf a DTensor; one
+# prompt a model at full width and depth, f32; the launches a prefill
+MESH_PROMPT = 200
+MESH_EXPECT = {MAMBA_ARCH: {"ssd_scan": 48},
+               HYBRID_ARCH: {"rglru_scan": 26, "flash_attention": 12}}
+MESH_TOL = {MAMBA_ARCH: SSD_TOL, HYBRID_ARCH: RG_TOL}
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """(v): see the module docstring. Fails if a leaf of the mesh model is
+    not a DTensor, on a launch count, on an output beyond tolerance, or
+    on a checkpoint leaf that is not the saved one bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.training.step import make_train_state, make_train_step
+    work = ROOT / "build" / "mesh_v"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{work}/rdzv",
+                            rank=0, world_size=1)
+    out = {"launches": {k: 0 for k in KERNELS}, "models": {}}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        par = ParallelConfig(param_dtype="float32", compute_dtype="float32")
+        for arch, expect in MESH_EXPECT.items():
+            cfg = get_config(arch)
+            plain = build_model(cfg, par, dev)
+            params = plain.init(seed=7)
+            api = build_model(cfg, par, dev, mesh=mesh, sharded=True)
+            placed = api.load(params)
+            if not all(isinstance(a, DTensor) for a in L.tree_leaves(placed)):
+                fail(f"(v) {arch}: a leaf of the mesh model is no DTensor")
+            gen = torch.Generator(device=dev).manual_seed(11)
+            tokens = torch.randint(0, cfg.vocab_size, (1, MESH_PROMPT),
+                                   generator=gen, device=dev)
+            want_logits, want = plain.prefill_fn(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            logits, caches = api.prefill_fn(placed, {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = read_launches()
+            want_l = {k: expect.get(k, 0) for k in KERNELS}
+            if got != want_l:
+                fail(f"(v) {arch}: launches {got}, expected {want_l}")
+            for k in KERNELS:
+                out["launches"][k] += got[k]
+            if not isinstance(logits, DTensor):
+                fail(f"(v) {arch}: the mesh prefill returned no DTensor")
+            errs = {"logits": (logits.full_tensor() - want_logits)
+                    .abs().max().item()}
+            for (path, a), (_, b) in zip(leaves(caches), leaves(want)):
+                a = a.full_tensor() if isinstance(a, DTensor) else a
+                errs[path] = (a.float() - b.float()).abs().max().item()
+            tol = MESH_TOL[arch]
+            bad = {k: e for k, e in errs.items() if not e <= tol}
+            if bad:
+                fail(f"(v) {arch}: mesh vs one device beyond {tol}: {bad}")
+            worst = max(errs.values())
+            print(f"[mesh] {arch}: prefill of {MESH_PROMPT} tokens on a "
+                  f"(1, 1) DeviceMesh, every leaf a DTensor: launches "
+                  f"{got}, max |mesh - one device| {worst:.3g} over logits "
+                  f"and {len(errs) - 1} cache leaves (atol {tol}), "
+                  f"{ms:.1f} ms [{smi}]")
+            out["models"][arch] = {"launches": got, "max_abs_err": worst,
+                                   "errs": errs, "ms": ms}
+            del plain, params, api, placed, caches, want, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the mesh-aware checkpoint: a reduced training state, one step in
+        cfg = reduced(get_config(HYBRID_ARCH), n_layers=5)
+        opt = Optimizer(OptConfig(name="adamw", lr=1e-2, warmup=0,
+                                  state_dtype="bfloat16"))
+        api = build_model(cfg, par, dev, mesh=mesh, sharded=True)
+        state = make_train_state(api, opt, seed=3)
+        src = TokenSource(DataConfig(seq_len=32, global_batch=4,
+                                     vocab_size=cfg.vocab_size))
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in src.train_batch(0).items()}
+        state, _ = make_train_step(api, opt)(state, batch)
+        ckpt = CheckpointManager(str(work / "ckpt"))
+        ckpt.save(state, 1, blocking=True)
+
+        def bits(t):
+            t = (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+            return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        saved = {p: bits(t) for p, t in leaves(state)}
+        n_bf16 = sum(t.dtype == torch.int16 for t in saved.values())
+        for where, like_api in (("mesh", api),
+                                ("one device", build_model(cfg, par, dev))):
+            like = make_train_state(like_api, opt, seed=9)
+            got, _ = ckpt.restore(like)
+            for (path, g), (_, w) in zip(leaves(got), leaves(like)):
+                if isinstance(w, DTensor) != isinstance(g, DTensor) or (
+                        isinstance(w, DTensor) and
+                        tuple(g.placements) != tuple(w.placements)):
+                    fail(f"(v) checkpoint onto {where}: {path} not placed "
+                         f"as the tree it restored like")
+                if not torch.equal(bits(g), saved[path]):
+                    fail(f"(v) checkpoint onto {where}: {path} differs")
+        out["checkpoint"] = {"leaves": len(saved), "bf16_leaves": n_bf16}
+        print(f"[mesh] checkpoint of the reduced {HYBRID_ARCH} training "
+              f"state from the (1, 1) mesh: {len(saved)} leaves "
+              f"({n_bf16} bf16) restored onto the mesh and onto one device "
+              f"bit for bit")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def ssd_inputs(B, S, H, P, N, dt, gen, dev):
@@ -2909,6 +3046,8 @@ def main() -> int:
     dry_rep = timed("u", phase_dryrun, smi)
     if read_launches() != before:
         fail(f"phase (u) launched {read_launches()}: the dry run traces")
+    free()
+    mesh_rep = timed("v", phase_mesh, dev, smi)
 
     reported = {
         "flash_attention": next(r for r in rows if r.get("reported")),
@@ -2925,7 +3064,8 @@ def main() -> int:
                "cp ranks (s)": {k: cp_rep["launches"] if k ==
                                 "flash_attention" else 0 for k in KERNELS},
                "expert parallel (t)": {k: ep_rep["launches"] if k ==
-                                       "moe_gmm" else 0 for k in KERNELS}}
+                                       "moe_gmm" else 0 for k in KERNELS},
+               "mesh (v)": mesh_rep["launches"]}
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:82",
@@ -2952,6 +3092,7 @@ def main() -> int:
               "roofline_card_vs_cpu": roof_check,
               "train": train_rep, "serve_train": st_rep, "smoke": smoke_rep,
               "cp": cp_rep, "ep": ep_rep, "dryrun": dry_rep,
+              "mesh": mesh_rep,
               "phase_s": phase_s,
               "wall_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
@@ -2976,7 +3117,8 @@ def main() -> int:
           f"({len(SMOKE_ARCHS)} families card == CPU); cp ranks: pass "
           f"({len(cp_rep['rows'])} splits); expert parallel: pass "
           f"({len(ep_rep['rows'])} shapes); dry run: pass "
-          f"({len(dry_rep['cells'])} cells)")
+          f"({len(dry_rep['cells'])} cells); mesh: pass "
+          f"({len(mesh_rep['models'])} models, checkpoint bit for bit)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

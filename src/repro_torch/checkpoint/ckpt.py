@@ -8,6 +8,18 @@ leaf's path its keys joined by "/"; <dir>/step_<N>.done marks a complete
 checkpoint (a save writes .tmp_step_<N> and renames it). ``save`` takes a
 host copy of every leaf synchronously, then writes in a thread.
 
+Sharded state (JAX's elastic checkpoints): a DTensor leaf is stored as
+its full logical array, as JAX stores a sharded array, so a checkpoint
+of a mesh and one of one device are the same files. ``save`` gathers
+every DTensor leaf on every rank (``full_tensor``, a collective: every
+rank of the group calls ``save``), rank 0 alone writes the files, the
+manifest and the ``.done`` marker, and a barrier ends the save; on a
+group of several ranks the save is synchronous, so that no rank reads the
+directory while rank 0 writes it. ``restore(like)`` takes the placements
+from ``like``: a DTensor leaf comes back through ``distribute_tensor``
+onto that leaf's mesh and placements, whatever mesh wrote it (every rank
+reads the full array and keeps its shard), a plain leaf onto its device.
+
 bfloat16 leaves: numpy has no bfloat16 of its own. JAX's leaves carry
 ml_dtypes' type, which ``np.save`` stores as 2-byte void ('V2') with
 "bfloat16" in the manifest; the port writes the same bytes from the
@@ -25,6 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()):
@@ -42,8 +56,17 @@ def _unflatten_like(like, leaves: Dict[str, Any], prefix=()):
     return leaves["/".join(prefix)]
 
 
+def _rank_world() -> Tuple[int, int]:
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` that later steps cannot change."""
+    """A host copy of ``t`` that later steps cannot change (of a DTensor,
+    its full logical array)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -103,12 +126,19 @@ class CheckpointManager:
 
     def save(self, state, step: int, extra: Optional[Dict[str, Any]] = None,
              blocking: bool = False):
-        """Async by default: snapshot to host, then write in a thread."""
+        """Snapshot to host, then write: in a thread by default, in the
+        call on a group of several ranks. Every rank of a group calls it;
+        rank 0 writes (see the module docstring)."""
         extra = extra or {}
+        rank, world = _rank_world()
         leaves = [(path, _to_host(t), str(t.dtype).removeprefix("torch."))
                   for path, t in _flatten_with_paths(state)]
         self.wait()
-        if blocking:
+        if world > 1:
+            if rank == 0:
+                self._save_sync(leaves, step, extra)
+            dist.barrier()
+        elif blocking:
             self._save_sync(leaves, step, extra)
         else:
             self._thread = threading.Thread(
@@ -136,8 +166,10 @@ class CheckpointManager:
     def restore(self, like, step: Optional[int] = None
                 ) -> Tuple[Any, Dict[str, Any]]:
         """``like``: a tree of tensors that gives the structure and, leaf
-        by leaf, the device. Returns (the tree with the stored leaves, in
-        their stored dtypes, on those devices; the ``extra`` dict)."""
+        by leaf, the device, or for a DTensor leaf the mesh and
+        placements (JAX's elastic ``restore(like, step, shardings)``).
+        Returns (the tree with the stored leaves, in their stored dtypes,
+        placed so; the ``extra`` dict)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -152,5 +184,11 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch at {path}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
-            out[path] = _from_host(arr, entry["dtype"]).to(leaf.device)
+            t = _from_host(arr, entry["dtype"])
+            if isinstance(leaf, DTensor):
+                out[path] = distribute_tensor(
+                    t.to(leaf.to_local().device), leaf.device_mesh,
+                    leaf.placements, src_data_rank=None)
+            else:
+                out[path] = t.to(leaf.device)
         return _unflatten_like(like, out), manifest["extra"]

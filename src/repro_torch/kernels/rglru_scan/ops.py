@@ -20,6 +20,7 @@ import threading
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 
 from repro_torch.roofline.work import charged, rglru_work
 
@@ -75,6 +76,15 @@ def _check(log_a, gx, h0) -> None:
         raise ValueError("log_a, gx (and h0) must lie on one CUDA device")
 
 
+def _no_dtensor(*ts) -> None:
+    """Raise on a DTensor: the kernel takes one device's shard, which
+    ``spmd.shard_map`` hands it (``models.rglru._scan_on_mesh``)."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("rglru_scan got a DTensor: call it under "
+                        "spmd.shard_map on the local shards "
+                        "(models.rglru._scan_on_mesh)")
+
+
 def _work(log_a, gx, h0=None):
     B, S, C = log_a.shape
     return rglru_work(B, S, C, h0 is not None, log_a.dtype)
@@ -86,6 +96,7 @@ def rglru_scan(log_a, gx, h0=None):
     (B, S, C) in log_a's dtype, h_last (B, C) f32), all arithmetic in f32.
     Any S and C."""
     global launches
+    _no_dtensor(log_a, gx, h0)
     if is_fake(log_a):          # the dry run: no data, nothing launched
         return torch.empty_like(log_a), log_a.new_empty(
             (log_a.shape[0], log_a.shape[2]), dtype=torch.float32)

@@ -20,6 +20,7 @@ import threading
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 
 from repro_torch.roofline.work import charged, ssd_work
 
@@ -107,6 +108,15 @@ def _check(xh, dt, Bm, Cm, A, h0, chunk: int) -> None:
         raise ValueError("xh, dt, Bm, Cm, A must lie on one CUDA device")
 
 
+def _no_dtensor(*ts) -> None:
+    """Raise on a DTensor: the kernel takes one device's shard, which
+    ``spmd.shard_map`` hands it (``models.mamba2._scan_on_mesh``)."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("ssd_scan got a DTensor: call it under "
+                        "spmd.shard_map on the local shards "
+                        "(models.mamba2._scan_on_mesh)")
+
+
 def _work(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
     B, S, H, P = xh.shape
     return ssd_work(B, S, H, P, Bm.shape[2], chunk, xh.dtype)
@@ -121,6 +131,7 @@ def ssd_scan(xh, dt, Bm, Cm, A, *, chunk: int = 128, h0=None):
     padded with dt = 0 tokens, as the JAX model pads it. ``h0`` (an initial
     state) is taken by the plain version only."""
     global launches
+    _no_dtensor(xh, dt, Bm, Cm, A, h0)
     if is_fake(xh):             # the dry run: no data, nothing launched
         B, S, H, P = xh.shape
         return torch.empty_like(xh), xh.new_empty(

@@ -29,7 +29,11 @@
    (``OUT``), which the roofline bench reads.
 
        python -m repro_torch.launch.sweep [--single-pod-only |
-           --multi-pod-only] [--force]
+           --multi-pod-only] [--force] [--jobs N]
+
+   ``--jobs`` traces that many cells at once (each a process of one
+   thread); the printout and the exit are JAX's: one line a cell, then
+   ``SWEEP DONE failures=N: [...]``, exit 0.
 """
 from __future__ import annotations
 
@@ -67,22 +71,30 @@ def run_one(arch: str, shape: str, multi_pod: bool, force: bool,
                 "multi_pod": multi_pod, "wall_s": time.time() - t0}
 
 
-def dryrun_sweep(meshes: Sequence[bool], force: bool = False) -> List[tuple]:
+def dryrun_sweep(meshes: Sequence[bool], force: bool = False,
+                 jobs: int = 1) -> List[tuple]:
     """Every runnable cell (``valid_cells``) on each mesh (False: 16x16,
-    True: pod2x16x16); writes the skip list beside the cells and returns
-    the failed cells."""
+    True: pod2x16x16), ``jobs`` cells at a time; writes the skip list
+    beside the cells and returns the failed cells."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.configs import valid_cells
     runnable, skipped = valid_cells()
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "skipped.json"), "w") as f:
         json.dump({f"{a}|{s}": r for (a, s), r in skipped.items()}, f,
                   indent=1)
+    cells = [(arch, shape, multi_pod) for multi_pod in meshes
+             for arch, shape in runnable]
+
+    def one(cell):
+        t0 = time.time()
+        return cell, run_one(*cell, force), time.time() - t0
+
     failures = []
-    for multi_pod in meshes:
-        tag = "pod2x16x16" if multi_pod else "16x16"
-        for arch, shape in runnable:
-            t0 = time.time()
-            res = run_one(arch, shape, multi_pod, force)
+    t_sweep = time.time()
+    with ThreadPoolExecutor(max(1, jobs)) as pool:
+        for (arch, shape, multi_pod), res, wall in pool.map(one, cells):
+            tag = "pod2x16x16" if multi_pod else "16x16"
             if "error" in res:
                 failures.append((arch, shape, tag))
                 print(f"[FAIL] {arch} {shape} {tag}: {res['error'][-400:]}",
@@ -90,7 +102,9 @@ def dryrun_sweep(meshes: Sequence[bool], force: bool = False) -> List[tuple]:
             else:
                 cached = " (cached)" if res.get("cached") else ""
                 print(f"[ok] {arch} {shape} {tag} trace={res['lower_s']}s "
-                      f"wall={time.time() - t0:.0f}s{cached}", flush=True)
+                      f"wall={wall:.0f}s{cached}", flush=True)
+    print(f"[sweep] {len(cells)} cells in {time.time() - t_sweep:.0f} s "
+          f"({jobs} at a time)")
     print(f"\nSWEEP DONE failures={len(failures)}: {failures}")
     return failures
 
@@ -385,6 +399,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--single-pod-only", action="store_true")
     ap.add_argument("--multi-pod-only", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="dry-run mode: cells traced at once")
     ap.add_argument("--schedulability", action="store_true",
                     help="Monte-Carlo gang schedulability sweep instead "
                          "of the dry-run sweep")
@@ -405,7 +421,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     meshes = [m for m in (False, True)
               if not (m and args.single_pod_only)
               and not (not m and args.multi_pod_only)]
-    dryrun_sweep(meshes, args.force)
+    dryrun_sweep(meshes, args.force, args.jobs)
 
 
 if __name__ == "__main__":

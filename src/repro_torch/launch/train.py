@@ -1,20 +1,30 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train
 --arch <id> [...]`` (counterpart of ``repro.launch.train``, with
-``--device``).
+``--device`` and ``--ranks``).
 
 Trains the reduced (or, with --full-size, the full) config of ``--arch``
-on a (data, 1) mesh through the runner, data the number of ranks of an
-initialized process group (1 without one): data resumable by step,
-checkpoint/restart (``--fail-at-step`` injects a failure, then a second
-runner resumes from the latest checkpoint, as the JAX launcher does). The
-card unless ``--device cpu``.
+on a (data, 1) mesh through the runner, data the number of ranks:
+``--ranks N`` spawns N processes, each a rank of a group (gloo on the
+CPU, NCCL on cards, one card a rank) with a ``file://`` rendezvous under
+the checkpoint directory; without it, the ranks of a group the caller
+initialized, or 1. Data resumable by step, checkpoint/restart
+(``--fail-at-step`` injects a failure on every rank, then a second
+runner resumes from the latest checkpoint, as the JAX launcher does); a
+checkpoint written by N ranks resumes in a run of M. The card unless
+``--device cpu``.
+
+    python -m repro_torch.launch.train --device cpu --ranks 2 \
+        --fail-at-step 25 --ckpt-dir DIR
 """
 from __future__ import annotations
 
 import argparse
 import os
 import tempfile
+import types
+import uuid
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
@@ -27,7 +37,7 @@ from repro_torch.training.runner import (RunnerConfig, SimulatedFailure,
                                          TrainRunner)
 
 
-def main(argv=None) -> TrainRunner:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--full-size", action="store_true",
@@ -42,7 +52,78 @@ def main(argv=None) -> TrainRunner:
     ap.add_argument("--fail-at-step", type=int, default=None)
     ap.add_argument("--data", default=None, help="memmapped token file")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="spawn this many ranks (a (ranks, 1) mesh)")
+    return ap
+
+
+def _rank(rank: int, world: int, init: str, argv, queue) -> None:
+    """One spawned rank: join the group, train, hand rank 0's log back."""
+    torch.set_num_threads(1)
+    cuda = torch.device(_parser().parse_args(argv).device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=init,
+                            rank=rank, world_size=world)
+    try:
+        runner = main(argv)
+        if rank == 0:
+            queue.put(("ok", runner.metrics_log))
+    except BaseException as e:
+        queue.put(("error", rank, repr(e)))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(args, argv):
+    """``--ranks N``: N processes, each running ``main`` (without
+    ``--ranks``) as a rank of one group; returns rank 0's metrics log."""
+    import multiprocessing as mp
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    init = "file://" + os.path.join(
+        os.path.abspath(args.ckpt_dir), f".rdzv_{uuid.uuid4().hex}")
+    rest, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--ranks":
+            skip = True
+        elif not a.startswith("--ranks="):
+            rest.append(a)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_rank,
+                         args=(r, args.ranks, init, rest, queue))
+             for r in range(args.ranks)]
+    for p in procs:
+        p.start()
+    try:
+        msg = queue.get()
+    finally:
+        for p in procs:
+            p.join()
+        try:
+            os.remove(init[len("file://"):])
+        except OSError:
+            pass
+    if msg[0] != "ok" or any(p.exitcode for p in procs):
+        raise RuntimeError(f"a rank failed: {msg[1:]}")
+    return types.SimpleNamespace(metrics_log=msg[1])
+
+
+def main(argv=None):
+    """Train (see the module docstring). Returns this process's
+    ``TrainRunner``; with ``--ranks`` > 1, an object whose
+    ``metrics_log`` is rank 0's."""
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    if args.ranks > 1:
+        if dist.is_initialized():
+            raise ValueError("--ranks spawns its own group; the caller "
+                             "initialized one")
+        return _spawn(args, argv)
 
     cfg = get_config(args.arch)
     if not args.full_size:
@@ -65,7 +146,8 @@ def main(argv=None) -> TrainRunner:
     try:
         runner.run()
     except SimulatedFailure as e:
-        print(f"[ft] {e}; restarting from latest checkpoint...")
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(f"[ft] {e}; restarting from latest checkpoint...")
         runner2 = TrainRunner(api, opt, data_cfg,
                               RunnerConfig(total_steps=args.steps,
                                            ckpt_every=args.ckpt_every,
@@ -74,8 +156,9 @@ def main(argv=None) -> TrainRunner:
         runner.metrics_log.extend(runner2.metrics_log)
     first = runner.metrics_log[0]["loss"] if runner.metrics_log else None
     last = runner.metrics_log[-1]["loss"] if runner.metrics_log else None
-    print(f"[train] {args.arch}: steps={len(runner.metrics_log)} "
-          f"loss {first:.4f} -> {last:.4f}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"[train] {args.arch}: steps={len(runner.metrics_log)} "
+              f"loss {first:.4f} -> {last:.4f} ranks={data}")
     return runner
 
 

@@ -1,6 +1,6 @@
 """Mamba2 / SSD (state-space duality) blocks of the port. [arXiv:2405.21060]
 
-Counterpart of ``repro.models.mamba2`` on one device (no ``constrain``).
+Counterpart of ``repro.models.mamba2``, on one device or on a mesh.
 Per head h (H = d_inner/P heads, state size N):
     h_t = exp(A * dt_t) * h_{t-1} + dt_t * B_t (x) x_t        (N x P outer)
     y_t = C_t . h_t + D * x_t
@@ -16,6 +16,16 @@ to the ``D_skip`` term in a bf16 model too. Decode
 is the O(1) recurrent update in torch ops (the JAX package has no Pallas
 kernel for it). JAX promotes bf16 x f32 to f32 inside its einsums; torch
 does not mix dtypes, so the casts to f32 are written out.
+
+On a mesh (the tensors are DTensors) every product is ``layers.dense``,
+d_inner and the heads are over the model axis and B / C replicated over
+it (JAX's rules). The scan runs under ``spmd.shard_map``
+(``_scan_on_mesh``): the batch over the batch axes, x, dt and A over the
+heads, B and C whole, so each device's kernel launch takes its local
+(B/d, S, H/m, P). The causal conv runs on the local shards with its state
+in the placements of the x it extends (``_causal_conv``), and the decode
+step updates the state cache's local shards in place, on the cache's
+placements (``_decode_step``).
 """
 from __future__ import annotations
 
@@ -23,10 +33,12 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import constrain
 
 CACHE_NAMES = ("conv_x", "conv_B", "conv_C", "h")
@@ -59,7 +71,18 @@ def ssm_block_defs(cfg: ModelConfig) -> Dict[str, L.ParamDef]:
 
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv. x: (B,S,C), w: (W,C). state: (B,W-1,C) tail of
-    previous tokens (decode). Returns (y, new_state)."""
+    previous tokens (decode). Returns (y, new_state). A DTensor x (its
+    sequence whole) is convolved on its local shards: the state comes in
+    x's placements, w in those of x's channels, y and the new state go
+    out in x's placements."""
+    if isinstance(x, DTensor):
+        pl = tuple(x.placements)
+        wpl = spmd.follow(pl, {2: 1})
+        if state is None:
+            return spmd.shard_map(_causal_conv, x.device_mesh, (pl, wpl),
+                                  (pl, pl))(x, w)
+        return spmd.shard_map(_causal_conv, x.device_mesh, (pl, wpl, pl),
+                              (pl, pl))(x, w, state)
     W = w.shape[0]
     if state is None:
         pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
@@ -136,6 +159,62 @@ def _ssd_chunked(xh, dt, Bm, Cm, A, h0=None, chunk: int = 256):
     return y[:, :S_orig], h
 
 
+def _scan_on_mesh(ctx, scan, xh, dt, Bm, Cm, A, chunk: int):
+    """``scan`` (the kernel's wrapper, or ``_ssd_chunked`` at train) on
+    each device's shard: the batch over the batch axes, xh, dt and A over
+    the heads, Bm and Cm whole over the model axis (shared by the heads).
+    Returns y sharded as xh and h as (batch, heads)."""
+    if not ctx.sharded:
+        return scan(xh, dt, Bm, Cm, A, chunk=chunk)
+    r = ctx.rules
+    B, S, H, P = xh.shape
+    px = r.placements(("batch", None, "ssm_heads", None), xh.shape)
+    pd = r.placements(("batch", None, "ssm_heads"), dt.shape)
+    pb = r.placements(("batch", None, None), Bm.shape)
+    pa = r.placements(("ssm_heads",), A.shape)
+    ph = r.placements(("batch", "ssm_heads", None, None),
+                      (B, H, P, Bm.shape[-1]))
+    return spmd.shard_map(lambda *a: scan(*a, chunk=chunk), ctx.mesh,
+                          (px, pd, pb, pb, pa), (px, ph))(xh, dt, Bm, Cm, A)
+
+
+def _ssd_step(hs, dt, Bm, Cm, xh, A):
+    """One decode step, in place: hs (B,H,P,N) f32 <- exp(dt A) hs +
+    dt B (x) x. dt (B,1,H), Bm = Cm (B,1,N), xh (B,1,H,P). Returns y
+    (B,1,H,P) f32."""
+    da = torch.exp(dt[:, 0] * A[None, :])                    # (B,H)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bm[:, 0].float(),
+                       xh[:, 0].float())
+    hs.mul_(da[:, :, None, None]).add_(upd)
+    return torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), hs)[:, None]
+
+
+def _decode_step(ctx, hs, dt, Bm, Cm, xh, A):
+    """``_ssd_step`` on the cache ``hs``; on a mesh on its local shard,
+    in place (never redistributed: a copy would lose the write), the other
+    operands laid out on the cache's placements."""
+    if not isinstance(hs, DTensor):
+        return _ssd_step(hs, dt, Bm, Cm, xh, A)
+    pl = tuple(hs.placements)
+    heads = spmd.follow(pl, {0: 0, 1: 2})       # dt (B,1,H), xh (B,1,H,P)
+    rows = spmd.follow(pl, {0: 0})              # Bm, Cm (B,1,N)
+    return spmd.shard_map(
+        lambda *a: _ssd_step(hs.to_local(), *a), ctx.mesh,
+        (heads, rows, rows, heads, spmd.follow(pl, {1: 0})),
+        heads)(dt, Bm, Cm, xh, A)
+
+
+def write_state(leaf, new):
+    """Copy ``new`` into the cache ``leaf`` in place; on a mesh into the
+    leaf's local shard, ``new`` laid out on the leaf's placements first."""
+    if isinstance(leaf, DTensor):
+        if tuple(new.placements) != tuple(leaf.placements):
+            new = new.redistribute(leaf.device_mesh, leaf.placements)
+        leaf.to_local().copy_(new.to_local())
+    else:
+        leaf.copy_(new)
+
+
 def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     """x: (B,S,D). Returns (x_out, cache).
 
@@ -152,13 +231,16 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     Bsz, S, _ = x.shape
 
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    if ctx.recipe == "tp" and ctx.mode != "decode":
+    if ctx.mode != "decode":
+        # JAX constrains h under the tp recipe and leaves mamba2's (cp: no
+        # attention heads) to GSPMD; here both gather the sequence, so
+        # that no product meets two shardings (as mlp_apply does)
         h = constrain(h, ctx.rules, ("batch", None, None))
-    z = h @ p["in_z"]
-    xin = h @ p["in_x"]
-    Bm = h @ p["in_B"]
-    Cm = h @ p["in_C"]
-    dt = h @ p["in_dt"]
+    z = L.dense(h, p["in_z"])
+    xin = L.dense(h, p["in_x"])
+    Bm = L.dense(h, p["in_B"])
+    Cm = L.dense(h, p["in_C"])
+    dt = L.dense(h, p["in_dt"])
 
     conv_cache = cache if cache is not None else {}
     xin, cx = _causal_conv(xin, p["conv_x"], conv_cache.get("conv_x"))
@@ -176,19 +258,14 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
 
     if ctx.mode == "decode":
         assert cache is not None and S == 1
-        hs = cache["h"]                                      # (B,H,P,N) f32
-        da = torch.exp(dt[:, 0] * A[None, :])                # (B,H)
-        upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bm[:, 0].float(),
-                           xh[:, 0].float())
-        hs.mul_(da[:, :, None, None]).add_(upd)
-        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), hs)[:, None]
+        y = _decode_step(ctx, cache["h"], dt, Bm, Cm, xh, A)
         for name, new in (("conv_x", cx), ("conv_B", cB), ("conv_C", cC)):
-            cache[name].copy_(new)
+            write_state(cache[name], new)
         new_cache = cache
     else:
         scan = _ssd_chunked if ctx.mode == "train" else ssd_scan
-        y, h_fin = scan(xh.float(), dt, Bm.float(), Cm.float(), A,
-                        chunk=min(s.chunk, S))
+        y, h_fin = _scan_on_mesh(ctx, scan, xh.float(), dt, Bm.float(),
+                                 Cm.float(), A, min(s.chunk, S))
         new_cache = None
         if ctx.mode == "prefill":
             new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC,
@@ -199,5 +276,5 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float())
     y = L.rms_norm(y.to(x.dtype), p["gn"], cfg.norm_eps)
-    out = constrain(y @ p["out"], ctx.rules, ("batch", "seq", None))
+    out = constrain(L.dense(y, p["out"]), ctx.rules, ("batch", "seq", None))
     return x + out, new_cache

@@ -31,7 +31,7 @@ import functools
 from typing import Any, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -53,14 +53,25 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Loss
 # --------------------------------------------------------------------------
 def _gold(logits, labels, ctx=None):
-    """logits (B, S, V) at labels (B, S) (clamped to >= 0). On a mesh the
-    vocab is over model: each device reads the labels in its columns and
-    the partial sums are reduced where they are read."""
+    """logits (B, S, V) at labels (B, S) (clamped to >= 0). On a mesh with
+    the vocab over model each device reads the labels in its columns and
+    the partial sums are reduced where they are read; with the vocab whole
+    each device reads its own rows."""
     labels = labels.clamp_min(0).long()
-    if ctx is None or not ctx.sharded or \
-            tuple(logits.placements) == ctx.place(batch=0):
+    if ctx is None or not ctx.sharded:
         return logits.gather(-1, labels[..., None])[..., 0]
     axis = ctx.parallel.model_axis
+    pl = tuple(logits.placements)
+    on_model = pl[ctx.mesh.mesh_dim_names.index(axis)]
+    if not (isinstance(on_model, Shard) and on_model.dim == 2):
+        # the vocab whole on every device: each gathers its own rows
+        rows = spmd.follow(pl, {0: 0, 1: 1})
+        if not isinstance(labels, DTensor):
+            labels = distribute_tensor(labels, ctx.mesh, ctx.place(),
+                                       src_data_rank=None)
+        return spmd.shard_map(
+            lambda lg, lb: lg.gather(-1, lb[..., None])[..., 0], ctx.mesh,
+            (pl, rows), rows)(logits, labels)
 
     def local(lg, lb):
         V = lg.shape[-1]
@@ -140,12 +151,13 @@ class ModelApi:
     rules_p: Optional[Rules] = None
     rules_a: Optional[Rules] = None
     recipe: str = "tp"
-    # set once from the mesh: on a mesh of more than one device (the
-    # leaves are DTensors)
-    sharded: bool = dataclasses.field(init=False)
+    # the leaves are DTensors: by default on a mesh of more than one
+    # device; True on a one-rank DeviceMesh too (``build_model``)
+    sharded: Optional[bool] = None
 
     def __post_init__(self):
-        self.sharded = multi_device(self.mesh)
+        if self.sharded is None:
+            self.sharded = multi_device(self.mesh)
 
     def param_shapes(self):
         """JAX's ``param_shapes``: (shape, dtype) of every leaf."""
@@ -264,9 +276,23 @@ class ModelApi:
                 raise ValueError(f"a vlm sequence holds the {nv} patch "
                                  f"positions first; got {tokens.shape[1]}")
             x = constrain(x, ctx.rules, ("batch", None, None))
-            x = torch.cat([batch["patches"].to(x.dtype), x[:, nv:]], dim=1)
+            patches = self._batch_leaf(batch["patches"],
+                                       ("batch", None, None))
+            x = torch.cat([patches.to(x.dtype), x[:, nv:]], dim=1)
             x = constrain(x, ctx.rules, ("batch", "seq", None))
         return x
+
+    def _batch_leaf(self, t, logical):
+        """A stub input (patches, frames) at the placements ``rules_a``
+        gives ``logical`` on a mesh: a plain tensor, the same on every
+        rank, is distributed."""
+        if not self.sharded:
+            return t
+        if isinstance(t, DTensor):
+            return constrain(t, self.rules_a, logical)
+        return distribute_tensor(t.to(self.device), self.mesh,
+                                 self.rules_a.placements(logical, t.shape),
+                                 src_data_rank=None)
 
     def _layer(self, blocks, i: int):
         return L.tree_map(lambda _, a: a[i], blocks)
@@ -459,50 +485,62 @@ class ModelApi:
     def _ctx(self, mode: str, tokens=None, positions=None) -> T.Ctx:
         """Train / prefill context: positions 0..S-1 of ``tokens`` (B, S);
         decode: ``positions`` (B,)."""
+        batch = (tokens if tokens is not None else positions).shape[0]
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=self.device)[None]
         return T.Ctx(cfg=self.cfg, mode=mode, positions=positions,
-                     q_block=self.parallel.q_block,
+                     batch=batch, q_block=self.parallel.q_block,
                      kv_block=self.parallel.kv_block,
                      parallel=self.parallel,
                      rules=self.rules_a if self.sharded else None,
-                     mesh=self.mesh, recipe=self.recipe)
+                     mesh=self.mesh, recipe=self.recipe,
+                     sharded=self.sharded)
 
     # ---- whisper ----------------------------------------------------------
-    def _whisper_forward(self, params, batch, mode: str):
+    def _whisper_gather(self, part: str):
+        """A layer of ``part`` laid out for compute (``_gather_fsdp``)."""
+        return lambda blk: self._gather_fsdp(blk, self.defs[part])
+
+    def _whisper_forward(self, params, batch, ctx):
         """Encoder over batch["frames"], then the decoder over
         batch["tokens"]: (final-normed x (B, S, D), caches or None)."""
-        ctx = self._ctx(mode, batch["tokens"])
-        enc = whisper.encode(ctx, params,
-                             batch["frames"].to(self.compute_dtype()))
+        params = self._top(params)
+        cd = self.compute_dtype()
         x = whisper.decoder_embed(params, batch["tokens"], ctx.positions,
-                                  self.compute_dtype())
+                                  cd, ctx)
         x = constrain(x, ctx.rules, ("batch", "seq", None))
-        x, caches = whisper.run_decoder_train(ctx, params, x, enc)
-        return T.final_norm(self.cfg, params, x), caches
+        frames = self._batch_leaf(batch["frames"], ("batch", None, None))
+        enc = whisper.encode(ctx, params, frames.to(cd),
+                             self._whisper_gather("enc_blocks"))
+        x, caches = whisper.run_decoder_train(
+            ctx, params, x, enc, self._whisper_gather("dec_blocks"))
+        return T.final_norm(self.cfg, params, x), caches, params
 
     def _whisper_loss(self, params, batch):
         """The plain ``xent_loss`` under ``fused_xent`` too, as in JAX."""
-        x, _ = self._whisper_forward(params, batch, "train")
         ctx = self._ctx("train", batch["tokens"])
+        x, _, params = self._whisper_forward(params, batch, ctx)
         loss, metrics = xent_loss(T.lm_logits(self.cfg, params, x, ctx),
                                   batch["labels"], ctx)
         metrics["loss"] = loss
         return loss, metrics
 
     def _whisper_prefill(self, params, batch):
-        x, caches = self._whisper_forward(params, batch, "prefill")
-        return T.lm_logits(self.cfg, params, x[:, -1:, :]), caches
+        ctx = self._ctx("prefill", batch["tokens"])
+        x, caches, params = self._whisper_forward(params, batch, ctx)
+        return T.lm_logits(self.cfg, params, x[:, -1:, :], ctx), caches
 
     def _whisper_decode(self, params, caches, tokens, pos):
         cfg = self.cfg
         ctx = self._ctx("decode", positions=pos)
+        params = self._top(params)
         x = whisper.decoder_embed(params, tokens, pos[:, None],
-                                  self.compute_dtype())
-        x, caches = whisper.run_decoder_decode(ctx, params, x, caches)
+                                  self.compute_dtype(), ctx)
+        x, caches = whisper.run_decoder_decode(
+            ctx, params, x, caches, self._whisper_gather("dec_blocks"))
         x = T.final_norm(cfg, params, x)
-        return T.lm_logits(cfg, params, x), caches
+        return T.lm_logits(cfg, params, x, ctx), caches
 
 
 # --------------------------------------------------------------------------
@@ -552,10 +590,15 @@ def _hybrid_defs(cfg: ModelConfig):
 
 def build_model(cfg: ModelConfig, parallel: ParallelConfig,
                 device: Optional[str | torch.device] = None, *,
-                mesh=None) -> ModelApi:
+                mesh=None, sharded: Optional[bool] = None) -> ModelApi:
     """``device`` defaults to ``cuda`` (see ``repro_torch.device``);
     ``mesh`` (``launch.mesh``) sets the rules, the recipe and the
-    ``pad_attention_heads`` lever as JAX's ``build_model`` does."""
+    ``pad_attention_heads`` lever as JAX's ``build_model`` does.
+    ``sharded`` (default: the mesh has more than one device) puts the
+    leaves on the mesh as DTensors and runs the parallel paths: True on a
+    ``DeviceMesh`` of one rank runs them with every axis of size 1."""
+    if sharded and not hasattr(mesh, "get_group"):
+        raise ValueError("sharded=True needs a DeviceMesh")
     rules_p, rules_a = make_rules(mesh, parallel)
     tp = mesh_shape(mesh).get(parallel.model_axis, 1)
     if parallel.pad_attention_heads and tp > 1 and cfg.n_heads % tp:
@@ -568,4 +611,4 @@ def build_model(cfg: ModelConfig, parallel: ParallelConfig,
                     defs=build_defs(cfg, parallel),
                     device=resolve_device(device), mesh=mesh,
                     rules_p=rules_p, rules_a=rules_a,
-                    recipe=T.recipe_for(cfg, tp))
+                    recipe=T.recipe_for(cfg, tp), sharded=sharded)

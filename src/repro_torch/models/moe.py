@@ -281,8 +281,7 @@ def _moe_local_a2a(ctx: Ctx, x_loc, w_router, wg, wu, wd):
 def _moe_sp(ctx: Ctx, p, x):
     """x: (B, S, D) with batch over the batch axes and S over model."""
     cfg = ctx.cfg
-    n = ctx.model_axis_size
-    if not ctx.sharded or n == 1:
+    if not ctx.sharded:
         y, lb, rz = _moe_dense_fallback(cfg, p, x, train=ctx.mode == "train")
         return y, {"load_balance": lb, "router_z": rz}
     x_spec = ctx.place(batch=0, model=1)
@@ -316,7 +315,7 @@ def _moe_replicated(ctx: Ctx, p, x):
     cfg = ctx.cfg
     moe = cfg.moe
     n = ctx.model_axis_size
-    if not ctx.sharded or n == 1:
+    if not ctx.sharded:
         y, _, _ = _moe_dense_fallback(cfg, p, x, with_aux=False)
         return y
     axis = ctx.parallel.model_axis
@@ -354,7 +353,7 @@ def _moe_weight_stationary(ctx: Ctx, p, x):
     moe = cfg.moe
     n = ctx.model_axis_size
     baxes = ctx.batch_axes()
-    if not ctx.sharded or n == 1 or not baxes:
+    if not ctx.sharded or not baxes:
         y, _, _ = _moe_dense_fallback(cfg, p, x, with_aux=False)
         return y
     axis = ctx.parallel.model_axis

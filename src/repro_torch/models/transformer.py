@@ -18,9 +18,11 @@ Sharding recipes (decided per arch at build time, ``recipe_for``):
 
 On a mesh the tensors are DTensors and each of JAX's ``constrain`` points
 redistributes to its rule's placements; the per-device bodies of JAX's
-``shard_map`` are ``sharding.spmd.shard_map``. On one device (no mesh, or
-every axis of size 1) every parallel path takes its ``n == 1`` branch and
-nothing is a DTensor.
+``shard_map`` are ``sharding.spmd.shard_map``. On one device (no mesh,
+or every axis of size 1) every parallel path takes its unsharded branch
+and nothing is a DTensor, unless the model was built ``sharded`` on a
+``DeviceMesh`` of one rank: then the parallel paths run on DTensors, each
+axis of size 1.
 
 Differences from JAX's "tp" recipe, kept on purpose:
 
@@ -41,7 +43,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import layers as L
@@ -61,20 +63,25 @@ class Ctx:
     rules: Optional[Rules] = None   # activation rules
     mesh: Any = None                # DeviceMesh / OneDeviceMesh / None
     recipe: str = "tp"              # tp | cp
-    # set once from the mesh: on a mesh of more than one device (the
-    # tensors are DTensors), and the model axis's size
-    sharded: bool = dataclasses.field(init=False)
+    batch: Optional[int] = None     # the global batch, when known
+    # the tensors are DTensors: by default on a mesh of more than one
+    # device (``ModelApi.sharded`` passes its own); set once, with the
+    # model axis's size
+    sharded: Optional[bool] = None
     model_axis_size: int = dataclasses.field(init=False)
 
     def __post_init__(self):
-        self.sharded = multi_device(self.mesh)
+        if self.sharded is None:
+            self.sharded = multi_device(self.mesh)
         self.model_axis_size = 1 if self.parallel is None else \
             mesh_shape(self.mesh).get(self.parallel.model_axis, 1)
 
     def batch_axes(self) -> Tuple[str, ...]:
+        """The axes the batch dim is over: none that do not divide the
+        global batch (a batch of 1 stays replicated, as the rules give)."""
         if self.parallel is None:
             return ()
-        return batch_axes(self.mesh, self.parallel)
+        return batch_axes(self.mesh, self.parallel, self.batch)
 
     def place(self, **dims) -> tuple:
         """Placements of a tensor whose batch dim is ``batch`` (over the
@@ -155,12 +162,15 @@ def _local_kv(k, v, h0: int, hl: int, G: int):
     return k[:, :, idx], v[:, :, idx], 1
 
 
-def _attend(ctx: Ctx, q, k, v, *, causal=True, window=0, q_offset=0):
-    """Train: JAX's dispatch in torch ops (``train_attention``, or the
-    blocked form with an offset); prefill: the flash kernel's wrapper."""
+def _attend(ctx: Ctx, q, k, v, *, causal=True, window=0, q_offset=0,
+            cp: bool = False):
+    """Train: JAX's dispatch in torch ops (``train_attention``, or for a
+    context-parallel rank, ``cp``, the blocked form with its offset, rank
+    0's included, as JAX's ``_cp_attention`` calls it); prefill: the
+    flash kernel's wrapper."""
     cfg = ctx.cfg
     if ctx.mode == "train":
-        if q_offset:
+        if q_offset or cp:
             return L.flash_attention_cp(
                 q, k, v, causal=causal, window=window, q_offset=q_offset,
                 softcap=cfg.logit_softcap,
@@ -178,7 +188,7 @@ def _tp_attention(ctx: Ctx, q, k, v, *, causal=True, window=0):
     device attends its q heads to the kv heads they read."""
     cfg = ctx.cfg
     n = ctx.model_axis_size
-    if not ctx.sharded or n == 1:
+    if not ctx.sharded:
         return _attend(ctx, q, k, v, causal=causal, window=window)
     axis = ctx.parallel.model_axis
     G = cfg.n_heads // cfg.n_kv_heads
@@ -200,8 +210,11 @@ def _cp_attention(ctx: Ctx, q, k, v, *, causal=True, window=0):
     K/V all-gathered per device, the causal mask offset by the device's
     first query position (``q_offset = rank * s_loc``)."""
     n = ctx.model_axis_size
-    if not ctx.sharded or n == 1 or q.shape[1] % n != 0:
+    if not ctx.sharded:
         return _attend(ctx, q, k, v, causal=causal, window=window)
+    if q.shape[1] % n != 0:
+        return _replicated_attention(ctx, q, k, v, causal=causal,
+                                     window=window)
     axis = ctx.parallel.model_axis
 
     def local(ql, kl, vl):
@@ -210,10 +223,21 @@ def _cp_attention(ctx: Ctx, q, k, v, *, causal=True, window=0):
         s_loc = ql.shape[1]
         offset = spmd.axis_index(ctx.mesh, axis) * s_loc
         return _attend(ctx, ql, kf, vf, causal=causal, window=window,
-                       q_offset=offset)
+                       q_offset=offset, cp=True)
 
     spec = ctx.place(batch=0, model=1)
     return spmd.shard_map(local, ctx.mesh, (spec, spec, spec), spec)(q, k, v)
+
+
+def _replicated_attention(ctx: Ctx, q, k, v, *, causal=True, window=0):
+    """Attention with q, k and v whole over the model axis (a sequence
+    that does not split over it): every device of the axis attends all
+    heads of its batch rows."""
+    spec = ctx.place(batch=0)
+    return spmd.shard_map(
+        lambda ql, kl, vl: _attend(ctx, ql, kl, vl, causal=causal,
+                                   window=window),
+        ctx.mesh, (spec, spec, spec), spec)(q, k, v)
 
 
 def _write_cache(kc, vc, knew, vnew, pos, row0: int = 0):
@@ -379,8 +403,19 @@ def attn_apply(ctx: Ctx, p, x, cache: Optional[dict] = None,
             q = q + p["bq"]
         q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
         kf, vf, kv_len = kv_override
-        out = L.decode_attention(q, kf, vf, (kv_len - 1).clamp_min(0),
-                                 window=0, softcap=cfg.logit_softcap)
+
+        def cross(ql, kl, vl, nl):
+            return L.decode_attention(ql, kl, vl, (nl - 1).clamp_min(0),
+                                      window=0, softcap=cfg.logit_softcap)
+        if ctx.sharded:
+            # each device its batch rows, every head, against the cross
+            # K / V it holds whole
+            if not isinstance(kv_len, DTensor):
+                kv_len = distribute_tensor(kv_len, ctx.mesh, ctx.place(),
+                                           src_data_rank=None)
+            spec = ctx.place(batch=0)
+            cross = spmd.shard_map(cross, ctx.mesh, (spec,) * 4, spec)
+        out = cross(q, kf, vf, kv_len)
         return x + L.dense(out.reshape(B, 1, cfg.q_dim), p["wo"]), None
 
     if ctx.mode == "decode":
@@ -516,14 +551,26 @@ def embed_tokens(cfg: ModelConfig, params, tokens,
 
 def lm_logits(cfg: ModelConfig, params, x, ctx: Optional[Ctx] = None):
     """f32 logits, as the JAX package computes them, constrained to
-    ("batch", None, "vocab")."""
+    ("batch", None, "vocab"). On a mesh whose model axis the vocab does
+    not divide (the rules leave the table whole over it: mamba2-1.3b,
+    whisper-base, internvl2-1b over 16), the rows keep their sequence
+    sharding instead, ("batch", "seq", None), so that each device computes
+    the logits of its own rows and not all of them."""
     rules = None if ctx is None else ctx.rules
+    table = params["embed"].float().T if cfg.tie_embeddings \
+        else params["lm_head"].float()
+    if rules is not None and not vocab_split(rules, x, cfg.vocab_size):
+        xf = constrain(x, rules, ("batch", "seq", None)).float()
+        return constrain(L.dense(xf, table), rules, ("batch", "seq", None))
     xf = constrain(x, rules, ("batch", None, None)).float()
-    if cfg.tie_embeddings:
-        logits = L.dense(xf, params["embed"].float().T)
-    else:
-        logits = L.dense(xf, params["lm_head"].float())
-    return constrain(logits, rules, ("batch", None, "vocab"))
+    return constrain(L.dense(xf, table), rules, ("batch", None, "vocab"))
+
+
+def vocab_split(rules: Rules, x, vocab: int) -> bool:
+    """The logits of ``x`` (B, S, D) have their vocab over model."""
+    spec = rules.spec(("batch", None, "vocab"),
+                      (x.shape[0], x.shape[1], vocab))
+    return len(spec) == 3 and spec[2] is not None
 
 
 def final_norm(cfg, params, x):

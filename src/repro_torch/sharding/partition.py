@@ -106,12 +106,19 @@ def multi_device(mesh) -> bool:
     return any(n > 1 for n in mesh_shape(mesh).values())
 
 
-def batch_axes(mesh, parallel) -> Tuple[str, ...]:
+def batch_axes(mesh, parallel, batch: Optional[int] = None
+               ) -> Tuple[str, ...]:
     """The mesh axes a batch dim is sharded over: pod (if the mesh has
-    one), then data."""
+    one), then data. With ``batch`` (the global batch), the longest prefix
+    of them whose size divides it, as ``Rules.spec`` falls back (a batch of
+    1 stays replicated)."""
     shape = mesh_shape(mesh)
-    return tuple(a for a in (parallel.pod_axis, parallel.data_axis)
+    axes = tuple(a for a in (parallel.pod_axis, parallel.data_axis)
                  if a and a in shape)
+    if batch is not None:
+        while axes and batch % math.prod(shape[a] for a in axes):
+            axes = axes[:-1]
+    return axes
 
 
 def make_rules(mesh, parallel) -> Tuple[Rules, Rules]:

@@ -13,7 +13,8 @@ device of the axis is then counted once. An output placement ``Partial``
 is a per-device partial sum that DTensor reduces where it is next read.
 
 The collectives are ``torch.distributed._functional_collectives`` over
-the process group of one mesh axis, each result waited on. The gather,
+the process group of one mesh axis, each result waited on; over an axis
+of one device they are the identity and issue nothing. The gather,
 scatter and all-to-all are the autograd forms (their backward is the
 matching collective); ``psum`` and ``pmax`` are forward-only, for the
 decode paths.
@@ -34,6 +35,14 @@ def _group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
+def _axes(mesh, axes: Axes) -> tuple:
+    """The axes of ``axes`` with more than one device: a collective over
+    one device is the identity, and is not issued."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in axes
+                 if mesh.size(mesh.mesh_dim_names.index(a)) > 1)
+
+
 def axis_index(mesh, axes: Axes) -> int:
     """This device's coordinate along ``axes`` (several axes: row-major,
     the first the slowest)."""
@@ -50,7 +59,7 @@ def all_gather(x, mesh, axes: Axes, dim: int):
     """Concatenate the devices' ``x`` along ``dim`` over ``axes`` (JAX's
     ``all_gather(..., tiled=True)``); several axes gather the last first,
     so the result is ordered as ``axis_index``."""
-    for a in reversed((axes,) if isinstance(axes, str) else axes):
+    for a in reversed(_axes(mesh, axes)):
         x = fc.wait_tensor(fc.all_gather_tensor_autograd(
             x.contiguous(), dim, _group(mesh, a)))
     return x
@@ -59,6 +68,8 @@ def all_gather(x, mesh, axes: Axes, dim: int):
 def reduce_scatter(x, mesh, axis: str, dim: int):
     """Sum ``x`` over ``axis`` and keep this device's slice of ``dim``
     (JAX's ``psum_scatter(..., tiled=True)``)."""
+    if not _axes(mesh, axis):
+        return x
     return fc.wait_tensor(fc.reduce_scatter_tensor_autograd(
         x.contiguous(), "sum", dim, _group(mesh, axis)))
 
@@ -67,13 +78,15 @@ def all_to_all(x, mesh, axis: str):
     """Row block i of ``x`` (split evenly along dim 0) goes to device i of
     ``axis``; the result holds, in block i, what device i sent here
     (JAX's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+    if not _axes(mesh, axis):
+        return x
     return fc.wait_tensor(fc.all_to_all_single_autograd(
         x.contiguous(), None, None, _group(mesh, axis)))
 
 
 def psum(x, mesh, axes: Axes):
     """Sum over ``axes`` (forward only)."""
-    for a in ((axes,) if isinstance(axes, str) else axes):
+    for a in _axes(mesh, axes):
         x = fc.wait_tensor(fc.all_reduce(x.contiguous(), "sum",
                                          _group(mesh, a)))
     return x
@@ -81,6 +94,8 @@ def psum(x, mesh, axes: Axes):
 
 def pmax(x, mesh, axis: str):
     """Maximum over ``axis`` (forward only)."""
+    if not _axes(mesh, axis):
+        return x
     return fc.wait_tensor(fc.all_reduce(x.contiguous(), "max",
                                         _group(mesh, axis)))
 
@@ -139,6 +154,15 @@ def shard_map(fn: Callable, mesh, in_specs: Sequence, out_specs):
                          for o, pl in zip(out, out_specs))
         return _wrap(out, mesh, out_specs)
     return run
+
+
+def follow(pl: Sequence, dims: dict) -> tuple:
+    """Placements of a tensor laid out like one with placements ``pl``:
+    where ``pl`` shards its dim d, shard dim ``dims[d]`` (replicate where
+    ``dims`` has no entry for d, or maps it to None)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and
+                 dims.get(p.dim) is not None else Replicate() for p in pl)
 
 
 def placements(mesh, **dims) -> tuple:

@@ -5,6 +5,12 @@ async checkpointing (counterpart of ``repro.training.runner``).
 Failure recovery = process restart + ``resume_or_init()`` from the latest
 complete checkpoint, whose ``extra["data_step"]`` says where the data
 stream resumes.
+
+On a mesh every rank runs the runner: each takes its rows of the same
+global batch of a step (``ShardedLoader``), every rank calls the
+checkpoint's ``save`` (it gathers the sharded leaves) and rank 0 alone
+writes it, and every rank restores the latest one onto its own shards,
+whatever the number of ranks that wrote it.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ import os
 import tempfile
 import time
 from typing import Optional
+
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, ShardedLoader, TokenSource
@@ -47,7 +55,8 @@ class TrainRunner:
         self.loader = ShardedLoader(
             TokenSource(data_cfg), api.device,
             mesh=api.mesh if api.sharded else None,
-            batch_axes=batch_axes(api.mesh, api.parallel))
+            batch_axes=batch_axes(api.mesh, api.parallel,
+                                  data_cfg.global_batch))
         self.step_fn = make_train_step(api, opt)
         self.metrics_log: list = []
         self.straggler_steps: list = []
@@ -82,7 +91,10 @@ class TrainRunner:
                 raise SimulatedFailure(f"injected failure at {step}")
             t0 = time.monotonic()
             state, metrics = self.step_fn(state, batch)
-            loss = float(metrics["loss"])
+            loss = metrics["loss"]
+            # on a mesh the loss is a DTensor, on each rank a partial sum
+            loss = float(loss.full_tensor() if isinstance(loss, DTensor)
+                         else loss)
             dur = time.monotonic() - t0
             if self._ema_dur is not None and \
                     dur > rc.straggler_factor * self._ema_dur:

@@ -1,10 +1,10 @@
 """One rank of the port's multi-device CPU checks (tests/
-test_torch_sharding.py): a gloo group with a ``file://`` rendezvous, a
-(data, model) mesh, and per job the loss and gradients, the prefill and a
-decode step of a reduced model whose parameters come from JAX's numpy
-tree. Rank 0 puts the gathered (``full_tensor``) results on the queue as
-numpy arrays. Imports torch and the port only: every spawned rank
-imports this module."""
+test_torch_sharding.py, tests/test_torch_sharding_families.py): a gloo
+group with a ``file://`` rendezvous, a (data, model) mesh, and per job the
+loss and gradients, the prefill and a decode step of a reduced model of
+any family whose parameters come from JAX's numpy tree. Rank 0 puts the
+gathered (``full_tensor``) results on the queue as numpy arrays. Imports
+torch and the port only: every spawned rank imports this module."""
 import dataclasses
 import traceback
 
@@ -37,7 +37,8 @@ def _placed(api, logical, a):
 
 def run_job(job, mesh):
     from repro_torch.configs import get_config, reduced
-    from repro_torch.configs.base import MoEConfig, ParallelConfig
+    from repro_torch.configs.base import MoEConfig, ParallelConfig, ShapeConfig
+    from repro_torch.launch import inputs as I
     from repro_torch.convert import params_from_jax_numpy
     from repro_torch.models.model import build_model
     from repro_torch.roofline.op_analysis import analyze
@@ -50,7 +51,8 @@ def run_job(job, mesh):
     # DTensor's implicit replication after each call: on only inside one
     flags = [_replicating()]
     params = params_from_jax_numpy(job["params"], cfg, "cpu", api=api)
-    batch = {k: _placed(api, ("batch", None), v)
+    # tokens and labels (B, S); the stub patches / frames (B, n, D)
+    batch = {k: _placed(api, ("batch",) + (None,) * (v.ndim - 1), v)
              for k, v in job["batch"].items()}
     loss, metrics, grads = loss_and_grads(api, params, batch)
     flags.append(_replicating())
@@ -60,18 +62,20 @@ def run_job(job, mesh):
            "grad_placements": sorted({str(g.placements) for g in
                                       _leaves(grads)})}
     served = api.load(params)
-    prefill = analyze(api.prefill_fn, served, {"tokens": batch["tokens"]},
+    prefill = analyze(api.prefill_fn, served,
+                      {k: v for k, v in batch.items() if k != "labels"},
                       result=(res := []))
     logits, caches = res[0]
     flags.append(_replicating())
     out["prefill_collectives"] = prefill["collective_counts"]
+    out["prefill_kernels"] = {k: v["calls"]
+                              for k, v in prefill["kernels"].items()}
     out["prefill_logits"] = _full(logits)
     out["prefill_caches"] = _tree(_full, caches)
-    grown = {}
-    for k, c in out["prefill_caches"].items():
-        g = np.zeros(c.shape[:2] + (job["max_seq"],) + c.shape[3:], c.dtype)
-        g[:, :, :c.shape[2]] = c
-        grown[k] = _placed(api, (None, "batch", "kv_seq", None, None), g)
+    B = batch["tokens"].shape[0]
+    specs = I.cache_specs(api, ShapeConfig("decode", job["max_seq"], B,
+                                           "decode"))
+    grown = _grow(api, out["prefill_caches"], specs, job["max_seq"])
     tok = _placed(api, ("batch", None), job["decode_tokens"])
     pos = _placed(api, ("batch",), job["decode_pos"])
     decode = analyze(api.decode_fn, served, grown, tok, pos,
@@ -82,6 +86,25 @@ def run_job(job, mesh):
     out["decode_collectives"] = decode["collective_counts"]
     out["decode_logits"] = _full(logits)
     out["decode_caches"] = _tree(_full, caches)
+    return out
+
+
+def _grow(api, tree, specs, max_seq):
+    """The prefill caches (numpy) as the decode step takes them, copied: each
+    "k" / "v" leaf (L, B, S, H, D) zero-padded to ``max_seq`` rows, the
+    state leaves as they are, each placed as ``launch.inputs`` lays the
+    leaf out."""
+    out = {}
+    for k, c in tree.items():
+        if isinstance(c, dict):
+            out[k] = _grow(api, c, specs[k], max_seq)
+            continue
+        if k in ("k", "v"):
+            g = np.zeros(c.shape[:2] + (max_seq,) + c.shape[3:], c.dtype)
+            g[:, :, :c.shape[2]] = c
+            c = g
+        # a copy: the decode step writes its caches in place
+        out[k] = _placed(api, specs[k].logical, np.array(c))
     return out
 
 

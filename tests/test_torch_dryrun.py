@@ -22,6 +22,16 @@ JAX, gives JAX's HLO FLOPs of the same decode cells. Checks:
 * ``benchmarks.roofline_bench.run`` reads the cells.
 Collective bytes have no JAX oracle here (JAX's own collective count on
 this mesh fails at the seed, tests/test_sharding.py).
+
+A third subprocess runs the other families' reduced cells on the (2, 4)
+mesh: mamba2-1.3b with no attention heads (the cp recipe of the full
+config), recurrentgemma-9b with 5 layers, whisper-base with 2 heads over
+model 4 and internvl2-1b with 6 (the cp recipe), train / prefill /
+decode, and mamba2's and recurrentgemma's prefill at batch 1 (long_500k's
+batch, which stays replicated over data). Each traces, shows collectives,
+and at prefill charges ``ssd_scan`` / ``rglru_scan`` their
+``roofline.work`` formula on the local shard's shape, once a recurrent
+layer.
 """
 import json
 import os
@@ -123,6 +133,35 @@ print("RESULT" + json.dumps(out))
 """
 
 
+FAMILIES = {"mamba2-1.3b": {"n_heads": 0, "vocab_size": 250},
+            "recurrentgemma-9b": {"n_layers": 5},
+            "whisper-base": {"n_heads": 2, "n_kv_heads": 2,
+                             "n_encoder_frames": 6},
+            "internvl2-1b": {"n_heads": 6, "vocab_size": 250}}
+LONG = ("mamba2-1.3b", "recurrentgemma-9b")
+
+FAMILY = r"""
+import json, sys
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+FAMILIES, LONG, KINDS, OV, B, S = json.loads(sys.argv[1])
+torch.set_num_threads(1)
+mesh = {"data": 2, "model": 4}
+out = {}
+for arch, over in FAMILIES.items():
+    cfg = reduced(get_config(arch), **over)
+    shapes = [ShapeConfig(f"tiny_{k}", S, B, k) for k in KINDS]
+    if arch in LONG:
+        shapes.append(ShapeConfig("tiny_long", S, 1, "prefill"))
+    for shape in shapes:
+        out[f"{arch} {shape.name}"] = dryrun.run_cell(
+            arch, shape.name, False, OV, cfg=cfg, shape=shape, mesh=mesh)
+print("RESULT" + json.dumps(out))
+"""
+
+
 def _run(script, arg):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu")
@@ -137,6 +176,11 @@ def _run(script, arg):
 @pytest.fixture(scope="module")
 def port():
     return _run(PORT, [ARCHS, KINDS, MESHES, OVERRIDES, B, S])
+
+
+@pytest.fixture(scope="module")
+def families():
+    return _run(FAMILY, [FAMILIES, LONG, KINDS, OVERRIDES, B, S])
 
 
 @pytest.fixture(scope="module")
@@ -244,3 +288,45 @@ def test_a_second_cell_in_one_process_raises_while_a_group_lives():
             dryrun.init_fake_group(2)
     finally:
         dist.destroy_process_group()
+
+
+FAMILY_CELLS = [f"{a} tiny_{k}" for a in FAMILIES for k in KINDS] + \
+    [f"{a} tiny_long" for a in LONG]
+
+
+@pytest.mark.parametrize("cell", FAMILY_CELLS)
+def test_family_cells_trace_with_collectives(families, cell):
+    c = families[cell]
+    assert all(k in c for k in KEYS), [k for k in KEYS if k not in c]
+    assert c["chips"] == 8 and c["flops_per_device"] > 0
+    coll = c["collectives_per_device"]
+    assert sum(coll["counts"].values()) > 0 and coll["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("cell", [c for c in FAMILY_CELLS
+                                  if c.split()[0] in LONG and
+                                  not c.endswith(("train", "decode"))])
+def test_scans_are_charged_on_the_local_shard(families, cell):
+    """The scan wrappers take each device's shard under ``shard_map``:
+    the batch over data (2, unless the batch is 1), the heads or lru
+    channels over model (4); one call a recurrent layer."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.roofline.work import rglru_work, ssd_work
+    arch = cell.split()[0]
+    cfg = reduced(get_config(arch), **FAMILIES[arch])
+    b = 1 if cell.endswith("long") else B // 2
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        H = s.n_heads(cfg.d_model)
+        name, n = "ssd_scan", cfg.n_layers
+        ops, nbytes = ssd_work(b, S, H // 4, s.head_dim, s.state_dim,
+                               s.chunk, torch.float32)
+    else:
+        plen = len(cfg.rglru.pattern)
+        name = "rglru_scan"
+        n = cfg.n_layers - cfg.n_layers // plen
+        ops, nbytes = rglru_work(b, S, cfg.d_model // 4, False,
+                                 torch.float32)
+    assert families[cell]["kernels"][name] == {
+        "calls": n, "flops": n * ops, "bytes": n * nbytes}

@@ -268,3 +268,44 @@ def test_convert_carries_a_jax_hybrid_tree():
     with pytest.raises(ValueError, match="tail"):
         params_from_jax_numpy({k: v for k, v in tree.items() if k != "tail"},
                               cfg, device="cpu")
+
+
+@pytest.mark.parametrize("S", [1, 2, 7, 8, 33, 257, 4096])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_train_scan_matches_jax_associative_scan(S, with_h0):
+    """The train-mode recurrence (``_rglru_assoc_scan``: JAX's
+    associative scan, log depth) against JAX's ``_rglru_scan`` at the
+    mixer's 1e-5, ragged lengths and h0 included, at recurrentgemma-9b's
+    decay scale (log_a down to -8 softplus(1) a step)."""
+    rng = np.random.default_rng(S + with_h0)
+    la = (-8 * np.log1p(np.e) * rng.uniform(size=(2, S, 6))).astype(
+        np.float32)
+    gx = rng.normal(size=(2, S, 6)).astype(np.float32)
+    h0 = rng.normal(size=(2, 6)).astype(np.float32) if with_h0 else None
+    jy, jl = jrglru._rglru_scan(jnp.asarray(la), jnp.asarray(gx),
+                                None if h0 is None else jnp.asarray(h0))
+    ty, tl = rglru._rglru_assoc_scan(torch.tensor(la), torch.tensor(gx),
+                                     None if h0 is None else torch.tensor(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_train_scan_gradients_match_the_loop():
+    """Autograd through the associative scan gives the per-step loop's
+    gradients (log_a, gx and h0)."""
+    g = torch.Generator().manual_seed(0)
+    la = -torch.rand(2, 37, 5, generator=g) * 3
+    gx = torch.randn(2, 37, 5, generator=g)
+    h0 = torch.randn(2, 5, generator=g)
+    w = torch.randn(2, 37, 5, generator=g)
+    grads = []
+    for scan in (rglru._rglru_assoc_scan, rglru._rglru_scan):
+        args = [t.clone().requires_grad_() for t in (la, gx, h0)]
+        y, last = scan(*args)
+        ((y * w).sum() + last.sum()).backward()
+        grads.append([a.grad for a in args])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5)
