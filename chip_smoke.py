@@ -75,6 +75,25 @@ Drives the port in phases and exits non-zero if any fails:
                graph as in (c3), with the achieved GB/s and the share of
                the bound on the device time (no single PyTorch call
                computes this recurrence);
+  (c5) kernel  holds the flash kernel with a logit softcap (each scaled
+               score s becomes c tanh(s / c) before the mask, JAX's
+               layers.attention softcap) against its plain version at (c)'s
+               tolerances: qwen2-7b's S 1024 causal, recurrentgemma-9b's D
+               256 under its 2048 window, whisper-base's non-causal cross
+               shape Sq 300 x Sk 1500, qwen2-7b's last context-parallel rank
+               of 4 (q_offset 768) and granite-20b's multi-query shape (Hq
+               48 on one kv head), each at c = 1.0 and 50.0 (Gemma 2's),
+               bf16 and f32, one launch a call; bf16 scores drawn with a
+               spread of 1 (c = 1) or 3 (c = 50) so that the cap bends
+               them, and V with a spread of 8 (f32: N(0, 1) inputs; its
+               tolerance is 1500 times finer): the plain version without
+               the cap, with
+               the cap on the unscaled score, with the capped score scaled
+               again and (c = 50) with c tanh(s) must each differ from the
+               kernel by more than the tolerance; times kernel, plain
+               version and FlexAttention with the cap as its score_mod
+               (torch.compile'd; the library time, never called by the
+               port) beside the bound;
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
@@ -106,6 +125,23 @@ Drives the port in phases and exits non-zero if any fails:
                over 4 slots at different positions (capacity buffers of 8
                rows, moe_gmm at C=8, in-place cache writes), and so do the
                caches after them;
+  (d5) serving granite-20b (multi-query: 48 q heads on one kv head, 52
+               layers, 28.2 B parameters) at full width and depth in bf16,
+               as (d): every request finished, flash launched n_layers x
+               prefills, the other kernels never; peak memory printed;
+  (e5) oracle  (e) for granite-20b in f32 on the first 4 of its 52 layers
+               of the same weights (10.9 GB; all 52 would be 113 GB), and
+               the logits and caches through the kernel against the plain
+               versions within 1e-3 as (e2) checks them;
+  (d6) serving minitron-4b (GQA 24 over 8, a 256,000-entry vocabulary, 32
+               layers) at full width and depth in bf16, as (d);
+  (e6) oracle  (e5) for minitron-4b at full depth in f32 (20.4 GB);
+  (x) softcap  qwen2-7b at full width with logit_softcap 1.0, 4 of its 28
+               layers, f32 from seed 0: a prefill and 4 decode steps over 4
+               slots, and a 300-token prefill, through the kernel against
+               the same calls through the plain versions within 1e-3
+               (logits and caches); flash launched exactly 4 x 6 times;
+               the same weights without the cap must give other logits;
   (d3) gang    mamba2-1.3b (SSM) at full width and depth in bf16, random
                weights from seed 0 drawn on the card, through ModelApi.
                prefill_fn / decode_fn (the slot engine serves attention
@@ -319,6 +355,11 @@ Drives the port in phases and exits non-zero if any fails:
                over the heads), recurrentgemma-9b long_500k (batch 1,
                replicated over data) and whisper-base train_4k (8 heads
                over model 16: the cp recipe).
+  (w) bench    the port's aggregator (repro_torch.benchmarks.run, the
+               counterpart of benchmarks/run.py) on the card with fig6 at
+               1 s a mode: fails unless each section printed in order, each
+               Fig.6 mode ran a DNN quantum and the roofline section read
+               every cell (u) wrote; no kernel may launch;
   (v) mesh     the sharded path on the card: a one-rank NCCL group and a
                DeviceMesh("cuda", (1, 1)), the models built sharded=True
                on it (every leaf a DTensor, every parallel path on its
@@ -346,11 +387,14 @@ line is {"ok": true, "device": {...}}. Details go to build/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import importlib.util
 import json
+import os
 import random
 import re
 import shutil
@@ -372,12 +416,14 @@ from repro_torch.analysis import batched_rta as BRTA  # noqa: E402
 from repro_torch.benchmarks import bench_executor_vgang as vbench  # noqa: E402
 from repro_torch.benchmarks import fig1_parallelization as fig1  # noqa: E402
 from repro_torch.benchmarks import fig6_dnn_cdf as fig6  # noqa: E402
+from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.deeppicar import CONFIG as DAVE2  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
 from repro_torch.examples import serve_with_background_training as swbt  # noqa: E402
 from repro_torch.examples import vgang_fleet  # noqa: E402
+from repro_torch.kernels.build import ptxas_report  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
@@ -417,7 +463,7 @@ from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
                                          intensity_interference,
                                          singleton_vgangs)
 from torch_flash_cases import (AUDIO_FRAMES, AUDIO_PROMPTS,  # noqa: E402
-                               CP_CASES, TIMED, VLM_PROMPTS)
+                               CP_CASES, SOFTCAP_CASES, TIMED, VLM_PROMPTS)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them,
 # HBM3 bandwidth (repro_torch.roofline.report, where their sources stand)
@@ -568,6 +614,19 @@ RTA_RTOL = 1e-12
 
 SERVE_PROMPTS = (32, 200, 1024, 77, 512, 300)
 SERVE_MAX_NEW = 16
+# (d5) / (d6): the two shipped dense configs that fit one card and no
+# earlier phase served. granite-20b is multi-query (48 q heads on one kv
+# head); its f32 oracle keeps 4 of its 52 layers (10.9 GB; all 52 would be
+# 113 GB). minitron-4b has a 256,000-entry vocabulary.
+GRANITE_ARCH = "granite-20b"
+GRANITE_ORACLE_LAYERS = 4
+MINITRON_ARCH = "minitron-4b"
+# (x): the logit softcap through a model on the card: qwen2-7b at full
+# width, 4 of its 28 layers, f32, with logit_softcap 1.0
+SOFTCAP_MODEL_ARCH = "qwen2-7b"
+SOFTCAP_MODEL_LAYERS = 4
+SOFTCAP_MODEL_CAP = 1.0
+SOFTCAP_MODEL_PROMPT = 300
 # (k): qwen2-7b at full width, depth cut 28 -> 8 (18 B a parameter under
 # f32 AdamW with bf16 compute: 8 layers 53 GB, 28 layers 137 GB)
 TRAIN_ARCH = "qwen2-7b"
@@ -664,11 +723,11 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound(case) -> tuple[float, str]:
+def bound(case, q_offset: int = 0) -> tuple[float, str]:
     """Least time the card could take: the larger of the operations over
     the peak rate of the input type and the bytes (each input read once,
     the output written once) over the memory rate."""
-    ops, nbytes = flash_work(case)
+    ops, nbytes = flash_work(case, q_offset)
     dt = case[-1]
     t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -734,6 +793,139 @@ def phase_kernel(dev, smi: str) -> list[dict]:
         if not ok:
             fail(f"flash_attention disagrees with its plain version on "
                  f"{row['case']}: max_abs_err {err} > {tol}")
+        rows.append(row)
+    return rows
+
+
+# (c5)'s inputs in bf16: q and k scaled so that the scaled scores have a
+# standard deviation of SCORE_STD[cap] (at softcap 1 and at 50 the cap
+# bends the largest scores), V at V_STD, so that each way of applying the
+# cap wrongly (mis_capped) moves the output by many times TOL; f32's TOL is
+# 1500 times finer, and N(0, 1) inputs already do that there
+SCORE_STD = {1.0: 1.0, 50.0: 3.0}
+V_STD = 8.0
+
+
+def mis_capped(q, k, v, cap: float, **kw) -> dict:
+    """The plain version with the cap applied wrongly, in f32, each a way a
+    kernel could get it wrong, from the raw score r = q k^T, the scale
+    1/sqrt(D) and the right cap c tanh(r scale / c); naive_attention caps
+    c' tanh(r' scale / c') of r' = (a q) k^T, so a and c' pick each."""
+    sc = q.shape[-1] ** -0.5
+    q, k, v = q.float(), k.float(), v.float()
+    out = {"no cap": naive_attention(q, k, v, **kw),
+           # scale c tanh(r / c): the cap before the scale
+           "cap on the unscaled score": naive_attention(
+               q, k, v, softcap=cap * sc, **kw),
+           # scale c tanh(r scale / c): m in the wrong units
+           "capped score scaled again": naive_attention(
+               q * sc, k, v, softcap=cap * sc, **kw)}
+    if cap != 1.0:   # c tanh(r scale) is the right cap at c = 1
+        out["c tanh(s)"] = naive_attention(q * cap, k, v, softcap=cap, **kw)
+    return out
+
+
+def flex_softcap(q, k, v, cap: float, *, causal: bool, window: int,
+                 q_offset: int):
+    """library_ms's call for a softcapped case: PyTorch's FlexAttention,
+    compiled by torch.compile, with the cap as its score_mod and the causal
+    / window / q_offset mask as its block mask (timed only; the port never
+    calls it). Returns (call, how): how is "compiled", or "eager" with the
+    reason where the compile failed."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    c = torch.tensor(cap, device=q.device)
+
+    def score_mod(s, b, h, i, j):
+        return c * torch.tanh(s / c)
+
+    def mask_mod(b, h, i, j):
+        ok = j >= 0
+        if causal:
+            ok = ok & (j <= i + q_offset)
+        if window:
+            ok = ok & (j > i + q_offset - window)
+        return ok
+
+    block_mask = None
+    if causal or window:
+        block_mask = create_block_mask(mask_mod, None, None, q.shape[1],
+                                       k.shape[1], device=q.device)
+    torch._dynamo.reset()    # one compile a case, under the recompile limit
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def call(fn):
+        return lambda: fn(qh, kh, vh, score_mod=score_mod,  # noqa: E731
+                          block_mask=block_mask, enable_gqa=True)
+    try:
+        call(compiled)()
+        torch.cuda.synchronize()
+        return call(compiled), "compiled"
+    except Exception as e:   # noqa: BLE001 (the reason goes in the row)
+        return call(flex_attention), f"eager ({type(e).__name__}: {e})"[:200]
+
+
+def phase_softcap(dev, smi: str) -> list[dict]:
+    """(c5): the flash kernel with a logit softcap against its plain version
+    on SOFTCAP_CASES at TOL, one launch a call; every mis_capped version
+    must differ from the kernel by more than TOL. Kernel, plain version and
+    FlexAttention with the cap (compiled) timed beside the bound (the cap
+    adds no charged work)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = []
+    for case, off, cap in SOFTCAP_CASES:
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+        bf16 = dt == torch.bfloat16
+        qk_std = SCORE_STD[cap] ** 0.5 if bf16 else 1.0
+        q = (torch.randn((B, Sq, Hq, D), generator=gen, device=dev)
+             * qk_std).to(dt)
+        k = (torch.randn((B, Sk, Hkv, D), generator=gen, device=dev)
+             * qk_std).to(dt)
+        v = (torch.randn((B, Sk, Hkv, D), generator=gen, device=dev)
+             * (V_STD if bf16 else 1.0)).to(dt)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, softcap=cap, **kw)
+        torch.cuda.synchronize()
+        if fa.launches != before + 1:
+            fail(f"(c5) flash launched {fa.launches - before} times on one "
+                 f"call")
+        out = out.float()
+        ref = naive_attention(q, k, v, softcap=cap, **kw).float()
+        err = (out - ref).abs().max().item()
+        tol = TOL[dt]
+        name = f"{case_name(case)} q_offset={off} softcap={cap}"
+        if not torch.allclose(out, ref, atol=tol, rtol=tol):
+            fail(f"flash_attention with a softcap disagrees with its plain "
+                 f"version on {name}: max_abs_err {err} > {tol}")
+        # max |out - x| / (tol + tol |x|): above 1, allclose fails
+        margin = {w: ((out - x).abs() / (tol + tol * x.abs())).max().item()
+                  for w, x in mis_capped(q, k, v, cap, **kw).items()}
+        for w, m in margin.items():
+            if m <= 1.0:
+                fail(f"(c5) {name}: the kernel is within TOL of the plain "
+                     f"version with {w} (margin {m:.3g})")
+        flex, how = flex_softcap(q, k, v, cap, **kw)
+        lib_err = (flex().transpose(1, 2).float() - ref).abs().max().item()
+        bound_ms, bound_by = bound(case, off)
+        row = {"case": name, "softcap": cap, "q_offset": off,
+               "max_abs_err": err, "tol": tol, "ok": True,
+               "mis_cap_margin": margin,
+               "ms": time_ms(lambda: fa.flash_attention(
+                   q, k, v, softcap=cap, **kw)),
+               "plain_ms": time_ms(lambda: naive_attention(
+                   q, k, v, softcap=cap, **kw)),
+               "library_ms": time_ms(flex), "library": f"flex_attention {how}",
+               "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print(f"[softcap] {name}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, flex_attention ({how}) "
+              f"{row['library_ms']:.4f} ms (max_abs_err {lib_err:.3g}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g}, "
+              f"margin over TOL of the mis-capped versions " + ", ".join(
+                  f"{w} {m:.3g}" for w, m in margin.items()) + f" [{smi}]")
         rows.append(row)
     return rows
 
@@ -1625,14 +1817,27 @@ def check_plain_path(api, params, dev, max_seq: int) -> dict:
     return errs
 
 
-def phase_oracle(dev, api16, params16) -> dict:
+def phase_oracle(dev, api16, params16, n_layers: int = 0,
+                 plain_path: bool = False) -> dict:
     """(e) for the dense model: the re-prefill oracle; (e2) for MoE: the
-    batch-1 prefill + decode rollout (see the module docstring)."""
+    batch-1 prefill + decode rollout (see the module docstring). The f32
+    copy keeps the first ``n_layers`` layers of the bf16 weights where it
+    is given (granite-20b's would not fit in f32); ``plain_path`` adds
+    ``check_plain_path``, which MoE always runs."""
     moe = api16.cfg.family == "moe"
     cfg = dataclasses.replace(api16.cfg, dtype="float32")
+    first = slice(None)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        first = slice(n_layers)
+        print(f"[oracle] {cfg.name} f32: depth cut {api16.cfg.n_layers} -> "
+              f"{n_layers} layers (the first {n_layers} of the bf16 "
+              f"weights)")
     parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
     api = build_model(cfg, parallel, dev)
-    params = api.load(L.tree_map(lambda _, a: a.float(), params16))
+    params = api.load(L.tree_map(
+        lambda path, a: (a[first] if path[0] == "blocks" else a).float(),
+        params16))
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, size=(n,)).astype(np.int32)
                for n in (32, 20)]
@@ -1651,9 +1856,95 @@ def phase_oracle(dev, api16, params16) -> dict:
                  f"from the {kind} greedy oracle")
     print(f"[oracle] {cfg.name} f32 engine tokens equal the {kind} oracle on "
           f"both requests")
-    errs = check_plain_path(api, params, dev, 128) if moe else {}
+    errs = check_plain_path(api, params, dev, 128) \
+        if moe or plain_path else {}
     del params
     return errs
+
+
+def phase_softcap_model(dev, smi: str) -> dict:
+    """(x): qwen2-7b at full width with ``logit_softcap`` 1.0, depth cut to
+    SOFTCAP_MODEL_LAYERS, f32 from seed 0: ``check_plain_path`` (a
+    prefill, then 4 decode steps over 4 slots, logits and caches through
+    the kernel against the plain versions at PLAIN_PATH_TOL) and one
+    SOFTCAP_MODEL_PROMPT-token prefill the same way (several kv tiles);
+    flash must launch exactly n_layers x 6 times (the prefills through
+    the kernel; decode attention is torch ops, as in JAX). The same
+    weights without the cap must give other logits."""
+    cfg = dataclasses.replace(
+        get_config(SOFTCAP_MODEL_ARCH), n_layers=SOFTCAP_MODEL_LAYERS,
+        logit_softcap=SOFTCAP_MODEL_CAP, dtype="float32")
+    parallel = ParallelConfig(param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg, parallel, dev)
+    params = api.init(seed=0)
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        1, cfg.vocab_size, size=(1, SOFTCAP_MODEL_PROMPT)), device=dev)}
+    reset_launches()
+    errs = check_plain_path(api, params, dev, 128)
+    got, _ = api.prefill_fn(params, batch)
+    launches = read_launches()
+    want, _ = through_plain(lambda: api.prefill_fn(params, batch))
+    err = (got - want).abs().max().item()
+    errs[f"prefill {SOFTCAP_MODEL_PROMPT} logits"] = err
+    if not torch.allclose(got, want, atol=PLAIN_PATH_TOL,
+                          rtol=PLAIN_PATH_TOL):
+        fail(f"(x) softcapped {cfg.name}: the {SOFTCAP_MODEL_PROMPT}-token "
+             f"prefill through the kernel differs from the plain version's "
+             f"by {err}")
+    expect = {k: 0 for k in KERNELS}
+    expect["flash_attention"] = cfg.n_layers * (2 + len(PLAIN_PATH_PROMPTS))
+    if launches != expect:
+        fail(f"(x) softcapped {cfg.name}: launches {launches}, expected "
+             f"{expect}")
+    plain_api = build_model(dataclasses.replace(cfg, logit_softcap=0.0),
+                            parallel, dev)
+    uncapped, _ = plain_api.prefill_fn(params, batch)
+    moved = (uncapped - got).abs().max().item()
+    if moved <= PLAIN_PATH_TOL:
+        fail(f"(x) the softcap moves {cfg.name}'s logits by {moved} only")
+    print(f"[softcap] {cfg.name} f32, {cfg.n_layers} layers, logit_softcap "
+          f"{SOFTCAP_MODEL_CAP}: kernel vs plain max_abs_err "
+          + ", ".join(f"{w} {e:.3g}" for w, e in errs.items())
+          + f" (tolerance {PLAIN_PATH_TOL}); launches {launches}; the cap "
+          f"moves the prefill logits by {moved:.3g} [{smi}]")
+    del params
+    return {"errs": errs, "launches": launches, "cap_moves_logits_by": moved}
+
+
+def phase_bench_run(smi: str) -> dict:
+    """(w): the port's aggregator, ``repro_torch.benchmarks.run.main([
+    "--duration", "1"])``, on the card: fails unless every section printed
+    in order, Fig.6 ran a DNN quantum in each mode, and the roofline
+    section read each cell (u) wrote. None of the four kernels may
+    launch."""
+    before = read_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = bench_run.main(["--duration", "1"])
+    out = buf.getvalue()
+    print(out, end="")
+    at = [out.find(h) for h in ("== fig4, fig5, table3, sim engines",
+                                "== fig1 ", "== fig6 ", "== roofline ",
+                                "== done in ")]
+    if -1 in at or at != sorted(at):
+        fail(f"(w) the aggregator's sections are missing or out of order: "
+             f"{at}")
+    for mode in ("solo", "cosched", "rtgang"):
+        if rep["fig6"].get(mode, {}).get("n", 0) < 1:
+            fail(f"(w) fig6 ran no DNN quantum under {mode}")
+    cells = {(r["arch"], r["shape"]) for r in rep["roofline"]}
+    missing = [c[:2] for c in DRYRUN_CELLS if c[:2] not in cells]
+    if missing:
+        fail(f"(w) the roofline section lacks (u)'s cells {missing}")
+    if read_launches() != before:
+        fail(f"(w) launched {read_launches()}: the aggregator's paths have "
+             f"none of the four kernels")
+    print(f"[bench] aggregator: fig1 {len(rep['fig1'])} rows, fig6 modes "
+          f"{sorted(rep['fig6'])}, roofline {len(rep['roofline'])} cells "
+          f"[{smi}]")
+    return {"fig1": rep["fig1"], "fig6": rep["fig6"],
+            "roofline_cells": len(rep["roofline"])}
 
 
 def gang_expect(cfg, n_prefills: int) -> dict:
@@ -2869,47 +3160,11 @@ def phase_serve_train(dev, smi: str) -> dict:
     return rows
 
 
-def ptxas_report(log: str) -> list[dict]:
-    """Registers, static shared memory and spills of each kernel in an
-    ``nvcc -Xptxas -v`` log, names demangled where c++filt is there."""
-    kernels, cur = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            cur = {"kernel": m.group(1), "registers": 0, "static_smem": 0,
-                   "spill_stores": 0, "spill_loads": 0}
-            kernels.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            sm = re.search(r"(\d+) bytes smem", line)
-            cur["static_smem"] = int(sm.group(1)) if sm else 0
-    try:
-        names = subprocess.run(
-            ["c++filt"], input="\n".join(k["kernel"] for k in kernels),
-            capture_output=True, text=True, timeout=60,
-            check=True).stdout.splitlines()
-        if len(names) == len(kernels):
-            for k, n in zip(kernels, names):   # name<template args>
-                n = n.replace("(anonymous namespace)::", "")
-                k["kernel"] = n.removeprefix("void ").split("(")[0]
-    except (OSError, subprocess.SubprocessError):
-        pass
-    return kernels
-
-
 def roofline_table(*reps) -> dict:
     """(r)'s rows of the gang phases and DAVE-2 by model and step, and a
     summary line each: the bound against the measured time."""
-    names = ("qwen2-7b", "olmoe-1b-7b", MAMBA_ARCH, HYBRID_ARCH, VLM_ARCH,
-             AUDIO_ARCH, "dave2")
+    names = ("qwen2-7b", "olmoe-1b-7b", GRANITE_ARCH, MINITRON_ARCH,
+             MAMBA_ARCH, HYBRID_ARCH, VLM_ARCH, AUDIO_ARCH, "dave2")
     table = {}
     for name, rep in zip(names, reps):
         for step, r in rep["roofline"].items():
@@ -2943,6 +3198,12 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch.compile (FlexAttention, (c5)'s library time) keeps its caches
+    # in the checkout's build/ and compiles in this process: no worker pool
+    for var, val in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "inductor"),
+                     ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
+                     ("TORCHINDUCTOR_COMPILE_THREADS", 1)):
+        os.environ.setdefault(var, str(val))
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
         builds = dict(zip(KERNELS, pool.map(lambda m: m.build(),
@@ -2984,6 +3245,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     rows = timed("c", phase_kernel, dev, smi)
+    softcap_rows = timed("c5", phase_softcap, dev, smi)
     gmm_rows = timed("c2", phase_gmm, dev, smi)
     ssd_rows = timed("c3", phase_ssd, dev, smi)
     rg_rows = timed("c4", phase_rglru, dev, smi)
@@ -2996,6 +3258,17 @@ def main() -> int:
     sv2["plain_path_err"] = timed("e2", phase_oracle, dev, sv2.pop("api"),
                                   sv2.pop("params"))
     free()                                        # olmoe's weights go
+    sv7 = timed("d5", phase_serving, dev, smi, GRANITE_ARCH, duration=16.0)
+    sv7["plain_path_err"] = timed(
+        "e5", phase_oracle, dev, sv7.pop("api"), sv7.pop("params"),
+        n_layers=GRANITE_ORACLE_LAYERS, plain_path=True)
+    free()                                        # granite's weights go
+    sv8 = timed("d6", phase_serving, dev, smi, MINITRON_ARCH, duration=8.0)
+    sv8["plain_path_err"] = timed("e6", phase_oracle, dev, sv8.pop("api"),
+                                  sv8.pop("params"), plain_path=True)
+    free()                                        # minitron's weights go
+    softcap_model = timed("x", phase_softcap_model, dev, smi)
+    free()
     sv3 = timed("d3", phase_gang, dev, smi, MAMBA_ARCH, duration=6.0,
                 max_seq=0)
     sv3.update(timed("e3", phase_gang_oracle, dev, sv3.pop("api"),
@@ -3046,6 +3319,7 @@ def main() -> int:
     dry_rep = timed("u", phase_dryrun, smi)
     if read_launches() != before:
         fail(f"phase (u) launched {read_launches()}: the dry run traces")
+    bench_rep = timed("w", phase_bench_run, smi)
     free()
     mesh_rep = timed("v", phase_mesh, dev, smi)
 
@@ -3057,6 +3331,8 @@ def main() -> int:
     serve_train = {k: sum(st_rep[m]["launches"][k]
                           for m, _, _ in SERVE_TRAIN_MODES) for k in KERNELS}
     by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"],
+               GRANITE_ARCH: sv7["launches"], MINITRON_ARCH: sv8["launches"],
+               "qwen2-7b softcap (x)": softcap_model["launches"],
                MAMBA_ARCH: sv3["launches"], HYBRID_ARCH: sv4["launches"],
                VLM_ARCH: sv5["launches"], AUDIO_ARCH: sv6["launches"],
                "train (k)": train_rep["launches"],
@@ -3080,15 +3356,19 @@ def main() -> int:
               "cuda": torch.version.cuda,
               "build_s": {n: b.seconds for n, b in builds.items()},
               "ptxas": build_report,
-              "kernel_rows": rows, "gmm_rows": gmm_rows,
+              "kernel_rows": rows, "softcap_rows": softcap_rows,
+              "gmm_rows": gmm_rows,
               "ssd_rows": ssd_rows, "rglru_rows": rg_rows,
               "reported_cases": {n: r["case"] for n, r in reported.items()},
-              "serve": sv, "serve_olmoe": sv2, "gang_mamba2": sv3,
+              "serve": sv, "serve_olmoe": sv2, "serve_granite": sv7,
+              "serve_minitron": sv8, "softcap_model": softcap_model,
+              "bench_run": bench_rep, "gang_mamba2": sv3,
               "gang_recurrentgemma": sv4, "gang_internvl2": sv5,
               "gang_whisper": sv6, "dave2": dave2, "fig1": fig1_rep,
               "fig6": fig6_rep, "perfetto": perfetto_rep, "vgang": vgang_rep,
               "rta": rta_rep, "grid": grid_rep,
-              "roofline": roofline_table(sv, sv2, sv3, sv4, sv5, sv6, dave2),
+              "roofline": roofline_table(sv, sv2, sv7, sv8, sv3, sv4, sv5,
+                                         sv6, dave2),
               "roofline_card_vs_cpu": roof_check,
               "train": train_rep, "serve_train": st_rep, "smoke": smoke_rep,
               "cp": cp_rep, "ep": ep_rep, "dryrun": dry_rep,
@@ -3098,10 +3378,13 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
-    print(f"kernels: [flash_attention: pass ({len(rows)} shapes), moe_gmm: "
+    print(f"kernels: [flash_attention: pass ({len(rows)} shapes, "
+          f"{len(softcap_rows)} softcap cases), moe_gmm: "
           f"pass ({len(gmm_rows)} shapes), ssd_scan: pass ({len(ssd_rows)} "
           f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]; "
-          f"{VLM_ARCH} and {AUDIO_ARCH} gangs: pass; dave2: "
+          f"{GRANITE_ARCH} and {MINITRON_ARCH} serving: pass (peak "
+          f"{sv7['peak_gb']:.1f} / {sv8['peak_gb']:.1f} GB); softcapped "
+          f"model: pass; {VLM_ARCH} and {AUDIO_ARCH} gangs: pass; dave2: "
           f"pass (card vs CPU, B {DAVE2_BATCHES}); fig1: "
           f"{len(fig1_rep['rows'])} rows; fig6: solo / cosched / rtgang n "
           f"{[fig6_rep[m]['n'] for m in ('solo', 'cosched', 'rtgang')]}; "
@@ -3117,7 +3400,8 @@ def main() -> int:
           f"({len(SMOKE_ARCHS)} families card == CPU); cp ranks: pass "
           f"({len(cp_rep['rows'])} splits); expert parallel: pass "
           f"({len(ep_rep['rows'])} shapes); dry run: pass "
-          f"({len(dry_rep['cells'])} cells); mesh: pass "
+          f"({len(dry_rep['cells'])} cells); aggregator: pass "
+          f"({bench_rep['roofline_cells']} roofline cells); mesh: pass "
           f"({len(mesh_rep['models'])} models, checkpoint bit for bit)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

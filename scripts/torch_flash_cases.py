@@ -1,8 +1,10 @@
 """The flash-attention shapes of ``chip_smoke.py``: the prefill shapes
-its phase (c) checks and times, and the context-parallel splits of its
-phase (s). ``scripts/torch_flash_times.py`` times the same lists. A case
-is (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype); a split is (arch, Hq,
-Hkv, D, S, n ranks, window). Imports torch only.
+its phase (c) checks and times, the softcap cases of its phase (c5), and
+the context-parallel splits of its phase (s).
+``scripts/torch_flash_times.py`` times the same lists. A case is (B, Sq,
+Sk, Hq, Hkv, D, causal, window, dtype); a softcap case is (case,
+q_offset, softcap); a split is (arch, Hq, Hkv, D, S, n ranks, window).
+Imports torch only.
 """
 import torch
 
@@ -38,8 +40,33 @@ WHISPER_SHAPES = [(1, Sq, Sk, 8, 8, 64, causal, 0, dt)
                       [(AUDIO_FRAMES, AUDIO_FRAMES, False)]
                       + [(S, S, True) for S in AUDIO_PROMPTS]
                       + [(S, AUDIO_FRAMES, False) for S in AUDIO_PROMPTS])]
+# (d5) / (d6): granite-20b's multi-query attention (48 q heads on one kv
+# head: a group of 48) and minitron-4b's GQA (24 over 8), D 128, causal
+GRANITE_SHAPES = [(1, S, S, 48, 1, 128, True, 0, dt)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for S in (32, 200, 1024)]
+MINITRON_SHAPES = [(1, S, S, 24, 8, 128, True, 0, dt)
+                   for dt in (torch.bfloat16, torch.float32)
+                   for S in (32, 200, 1024)]
 TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE] \
-    + VLM_SHAPES + WHISPER_SHAPES
+    + VLM_SHAPES + WHISPER_SHAPES + GRANITE_SHAPES + MINITRON_SHAPES
+
+# the logit softcap, (case, q_offset, softcap): qwen2-7b at S 1024,
+# recurrentgemma-9b's D 256 under its 2048 window, whisper-base's
+# non-causal cross shape (300 x 1500), qwen2-7b's last context-parallel
+# rank of 4 (256 query rows at key offset 768) and granite-20b's MQA; each
+# at softcap 1.0, where N(0, 1) inputs give scaled scores past +-1 so the
+# cap bends them, and at Gemma 2's 50.0
+SOFTCAP_SHAPES = [((1, 1024, 1024, 28, 4, 128, True, 0), 0),
+                  ((1, 1024, 1024, 16, 1, 256, True, 2048), 0),
+                  ((1, 300, AUDIO_FRAMES, 8, 8, 64, False, 0), 0),
+                  ((1, 256, 1024, 28, 4, 128, True, 0), 768),
+                  ((1, 1024, 1024, 48, 1, 128, True, 0), 0)]
+SOFTCAPS = (1.0, 50.0)
+SOFTCAP_CASES = [((*shape, dt), q_offset, cap)
+                 for shape, q_offset in SOFTCAP_SHAPES
+                 for dt in (torch.bfloat16, torch.float32)
+                 for cap in SOFTCAPS]
 
 # (s): context-parallel attention per rank, (arch, Hq, Hkv, D, S, n ranks,
 # window): qwen2-7b causal at S 1024 over 4 and 16 ranks, and

@@ -9,12 +9,16 @@ Each call is timed two ways: 20 wrapper calls back to back between CUDA
 events (``chip_smoke.py``'s ``ms``: a call that short is timed by its
 wrapper's host dispatch), and the same 20 calls captured in a CUDA graph
 and replayed (device time only); beside them, the largest absolute
-difference from the plain version (``ref.naive_attention``). The shapes are (c)'s timed cases
-(``TIMED``) and (s)'s splits (``CP_CASES``), both from
-``scripts/torch_flash_cases.py``, which ``chip_smoke.py`` imports too: for
-a split, rank r's S / n query rows against the full K/V at ``q_offset``
-r S / n, and the unsplit call. A checkout whose kernel takes no
-``q_offset`` times the (c) shapes only. The kernel comes from whichever
+difference from the plain version (``ref.naive_attention``). The shapes
+are (c)'s timed cases (``TIMED``), (c5)'s softcap cases
+(``SOFTCAP_CASES``, each also without its cap, for the cap's cost) and
+(s)'s splits (``CP_CASES``), all from ``scripts/torch_flash_cases.py``,
+which ``chip_smoke.py`` imports too: for a split, rank r's S / n query
+rows against the full K/V at ``q_offset`` r S / n, and the unsplit call.
+A checkout whose kernel takes no ``softcap`` skips (c5)'s cases, one
+whose kernel takes no ``q_offset`` (s)'s too. ``--ptxas`` first prints
+each kernel's registers and spills from the build's ptxas report and the
+nvcc time. The kernel comes from whichever
 checkout's ``src`` is first on ``PYTHONPATH`` (each builds into its own
 ``build/``), so one copy of this script times two commits' kernels in
 one call. Prints one line a case with the card's name and power limit.
@@ -28,7 +32,7 @@ import subprocess
 import sys
 
 import torch
-from torch_flash_cases import CP_CASES, TIMED
+from torch_flash_cases import CP_CASES, SOFTCAP_CASES, TIMED
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import naive_attention
@@ -85,6 +89,8 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="", help="label printed on each line")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print the build's registers and spills first")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_times: needs an NVIDIA card", file=sys.stderr)
@@ -94,6 +100,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    if args.ptxas:   # a checkout whose build module parses the report
+        from repro_torch.kernels.build import ptxas_report
+        built = fa.build()
+        print(f"[{args.tag}] nvcc {built.seconds:.1f} s", flush=True)
+        for k in ptxas_report(built.log):
+            print(f"[{args.tag}] {k['kernel']}: {k['registers']} registers, "
+                  f"spills {k['spill_stores']} / {k['spill_loads']} B",
+                  flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -112,7 +126,22 @@ def main() -> int:
         print(f"[{args.tag}] {label(case)} {DT_NAME[dt]}: max_abs_err "
               f"{float(err):.6g}, calls back to back {eager_ms(call):.4f} "
               f"ms, CUDA graph {graph_ms(call):.4f} ms [{smi}]", flush=True)
-    if "q_offset" not in inspect.signature(fa.flash_attention).parameters:
+    params = inspect.signature(fa.flash_attention).parameters
+    for case, off, cap in SOFTCAP_CASES if "softcap" in params else ():
+        B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
+        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, D, dt)
+        for c in (cap, 0.0):
+            call = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window, q_offset=off,
+                softcap=c)
+            err = (call().float() - naive_attention(
+                q, k, v, causal=causal, window=window, q_offset=off,
+                softcap=c).float()).abs().max()
+            print(f"[{args.tag}] softcap {c} {label(case)} q_offset {off} "
+                  f"{DT_NAME[dt]}: max_abs_err {float(err):.6g}, calls back "
+                  f"to back {eager_ms(call):.4f} ms, CUDA graph "
+                  f"{graph_ms(call):.4f} ms [{smi}]", flush=True)
+    if "q_offset" not in params:
         return 0
     for dt, name in DT_NAME.items():
         for arch, Hq, Hkv, D, S, n, window in CP_CASES:

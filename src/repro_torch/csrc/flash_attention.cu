@@ -13,7 +13,12 @@
 // places q row i at key position q_offset + i, for context parallelism:
 // a rank's query rows against the keys gathered from every rank. Unlike the Pallas
 // kernel, the ragged edge is masked here, so Sq and Sk need not be
-// multiples of the tile.
+// multiples of the tile. A logit softcap c > 0 (Gemma 2's, JAX's
+// layers.attention softcap) replaces each scaled score s by c*tanh(s/c)
+// before the mask and the softmax, as JAX's masked_attention and
+// flash_attention_jnp do; c = 0 leaves the scores as they are. The cap is
+// a template switch (CAP) of both kernels, so the uncapped instantiations
+// compile to the code they had without it.
 //
 // What bounds it on this card: at prefill lengths the work is
 // 4*Hq*D*(unmasked q-k pairs) operations over (|q|+|k|+|v|+|o|) bytes,
@@ -38,7 +43,13 @@
 // tiles are padded by 16 bytes, so the 8 row addresses of an ldmatrix hit
 // 8 distinct 16-byte bank groups. Masking is applied only in tiles that
 // need it (per warp); a row fully masked so far keeps m = -inf and uses 0
-// as its exponent base, so exp(-inf - -inf) never occurs. Blocks start
+// as its exponent base, so exp(-inf - -inf) never occurs. Under a
+// softcap the scale no longer folds into exp2f, since the cap acts on
+// s*scale and is not linear: each accumulator fragment becomes
+// c*tanh(s*(scale/c)) right after the products (tanh.approx.f32, one
+// special-function-unit instruction, relative error ~2^-11, below the
+// 2^-9 rounding of P to bf16), m is tracked in capped units, and log2(e)
+// alone is the exp2 factor. Blocks start
 // in order of decreasing work: the last q tile of every head first, then
 // the one before (the longest causal rows start first; in head-major
 // order qwen2-7b's 28 heads left the last long rows to a second wave).
@@ -56,7 +67,8 @@
 // K and V share one buffer, whole masked tiles are skipped. Its tiles
 // (struct Tiles): D <= 128 64 x 64, 128 threads, two blocks per SM; D =
 // 256 32 x 32, each thread a 2 x 4 score tile and an 8 x 8 output tile,
-// three blocks per SM.
+// three blocks per SM. Its softcap is c*tanhf(s/c) on each score of
+// the tile (the accurate tanhf: the f32 oracles hold it to 2e-5).
 //
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (repro_torch/kernels/flash_attention/ops.py).
@@ -104,11 +116,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(Tiles<D>::NT, Tiles<D>::MINB)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int group, int Sq,
-          int Sk, int causal, int window, int q_offset, float scale) {
+          int Sk, int causal, int window, int q_offset, float scale,
+          float softcap) {
   using Tl = Tiles<D>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, NT = Tl::NT;
   static_assert(BQ == BK, "Q and KV tiles share the loader");
@@ -167,7 +180,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(KVs, kp, k0, Sk, 1.f);
     __syncthreads();
 
-    // S = (q * scale) K^T on this tile, masked
+    // S = (q * scale) K^T on this tile, capped (CAP), masked
     float s[SR][SC];
 #pragma unroll
     for (int i = 0; i < SR; ++i)
@@ -193,7 +206,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const int kpos = k0 + c1 + Tl::SC_T * j;
         const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
                         (window <= 0 || kpos > qpos - window);
-        Ss[(r1 + i) * SP + c1 + Tl::SC_T * j] = ok ? s[i][j] : -INFINITY;
+        float sv = s[i][j];
+        if constexpr (CAP) sv = softcap * tanhf(sv / softcap);
+        Ss[(r1 + i) * SP + c1 + Tl::SC_T * j] = ok ? sv : -INFINITY;
       }
     }
     __syncthreads();  // K is no longer read: V may replace it
@@ -273,17 +288,20 @@ constexpr size_t fma_smem_bytes() {
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bhq, int group, int sq, int sk, int causal, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   int q_offset, float scale, float softcap,
+                   cudaStream_t stream) {
   constexpr int BQ = Tiles<D>::BQ, NT = Tiles<D>::NT;
   const size_t smem = fma_smem_bytes<D>();
+  const bool cap = softcap > 0.f;
+  auto kernel = cap ? flash_fwd<T, D, true> : flash_fwd<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bhq);
-  flash_fwd<T, D><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, causal,
-      window, q_offset, scale);
+      window, q_offset, scale, cap ? softcap : 0.f);
   return cudaGetLastError();
 }
 
@@ -291,13 +309,13 @@ template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        void* o, int bhq, int group, int sq, int sk,
                        int causal, int window, int q_offset, float scale,
-                       cudaStream_t stream) {
+                       float softcap, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 32: return launch<T, 32>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 64: return launch<T, 64>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 128: return launch<T, 128>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 256: return launch<T, 256>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -346,14 +364,26 @@ __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+// c * tanh(x / c) with x = s * scale, as c_out * tanh(s * c_in): c_in =
+// scale / c, c_out = c; tanh on the special-function unit
+__device__ __forceinline__ float tc_softcap(float s, float c_in,
+                                            float c_out) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(s * c_in));
+  return c_out * t;
+}
+
+// scale_log2 multiplies a score into exp2's units: scale * log2(e)
+// without a cap, log2(e) alone with one (CAP: the scores are then already
+// scaled and capped, c_out * tanh(s * c_in))
+template <int D, bool CAP>
 __global__ void __launch_bounds__(TC_NT, TC_MINB)
 flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ o, Layout lay, int hq, int group,
              int Sq, int Sk, int causal, int window, int q_offset,
-             float scale_log2) {
+             float scale_log2, float c_in, float c_out) {
   constexpr int BQ = TC_BQ, BK = TC_BK, RS = D + 8;
   constexpr bool Q_REGS = tc_q_regs<D>();
   constexpr int KS = D / 16;   // k-steps of S = Q K^T
@@ -411,7 +441,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  // per row: running max (unscaled) and this lane's share of the sum
+  // per row: running max (unscaled; capped under CAP) and this lane's
+  // share of the sum
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int tile = t_first; tile < t_end; ++tile) {
@@ -461,6 +492,14 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
         tc::mma(s[2 * jp], qa, kb[jp][0], kb[jp][1]);
         tc::mma(s[2 * jp + 1], qa, kb[jp][2], kb[jp][3]);
       }
+    }
+
+    if constexpr (CAP) {  // before the mask: a masked score stays -inf
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[j][i] = tc_softcap(s[j][i], c_in, c_out);
     }
 
     // mask, where some pair of this warp's rows and this tile needs it
@@ -568,19 +607,22 @@ template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const Layout& lay, int bhq, int hq, int group, int sq,
                       int sk, int causal, int window, int q_offset,
-                      float scale, cudaStream_t stream) {
+                      float scale, float softcap, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
+  constexpr float LOG2E = 1.4426950408889634f;
+  const bool cap = softcap > 0.f;
+  auto kernel = cap ? flash_fwd_tc<D, true> : flash_fwd_tc<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhq, (sq + TC_BQ - 1) / TC_BQ);
-  flash_fwd_tc<D><<<grid, TC_NT, smem, stream>>>(
+  kernel<<<grid, TC_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       lay, hq, group, sq, sk, causal, window, q_offset,
-      scale * 1.4426950408889634f);
+      cap ? LOG2E : scale * LOG2E, cap ? scale / softcap : 0.f,
+      cap ? softcap : 0.f);
   return cudaGetLastError();
 }
 
@@ -589,17 +631,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch_tc(int d, const void* q, const void* k, const void* v,
                         void* o, const Layout& lay, int bhq, int hq,
                         int group, int sq, int sk, int causal, int window,
-                        int q_offset, float scale, cudaStream_t stream) {
+                        int q_offset, float scale, float softcap,
+                        cudaStream_t stream) {
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
        15) != 0)
     return cudaErrorMisalignedAddress;  // cp.async moves 16-byte chunks
   switch (d) {
-    case 16: return launch_tc<16>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
-    case 256: return launch_tc<256>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, stream);
+    case 16: return launch_tc<16>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 32: return launch_tc<32>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 64: return launch_tc<64>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 128: return launch_tc<128>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 256: return launch_tc<256>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -609,26 +652,28 @@ cudaError_t dispatch_tc(int d, const void* q, const void* k, const void* v,
 // q: (bhq, sq, d); k, v: (bhq / group, sk, d); o: (bhq, sq, d); all
 // contiguous, of one dtype (0 = float32, 1 = bfloat16). The kv row of q row
 // bh is bh / group; q row i sits at key position q_offset + i (>= 0).
-// Launches on ``stream``, allocates nothing, and returns
+// softcap > 0 caps each scaled score s at softcap * tanh(s / softcap);
+// 0 leaves it. Launches on ``stream``, allocates nothing, and returns
 // the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, int dtype,
                                          int bhq, int group, int sq, int sk,
                                          int d, int causal, int window,
                                          int q_offset, float scale,
-                                         void* stream) {
+                                         float softcap, void* stream) {
   if (bhq <= 0 || group <= 0 || sq <= 0 || sk <= 0 || bhq % group != 0 ||
-      bhq > 65535 || q_offset < 0)
+      bhq > 65535 || q_offset < 0 ||
+      !(softcap >= 0.f && softcap < INFINITY))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(d, q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, st);
+    err = dispatch_d<float>(d, q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, st);
   else if (dtype == 1)
     err = dispatch_tc(d, q, k, v, o,
                       Layout{0, (long long)sq * d, d, 0, (long long)sk * d, d},
                       bhq, bhq, group, sq, sk, causal, window, q_offset,
-                      scale, st);
+                      scale, softcap, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -637,7 +682,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
 // The model's layout, read and written in place, bf16 only (the tensor-core
 // kernel): q: (b, sq, hq, d); k, v: (b, sk, hkv, d); o: (b, sq, hq, d); all
 // contiguous. The kv head of q head h is h / (hq / hkv); q row i sits at
-// key position q_offset + i (>= 0). Launches on
+// key position q_offset + i (>= 0); softcap as above. Launches on
 // ``stream``, allocates nothing, and returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
@@ -645,14 +690,15 @@ extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
                                               int hq, int hkv, int sq, int sk,
                                               int d, int causal, int window,
                                               int q_offset, float scale,
-                                              void* stream) {
+                                              float softcap, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || sk <= 0 || hq % hkv != 0 ||
-      (long long)b * hq > 65535 || q_offset < 0)
+      (long long)b * hq > 65535 || q_offset < 0 ||
+      !(softcap >= 0.f && softcap < INFINITY))
     return (int)cudaErrorInvalidValue;
   const Layout lay{(long long)sq * hq * d, d, (long long)hq * d,
                    (long long)sk * hkv * d, d, (long long)hkv * d};
   return (int)dispatch_tc(d, q, k, v, o, lay, b * hq, hq, hq / hkv, sq, sk,
-                          causal, window, q_offset, scale,
+                          causal, window, q_offset, scale, softcap,
                           static_cast<cudaStream_t>(stream));
 }
 

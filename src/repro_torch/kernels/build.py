@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -71,3 +72,39 @@ def build(name: str, sources: tuple[str, ...]) -> Built:
     log = log_path.read_text() if log_path.exists() else ""
     return Built(lib=ctypes.CDLL(str(lib_path)), path=lib_path,
                  seconds=seconds, log=log)
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, static shared memory and spills of each kernel in an
+    ``nvcc -Xptxas -v`` log, names demangled where c++filt is there."""
+    kernels, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": 0, "static_smem": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            kernels.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(k["kernel"] for k in kernels),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, n in zip(kernels, names):   # name<template args>
+                n = n.replace("(anonymous namespace)::", "")
+                k["kernel"] = n.removeprefix("void ").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return kernels

@@ -10,6 +10,10 @@ CPU tensor goes to the plain version (``ref.naive_attention``); a CUDA
 tensor goes to the kernel, or the call raises. The kernel is built at its
 first launch (``repro_torch.kernels.build``).
 
+``softcap`` (>= 0) caps each scaled score s at ``softcap * tanh(s /
+softcap)`` before the mask, as JAX's ``layers.attention`` does; 0 leaves
+the scores as they are. Both kernels compute it.
+
 ``q_offset`` (>= 0) places query row i at key position ``q_offset + i``:
 the causal mask keeps k <= q_offset + i and the window k > q_offset + i -
 window. Context parallelism calls the kernel on a rank's query rows
@@ -51,14 +55,12 @@ def build():
         if _built is None:
             from repro_torch.kernels.build import build as nvcc_build
             built = nvcc_build("flash_attention", SOURCES)
-            fn = built.lib.repro_flash_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
-                [ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            fn = built.lib.repro_flash_attention_fwd_bshd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
-                [ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            # q, k, v, o; 9 ints; scale, softcap; the stream
+            for fn in (built.lib.repro_flash_attention_fwd,
+                       built.lib.repro_flash_attention_fwd_bshd):
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+                    [ctypes.c_float] * 2 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             built.lib.repro_flash_attention_smem.argtypes = [ctypes.c_int] * 2
             built.lib.repro_flash_attention_smem.restype = ctypes.c_int
             _built = built
@@ -70,7 +72,12 @@ def smem_bytes(dtype, head_dim: int) -> int:
     return build().lib.repro_flash_attention_smem(_DTYPES[dtype], head_dim)
 
 
-def _check(q, k, v, window: int, q_offset: int) -> None:
+def _check_softcap(softcap: float) -> None:
+    if not 0.0 <= softcap < float("inf"):
+        raise ValueError(f"softcap must be finite and >= 0, got {softcap}")
+
+
+def _check(q, k, v, window: int, q_offset: int, softcap: float) -> None:
     """Raise on what either layout's kernel does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
@@ -83,6 +90,7 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
     if window < 0 or q_offset < 0:
         raise ValueError(f"window and q_offset must be >= 0, got {window}, "
                          f"{q_offset}")
+    _check_softcap(softcap)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous tensors")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
@@ -100,14 +108,14 @@ def _launched(err: int) -> None:
 
 
 def _bhsd_work(q, k, v, *, causal: bool = True, window: int = 0,
-               group: int = 1, q_offset: int = 0):
+               group: int = 1, q_offset: int = 0, softcap: float = 0.0):
     BHq, Sq, D = q.shape
     return flash_work((1, Sq, k.shape[1], BHq, k.shape[0], D, causal,
                        window, q.dtype), q_offset)
 
 
 def _work(q, k, v, *, causal: bool = True, window: int = 0,
-          q_offset: int = 0):
+          q_offset: int = 0, softcap: float = 0.0):
     B, Sq, Hq, D = q.shape
     return flash_work((B, Sq, k.shape[1], Hq, k.shape[2], D, causal, window,
                        q.dtype), q_offset)
@@ -115,13 +123,14 @@ def _work(q, k, v, *, causal: bool = True, window: int = 0,
 
 @charged("flash_attention", _bhsd_work)
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
-                         group: int = 1, q_offset: int = 0):
+                         group: int = 1, q_offset: int = 0,
+                         softcap: float = 0.0):
     """Kernel launch on the (B*H, S, D) layout. q: (B*Hq, Sq, D);
     k, v: (B*Hkv, Sk, D), all contiguous on one CUDA device; the kv row of
     q row bh is bh // group. Returns (B*Hq, Sq, D) in q's dtype."""
     if is_fake(q):
         return torch.empty_like(q)
-    _check(q, k, v, window, q_offset)
+    _check(q, k, v, window, q_offset, softcap)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"expected q (B*Hq,Sq,D), k = v (B*Hkv,Sk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -140,14 +149,16 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPES[q.dtype], BHq, group, Sq, Sk, D, int(causal),
-            int(window), int(q_offset), float(D ** -0.5), stream)
+            int(window), int(q_offset), float(D ** -0.5), float(softcap),
+            stream)
     _launched(err)
     return o
 
 
-def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int):
+def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int,
+                softcap: float):
     """bf16 kernel launch on the model layout, read and written in place."""
-    _check(q, k, v, window, q_offset)
+    _check(q, k, v, window, q_offset, softcap)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     if min(B, Sq, Sk) == 0 or B * Hq > 65535:
@@ -160,7 +171,7 @@ def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int):
         err = lib.repro_flash_attention_fwd_bshd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
             Hkv, Sq, Sk, D, int(causal), int(window), int(q_offset),
-            float(D ** -0.5), stream)
+            float(D ** -0.5), float(softcap), stream)
     _launched(err)
     return o
 
@@ -174,13 +185,14 @@ def _aligned(t):
 
 @charged("flash_attention", _work)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0):
+                    q_offset: int = 0, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
     if is_fake(q):
         return torch.empty_like(q)
+    _check_softcap(softcap)
     if q.device.type == "cpu":
         return naive_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, softcap=softcap)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             k.shape[0] != q.shape[0] or k.shape[2] == 0 or \
             q.shape[2] % k.shape[2]:
@@ -189,12 +201,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype == torch.bfloat16:
         return _flash_bshd(_aligned(q), _aligned(k), _aligned(v), causal,
-                           window, q_offset)
+                           window, q_offset, softcap)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     qt = q.transpose(1, 2).reshape(B * Hq, Sq, D).contiguous()
     kt = k.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
     vt = v.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
     out = flash_attention_bhsd(qt, kt, vt, causal=causal, window=window,
-                               group=Hq // Hkv, q_offset=q_offset)
+                               group=Hq // Hkv, q_offset=q_offset,
+                               softcap=softcap)
     return out.reshape(B, Hq, Sq, D).transpose(1, 2)

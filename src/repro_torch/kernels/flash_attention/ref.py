@@ -16,15 +16,19 @@ LOG2E = 1.4426950408889634
 
 
 def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0):
+                    q_offset: int = 0, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D); query
-    row i sits at key position ``q_offset + i``."""
+    row i sits at key position ``q_offset + i``; ``softcap`` > 0 caps the
+    scaled f32 scores at softcap * tanh(s / softcap) before the mask (JAX's
+    ``masked_attention``)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     kr = k.repeat_interleave(G, dim=2).float()
     vr = v.repeat_interleave(G, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * (D ** -0.5)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
     qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -39,16 +43,18 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def tiled_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    block_k: int = 64):
+                    block_k: int = 64, softcap: float = 0.0):
     """The bf16 kernel's arithmetic, plainly: an online softmax over kv
     tiles of ``block_k`` rows with f32 scores, running max and sum (the
-    scale folded into exp2 with log2 e); P rounded to q's dtype before
-    P V; f32 accumulation; acc / max(l, 1e-20) in q's dtype.
+    scale folded into exp2 with log2 e; under ``softcap`` the scores are
+    capped as softcap * tanh(s * (scale / softcap)), the max is tracked in
+    capped units and log2 e alone is the factor); P rounded to q's dtype
+    before P V; f32 accumulation; acc / max(l, 1e-20) in q's dtype.
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    sl2 = D ** -0.5 * LOG2E
+    sl2 = LOG2E if softcap > 0 else D ** -0.5 * LOG2E
     qf = q.float().transpose(1, 2)                       # (B, Hq, Sq, D)
     kf = k.repeat_interleave(G, dim=2).float().transpose(1, 2)
     vr = v.repeat_interleave(G, dim=2).transpose(1, 2)   # q's dtype
@@ -58,6 +64,8 @@ def tiled_attention(q, k, v, *, causal: bool = True, window: int = 0,
     acc = torch.zeros((B, Hq, Sq, D), device=q.device)
     for k0 in range(0, Sk, block_k):
         s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
+        if softcap > 0:
+            s = softcap * torch.tanh(s * (D ** -0.5 / softcap))
         kpos = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
         mask = torch.ones_like(s[0, 0], dtype=torch.bool)
         if causal:

@@ -265,17 +265,11 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     position ``q_offset + i`` (context parallelism passes its rank's
     offset among the gathered keys).
 
-    A CUDA tensor goes to the flash kernel at every length, and the call
-    raises where the kernel cannot compute it (``softcap``). A CPU tensor
+    A CUDA tensor goes to the flash kernel at every length, a logit
+    ``softcap`` included (the kernel caps the scaled scores); a CPU tensor
     goes to the kernel's plain version through the same wrapper."""
-    if q.is_cuda and softcap != 0.0:
-        raise NotImplementedError("the CUDA flash kernel has no logit "
-                                  "softcap")
-    if softcap != 0.0:
-        return masked_attention(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset, softcap=softcap)
     return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset)
+                           q_offset=q_offset, softcap=softcap)
 
 
 def flash_attention_blocked(q, k, v, *, causal: bool = True,

@@ -46,7 +46,10 @@ def flash_work(case, q_offset: int = 0) -> Tuple[int, int]:
     """Operations (4 x Hq x D per unmasked (q, k) pair of the Sq x Sk) and
     bytes (q read and o written once, and of k and v only the keys some
     row may see); ``case`` is (B, Sq, Sk, Hq, Hkv, D, causal, window,
-    dtype)."""
+    dtype). A logit softcap adds nothing: its tanh, like the softmax's
+    exp, runs on the special-function units beside the tensor-core
+    products the count holds, so a capped call is charged as an uncapped
+    one."""
     B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case
     ops = 4 * B * Hq * D * unmasked_pairs(Sq, Sk, causal, window, q_offset)
     keys = visible_keys(Sq, Sk, causal, window, q_offset)

@@ -78,7 +78,16 @@ class TrainRunner:
     def run(self, state=None, start_step: Optional[int] = None):
         """Train from ``state`` (default: the latest checkpoint, or a new
         state) to ``total_steps``. A step's ``dur_s`` is host time from
-        the call to the loss read back, which waits for the device."""
+        the call to the loss read back, which waits for the device. A
+        checkpoint whose write has started is complete when the call
+        returns or raises (an injected failure included), so a runner
+        that resumes in the same process finds it."""
+        try:
+            return self._run(state, start_step)
+        finally:
+            self.ckpt.wait()
+
+    def _run(self, state, start_step: Optional[int]):
         rc = self.run_cfg
         if state is None:
             state, start_step = self.resume_or_init()
@@ -106,5 +115,4 @@ class TrainRunner:
             if (step + 1) % rc.ckpt_every == 0:
                 self.ckpt.save(state, step + 1,
                                extra={"data_step": step + 1})
-        self.ckpt.wait()
         return state

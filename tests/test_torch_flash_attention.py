@@ -11,6 +11,13 @@ to bf16 before P V), is held in bf16 against both on small versions of
 the served shapes. The CUDA kernel is held against the plain version on
 the card (``gpu`` marker), on the edges of its tensor-core path too.
 
+The logit softcap: ``naive_attention`` and ``layers.attention`` (the
+wrapper's CPU path) with softcap 1.0 and 50.0 against JAX's
+``masked_attention`` and ``flash_attention_jnp`` (causal, windowed,
+non-causal Sq != Sk, a q_offset, granite-20b's group of 48 on one kv
+head); ``tiled_attention``'s capped bf16 arithmetic against JAX's oracle;
+on the card the kernel with a softcap on every edge and granite's MQA.
+
 Tolerances are the repo's own: 2e-5 in f32, 3e-2 in bf16.
 """
 import numpy as np
@@ -200,9 +207,15 @@ def test_bhsd_layout_matches_model_layout_on_card(cuda, B, S, Hq, Hkv, D,
     assert torch.equal(bhsd.reshape(B, Hq, S, D).transpose(1, 2), out)
 
 
+# granite-20b's multi-query attention (48 q heads on one kv head, D 128)
+# at small lengths, for the card
+GRANITE = [(1, S, 48, 1, 128, True, 0, dt)
+           for S in (32, 200) for dt in ("bfloat16", "float32")]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,dtype",
-                         CASES + RAGGED + HEAD_DIM_256 + EDGES)
+                         CASES + RAGGED + HEAD_DIM_256 + EDGES + GRANITE)
 def test_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, causal, window,
                                       dtype):
     q, k, v = _inputs(3, B, S, Hq, Hkv, D)
@@ -215,3 +228,123 @@ def test_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, causal, window,
     ref = naive_attention(*t, causal=causal, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+# the logit softcap: (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset);
+# Sq and Sk multiples of SOFTCAP_BLOCK, as JAX's flash_attention_jnp needs
+SOFTCAP_SHAPES = {
+    "causal": (1, 128, 128, 4, 2, 32, True, 0, 0),
+    "window": (2, 128, 128, 4, 4, 16, True, 24, 0),
+    "full_sq_ne_sk": (1, 64, 128, 8, 8, 16, False, 0, 0),
+    "q_offset": (1, 64, 128, 4, 2, 32, True, 0, 64),
+    "mqa_group48": (1, 64, 64, 48, 1, 16, True, 0, 0),
+}
+SOFTCAP_BLOCK = 32
+SOFTCAPS = (1.0, 50.0)
+
+
+def _qkv(seed, B, Sq, Sk, Hq, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("cap", SOFTCAPS)
+@pytest.mark.parametrize("name", list(SOFTCAP_SHAPES))
+def test_softcap_plain_and_attention_match_jax(name, cap):
+    """``naive_attention`` and ``layers.attention`` (through the wrapper's
+    CPU path) with a softcap against JAX's ``masked_attention`` and its
+    blocked ``flash_attention_jnp``, f32, 2e-5."""
+    import jax.numpy as jnp
+    from repro.models import layers as jL
+    from repro_torch.models import layers as L
+    B, Sq, Sk, Hq, Hkv, D, causal, window, off = SOFTCAP_SHAPES[name]
+    q, k, v = _qkv(7, B, Sq, Sk, Hq, Hkv, D)
+    kw = dict(causal=causal, window=window, q_offset=off, softcap=cap)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    refs = {"masked_attention": jL.masked_attention(jq, jk, jv, **kw),
+            "flash_attention_jnp": jL.flash_attention_jnp(
+                jq, jk, jv, q_block=SOFTCAP_BLOCK, kv_block=SOFTCAP_BLOCK,
+                **kw)}
+    t = [torch.as_tensor(x) for x in (q, k, v)]
+    before = ops.launches
+    outs = {"naive_attention": naive_attention(*t, **kw),
+            "layers.attention": L.attention(*t, **kw)}
+    assert ops.launches == before
+    for got_name, got in outs.items():
+        assert got.shape == (B, Sq, Hq, D)
+        for ref_name, ref in refs.items():
+            np.testing.assert_allclose(
+                got.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5,
+                err_msg=f"{got_name} vs {ref_name}")
+    if cap == 1.0:   # the cap bends these scores: the output moves
+        plain = naive_attention(*t, causal=causal, window=window,
+                                q_offset=off)
+        assert (plain - outs["naive_attention"]).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("cap", SOFTCAPS)
+@pytest.mark.parametrize("name", ["causal", "window", "mqa_group48"])
+def test_tiled_bf16_softcap_matches_naive_attention(name, cap):
+    """The bf16 kernel's capped arithmetic (the max in capped units, log2
+    e alone as the exp2 factor) against JAX's capped oracle in bf16."""
+    from repro.models import layers as jL
+    import jax.numpy as jnp
+    B, S, _, Hq, Hkv, D, causal, window, _ = SOFTCAP_SHAPES[name]
+    q, k, v = _qkv(8, B, S, S, Hq, Hkv, D)
+    ref = jL.masked_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                for x in (q, k, v)),
+                              causal=causal, window=window, softcap=cap)
+    t = [torch.as_tensor(x).bfloat16() for x in (q, k, v)]
+    out = tiled_attention(*t, causal=causal, window=window,
+                          block_k=KV_TILE, softcap=cap)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=TILED_TOL, rtol=TILED_TOL)
+
+
+def test_attention_with_softcap_takes_the_wrapper_without_launch():
+    """``layers.attention`` no longer raises on a softcap: a CPU tensor
+    goes through the flash wrapper to its plain version, no launch; a
+    negative softcap is refused."""
+    from repro_torch.models import layers as L
+    q, k, v = (torch.as_tensor(x) for x in _qkv(9, 1, 40, 40, 4, 2, 16))
+    before = ops.launches
+    out = L.attention(q, k, v, causal=True, window=0, softcap=5.0)
+    assert ops.launches == before
+    assert torch.equal(out, naive_attention(q, k, v, softcap=5.0))
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention(q, k, v, softcap=-1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", SOFTCAPS)
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,dtype", EDGES + GRANITE)
+def test_kernel_softcap_matches_plain_on_card(cuda, B, S, Hq, Hkv, D, causal,
+                                              window, dtype, cap):
+    q, k, v = _inputs(10, B, S, Hq, Hkv, D)
+    t = [torch.as_tensor(x).to(device=cuda, dtype=TORCH_DT[dtype])
+         for x in (q, k, v)]
+    before = ops.launches
+    out = ops.flash_attention(*t, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    ref = naive_attention(*t, causal=causal, window=window, softcap=cap)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layers_attention_with_softcap_launches_on_card(cuda, dtype):
+    from repro_torch.models import layers as L
+    t = [torch.as_tensor(x).to(device=cuda, dtype=TORCH_DT[dtype])
+         for x in _qkv(12, 1, 100, 100, 8, 2, 64)]
+    before = ops.launches
+    out = L.attention(*t, causal=True, window=0, softcap=1.0)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), naive_attention(*t, softcap=1.0).float(),
+        atol=_tol(dtype), rtol=_tol(dtype))

@@ -58,6 +58,27 @@ def test_restart_after_failure_gives_the_uninterrupted_losses(tmp_path):
     assert all(m["dur_s"] > 0 for m in second.metrics_log)
 
 
+def test_a_failure_waits_for_the_checkpoint_being_written(tmp_path,
+                                                          monkeypatch):
+    """The step-8 checkpoint's write is still running when the failure at
+    step 8 raises: ``run`` finishes that write before it raises, so a
+    runner resuming in the same process starts from step 8, not 4."""
+    import time
+    from repro_torch.checkpoint import ckpt
+    real = ckpt.CheckpointManager._save_sync
+
+    def slow(self, leaves, step, extra):
+        time.sleep(0.5)
+        real(self, leaves, step, extra)
+    monkeypatch.setattr(ckpt.CheckpointManager, "_save_sync", slow)
+    first = _runner(tmp_path, fail_at_step=8)
+    with pytest.raises(SimulatedFailure, match="at 8"):
+        first.run()
+    assert first.ckpt.all_steps() == [4, 8]
+    _, start = _runner(tmp_path).resume_or_init()
+    assert start == 8
+
+
 def test_train_launcher_restarts_on_the_cpu(tmp_path, capsys):
     runner = launch_train.main([
         "--device", "cpu", "--steps", "12", "--batch", "4", "--seq", "32",
