@@ -423,7 +423,7 @@ from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
 from repro_torch.examples import serve_with_background_training as swbt  # noqa: E402
 from repro_torch.examples import vgang_fleet  # noqa: E402
-from repro_torch.kernels.build import ptxas_report  # noqa: E402
+from repro_torch.kernels.build import ptxas_report, sass_opcodes  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
@@ -464,6 +464,9 @@ from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
                                          singleton_vgangs)
 from torch_flash_cases import (AUDIO_FRAMES, AUDIO_PROMPTS,  # noqa: E402
                                CP_CASES, SOFTCAP_CASES, TIMED, VLM_PROMPTS)
+from torch_gmm_cases import (EP_N, SERVE_SHAPES, ep_cases,  # noqa: E402
+                             gmm_counts)
+import torch_fig1_overlap as fig1_trace  # noqa: E402
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 without them,
 # HBM3 bandwidth (repro_torch.roofline.report, where their sources stand)
@@ -500,9 +503,9 @@ FLASH_EDGES = [(1, 77, 77, 4, 4, 16, True, 0, torch.bfloat16),
                (1, 300, 300, 16, 1, 256, False, 0, torch.bfloat16)]
 REPORTED = (1, 1024, 1024, 28, 4, 128, True, 0, torch.bfloat16)
 
-# moe_gmm: (label, E, C, D, F, counts, dtype); counts "random" (uniform in
-# [0, C]), "decode" (32 of the 64 experts hold one row) or "route<T>" (the
-# rows T random tokens give each expert under top-8 routing, at most C)
+# moe_gmm: (label, E, C, D, F, counts, dtype); counts as
+# scripts/torch_gmm_cases.py's gmm_counts draws them; the serve shapes and
+# (t)'s are that module's
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 GMM_CASES = [
     ("test", 4, 32, 16, 24, "random", torch.float32),
@@ -519,14 +522,18 @@ GMM_EDGES = [("edge", E, C, D, F, kind, torch.bfloat16)
                                 (3, 9, 40, 100), (2, 160, 96, 264),
                                 (3, 21, 37, 45))
              for kind in ("random", "zero", "full")]
-GMM_SERVE = [(label, 64, C, D, F, counts, dt)
-             for dt in (torch.bfloat16, torch.float32)
-             for label, C, D, F, counts in (
-                 ("decode gate/up", 8, 2048, 1024, "decode"),
-                 ("decode down", 8, 1024, 2048, "decode"),
-                 ("prefill T=1024 gate/up", 160, 2048, 1024, "route1024"),
-                 ("prefill T=1024 down", 160, 1024, 2048, "route1024"),
-                 ("prefill T=300 gate/up", 48, 2048, 1024, "route300"))]
+# the edges of the wgmma path (bf16, C > 16; tests/test_torch_moe_gmm.py's
+# WGMMA_EDGES at small widths): C of 17, 63, 64, 65, 128, 192, 300 and
+# 2560, E of 1 and 64, D and F multiples of 8 only; counts random, 0, C,
+# and every row in one expert
+GMM_EDGES += [("wgmma edge", E, C, D, F, kind, torch.bfloat16)
+              for E, C, D, F in ((1, 17, 64, 64), (2, 63, 72, 136),
+                                 (3, 64, 128, 128), (2, 65, 64, 192),
+                                 (64, 128, 72, 136), (3, 192, 256, 512),
+                                 (2, 300, 64, 136), (1, 2560, 128, 64))
+              for kind in ("random", "zero", "full", "one")]
+GMM_SERVE = [(*shape, dt) for dt in (torch.bfloat16, torch.float32)
+             for shape in SERVE_SHAPES]
 GMM_REPORTED = GMM_SERVE[0]
 
 # ssd_scan: (label, B, S, H, P, N, chunk, dtype); the first four are
@@ -930,23 +937,6 @@ def phase_softcap(dev, smi: str) -> list[dict]:
     return rows
 
 
-def gmm_counts(kind: str, E: int, C: int, gen, dev) -> torch.Tensor:
-    if kind in ("zero", "full"):
-        return torch.full((E,), 0 if kind == "zero" else C,
-                          dtype=torch.int32, device=dev)
-    if kind == "random":
-        return torch.randint(0, C + 1, (E,), generator=gen, device=dev,
-                             dtype=torch.int32)
-    if kind == "decode":
-        used = torch.randperm(E, generator=gen, device=dev)[:E // 2]
-        return torch.zeros((E,), dtype=torch.int32, device=dev).index_fill_(
-            0, used, 1)
-    T = int(kind.removeprefix("route"))
-    probs = torch.softmax(torch.randn((T, E), generator=gen, device=dev), -1)
-    tope = torch.topk(probs, 8, dim=-1).indices.reshape(-1)
-    return torch.bincount(tope, minlength=E).clamp(max=C).to(torch.int32)
-
-
 def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
     """Least time for this call: its operations over the peak rate of the
     type against its bytes over the memory rate (gmm_work)."""
@@ -954,6 +944,33 @@ def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
     t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def gmm_call(x, w, counts) -> tuple[torch.Tensor, str]:
+    """One wrapper call, synchronised; its output and the path it took."""
+    before = dict(gmm.launches_by_path)
+    out = gmm.grouped_matmul(x, w, counts)
+    torch.cuda.synchronize()
+    (path,) = [p for p, n in gmm.launches_by_path.items() if n != before[p]]
+    return out, path
+
+
+def gmm_times(x, w, counts) -> dict:
+    """The kernel's time back to back (``ms``, the wrapper's host dispatch
+    included) and in a CUDA graph (device time), the plain version's,
+    ``torch.bmm``'s both ways, the bound and the graph time's share of it.
+    """
+    E, C, D = x.shape
+    bound_ms, bound_by = gmm_bound(E, C, D, w.shape[2], counts, x.dtype)
+    call = lambda: gmm.grouped_matmul(x, w, counts)  # noqa: E731
+    lib = lambda: torch.bmm(x, w)  # noqa: E731
+    row = {"ms": time_ms(call), "graph_ms": graph_ms(call),
+           "plain_ms": time_ms(lambda: gmm_reference(x, w, counts)),
+           "library_ms": time_ms(lib), "library_graph_ms": graph_ms(lib),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    row.update(share=bound_ms / row["graph_ms"],
+               graph_ratio=row["graph_ms"] / row["library_graph_ms"])
+    return row
 
 
 def phase_gmm(dev, smi: str) -> list[dict]:
@@ -966,8 +983,7 @@ def phase_gmm(dev, smi: str) -> list[dict]:
         w = (torch.randn((E, D, F), generator=gen, device=dev)
              * D ** -0.5).to(dt)
         counts = gmm_counts(kind, E, C, gen, dev)
-        out = gmm.grouped_matmul(x, w, counts)
-        torch.cuda.synchronize()
+        out, path = gmm_call(x, w, counts)
         ref = gmm_reference(x, w, counts)
         err = (out.float() - ref.float()).abs().max().item()
         tol = GMM_TOL[dt]
@@ -975,27 +991,25 @@ def phase_gmm(dev, smi: str) -> list[dict]:
         name = (f"{label} E={E} C={C} D={D} F={F} {DT_NAME[dt]} "
                 f"rows in use {int(counts.sum())}, experts in use "
                 f"{int((counts > 0).sum())}")
-        row = {"case": name, "max_abs_err": err, "tol": tol, "ok": bool(ok)}
+        row = {"case": name, "path": path, "max_abs_err": err, "tol": tol,
+               "ok": bool(ok)}
         if case in GMM_SERVE:
-            bound_ms, bound_by = gmm_bound(E, C, D, F, counts, dt)
-            row.update(
-                ms=time_ms(lambda: gmm.grouped_matmul(x, w, counts)),
-                plain_ms=time_ms(lambda: gmm_reference(x, w, counts)),
-                library_ms=time_ms(lambda: torch.bmm(x, w)),
-                bound_ms=bound_ms, bound_by=bound_by,
-                reported=case == GMM_REPORTED)
+            row.update(gmm_times(x, w, counts), reported=case == GMM_REPORTED)
             ops, nbytes = gmm_work(E, C, D, F, counts, dt)
             row.update(ratio=row["ms"] / row["library_ms"],
                        tflops=ops / row["ms"] / 1e9,
                        tbps=nbytes / row["ms"] / 1e9)
-            print(f"[gmm] {name}: kernel {row['ms']:.4f} ms, plain "
+            print(f"[gmm] {name}: {path} path, kernel {row['ms']:.4f} ms "
+                  f"(graph {row['graph_ms']:.4f} ms), plain "
                   f"{row['plain_ms']:.4f} ms, bmm {row['library_ms']:.4f} "
-                  f"ms, kernel/bmm {row['ratio']:.2f}x, "
-                  f"{row['tflops']:.1f} TFLOP/s, {row['tbps']:.3f} TB/s, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
-                  f"{err:.3g} [{smi}]")
+                  f"ms (graph {row['library_graph_ms']:.4f} ms), "
+                  f"kernel/bmm {row['ratio']:.2f}x (graph "
+                  f"{row['graph_ratio']:.2f}x), {row['tflops']:.1f} TFLOP/s, "
+                  f"{row['tbps']:.3f} TB/s, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {100 * row['share']:.1f}% of it in "
+                  f"the graph, max_abs_err {err:.3g} [{smi}]")
         else:
-            print(f"[gmm] {name}: max_abs_err {err:.3g}")
+            print(f"[gmm] {name}: {path} path, max_abs_err {err:.3g}")
         if not ok:
             fail(f"moe_gmm disagrees with its plain version on {name}: "
                  f"max_abs_err {err} > {tol}")
@@ -1102,26 +1116,6 @@ def phase_cp(dev, smi: str) -> dict:
     return {"rows": rows, "launches": launched}
 
 
-# (t): moe_gmm at olmoe-1b-7b's expert-parallel shapes under EP 16: 4
-# experts a device; the all-to-all receive buffer of a 1024-token prefill
-# rank (16 senders x the capacity), and the replicated decode's buffer of
-# 8 tokens a data rank under both capacity formulas (JAX's 4.0 baseline
-# and the tight one at 2.0)
-EP_N, EP_DECODE_T = 16, 8
-
-
-def ep_cases():
-    cfg = get_config("olmoe-1b-7b")
-    E, k, D, Fd = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.d_ff
-    e_loc = E // EP_N
-    cap = M._capacity(1024, k, E, cfg.moe.capacity_factor)
-    out = [("a2a prefill", e_loc, EP_N * cap, D, Fd)]
-    for mult in (4.0, 2.0):
-        c = M._decode_capacity(mult, EP_DECODE_T, k, E)
-        out.append((f"replicated decode cap_mult {mult}", e_loc, c, D, Fd))
-    return out
-
-
 def phase_ep(dev, smi: str) -> dict:
     """(t): moe_gmm against its plain version at the EP bodies' shapes,
     both products of the SwiGLU (D -> F and F -> D), every row counted as
@@ -1138,8 +1132,7 @@ def phase_ep(dev, smi: str) -> dict:
                      * din ** -0.5).to(dt)
                 counts = torch.full((e,), C, dtype=torch.int32, device=dev)
                 before = gmm.launches
-                out = gmm.grouped_matmul(x, w, counts)
-                torch.cuda.synchronize()
+                out, path = gmm_call(x, w, counts)
                 launched += gmm.launches - before
                 ref = gmm_reference(x, w, counts)
                 err = (out.float() - ref.float()).abs().max().item()
@@ -1149,19 +1142,16 @@ def phase_ep(dev, smi: str) -> dict:
                 if not torch.allclose(out.float(), ref.float(), atol=tol,
                                       rtol=tol):
                     fail(f"(t) {name}: max_abs_err {err} > {tol}")
-                bound_ms, bound_by = gmm_bound(e, C, din, dout, counts, dt)
-                row = {"case": name, "max_abs_err": err,
-                       "ms": time_ms(lambda: gmm.grouped_matmul(x, w,
-                                                                counts)),
-                       "plain_ms": time_ms(lambda: gmm_reference(x, w,
-                                                                 counts)),
-                       "library_ms": time_ms(lambda: torch.bmm(x, w)),
-                       "bound_ms": bound_ms, "bound_by": bound_by}
-                print(f"[ep] {name}: kernel {row['ms']:.4f} ms, plain "
+                row = {"case": name, "path": path, "max_abs_err": err,
+                       **gmm_times(x, w, counts)}
+                print(f"[ep] {name}: {path} path, kernel {row['ms']:.4f} ms "
+                      f"(graph {row['graph_ms']:.4f} ms), plain "
                       f"{row['plain_ms']:.4f} ms, bmm "
-                      f"{row['library_ms']:.4f} ms, bound "
-                      f"{bound_ms:.4f} ms ({bound_by}), max_abs_err "
-                      f"{err:.3g} [{smi}]")
+                      f"{row['library_ms']:.4f} ms (graph "
+                      f"{row['library_graph_ms']:.4f} ms), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                      f"{100 * row['share']:.1f}% of it in the graph, "
+                      f"max_abs_err {err:.3g} [{smi}]")
                 rows.append(row)
     return {"rows": rows, "launches": launched}
 
@@ -1652,6 +1642,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
                     max_batch=4, max_seq=2048, duration=duration, api=api,
                     params=params, log=log)
     launches = read_launches()
+    gmm_paths = dict(gmm.launches_by_path)
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reqs = res["requests"]
@@ -1681,6 +1672,21 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
         if launches[name] != n:
             fail(f"{arch}: {name} launched {launches[name]} times on the "
                  f"serve path, expected {n}")
+    if moe:
+        # every prefill (the warm-up's prompt is the first) whose capacity
+        # buffer holds more than 16 rows runs on the wgmma path; the
+        # others and every decode step on the swapped mma.sync tile
+        caps = [M._capacity(T, cfg.moe.top_k, cfg.moe.n_experts,
+                            cfg.moe.capacity_factor)
+                for T in (SERVE_PROMPTS[0], *SERVE_PROMPTS)]
+        wide = 3 * cfg.n_layers * sum(c > 16 for c in caps)
+        print(f"[serve] {arch} moe_gmm launches by path {gmm_paths}: "
+              f"prefill capacities {caps}, {wide} launches with C > 16 "
+              f"[{smi}]")
+        if gmm_paths["wgmma"] != wide or gmm_paths["fill"] or \
+                gmm_paths["fma"]:
+            fail(f"{arch}: moe_gmm took {gmm_paths}; the {wide} launches "
+                 f"with C > 16 must all take wgmma")
     # the engine alone (no executor, no best-effort thread): one decode
     # step over 4 busy slots and one 1024-token prefill, host clock around
     # work that ends in a synchronize
@@ -1729,6 +1735,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     print(f"[serve] {arch} bf16 request 0: first {agree}/{SERVE_MAX_NEW} "
           f"tokens equal the bf16 {kind} (reported, not checked)")
     return {"api": api, "params": params, "launches": launches,
+            "moe_gmm_paths": gmm_paths if moe else None,
             "prefills": prefills, "decode_steps": decode_steps,
             "decode_p50_ms": float(np.percentile(lat, 50)),
             "decode_p99_ms": float(np.percentile(lat, 99)),
@@ -2263,20 +2270,9 @@ def check_stub_family(api, params, batches, logits, max_seq: int) -> dict:
 
 
 def device_events(fn, name: str) -> list[dict]:
-    """The device events (kernels, copies, memsets) of ``fn()`` under
-    ``torch.profiler``, from its chrome trace (``build/trace_<name>.json``):
-    name, stream, start and duration in µs (device clock)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    path = ROOT / "build" / f"trace_{name}.json"
-    path.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    return [{"name": e["name"], "stream": e.get("args", {}).get("stream"),
-             "ts": float(e["ts"]), "dur": float(e["dur"])}
-            for e in json.loads(path.read_text())["traceEvents"]
-            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    """The device events of ``fn()`` under ``torch.profiler``
+    (``build/trace_<name>.json``)."""
+    return fig1_trace.device_events(fn, ROOT / "build" / f"trace_{name}.json")
 
 
 def dave2_flops(cfg, batch: int) -> int:
@@ -2375,23 +2371,6 @@ def phase_dave2(dev, smi: str) -> dict:
             "b1_top_ms": {n: d / 1e3 / n_fwd for n, d in top}}
 
 
-def overlap(dnn: list[dict], others: list[dict]) -> dict:
-    """How much of the DNN's kernel time the other kernels ran beside it."""
-    merged = []
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in others):
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
-    dnn_us = sum(e["dur"] for e in dnn)
-    both_us = sum(max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"]))
-                  for e in dnn for a, b in merged)
-    return {"dnn_kernel_ms": dnn_us / 1e3, "overlap_ms": both_us / 1e3,
-            "share": both_us / dnn_us if dnn_us else 0.0,
-            "dnn_kernels": len(dnn), "other_kernels": len(others),
-            "other_busy_ms": sum(b - a for a, b in merged) / 1e3}
-
-
 def phase_fig1(dev, smi: str) -> dict:
     """(g) the port's Fig.1 benchmark; then one co-run traced, to show that
     the memory co-runner's kernels run beside the DNN's (streams of their
@@ -2418,13 +2397,7 @@ def phase_fig1(dev, smi: str) -> dict:
     if len(by_stream) < 2:
         fail(f"fig1: the co-run trace holds kernels on {len(by_stream)} "
              f"stream(s)")
-    # the DNN's stream has the most distinct kernels, the co-runner's is
-    # the busiest other one
-    mine = max(by_stream, key=lambda s: len({e["name"]
-                                             for e in by_stream[s]}))
-    hog = max((s for s in by_stream if s != mine),
-              key=lambda s: sum(e["dur"] for e in by_stream[s]))
-    ov = overlap(by_stream[mine], by_stream[hog])
+    ov = fig1_trace.corun_overlap(by_stream)
     print(f"[fig1] co-run traced (torch.profiler): the DNN's "
           f"{ov['dnn_kernels']} kernels take {ov['dnn_kernel_ms']:.4f} ms, "
           f"{ov['overlap_ms']:.4f} ms of it ({ov['share']:.3f}) beside the "
@@ -2487,7 +2460,7 @@ def phase_fig6(dev, smi: str, dnn_kernels: list[str]) -> dict:
         row = out["row"]
         n = row["n"]
         mine = [e for e in events if e["name"] in dnn_kernels]
-        ov = overlap(mine, [e for e in events
+        ov = fig1_trace.overlap(mine, [e for e in events
                             if e["name"] not in dnn_kernels])
         t = traced[mode] = dict(
             ov, n=n, dnn_busy_ms=ov["dnn_kernel_ms"] / n,
@@ -3061,7 +3034,7 @@ def stream_overlap(intervals: list[dict], name: str, other: str) -> dict:
         return [{"ts": q["start_ms"] * 1e3,
                  "dur": (q["end_ms"] - q["start_ms"]) * 1e3}
                 for q in intervals if q["name"] == n]
-    ov = overlap(events(name), events(other))
+    ov = fig1_trace.overlap(events(name), events(other))
     return {"stream_ms": ov["dnn_kernel_ms"], "overlap_ms": ov["overlap_ms"],
             "share": ov["share"]}
 
@@ -3218,7 +3191,7 @@ def main() -> int:
                   f"{k['static_smem']} B static shared memory, spills "
                   f"{k['spill_stores']} B stored / {k['spill_loads']} B "
                   f"loaded")
-            if (re.search(r"_tc[<I]", k["kernel"]) or
+            if (re.search(r"_(tc|wgmma)[<I]", k["kernel"]) or
                     name in ("ssd_scan", "rglru_scan")) and \
                     k["spill_stores"] + k["spill_loads"]:
                 fail(f"kernel {k['kernel']} spills registers")
@@ -3226,9 +3199,27 @@ def main() -> int:
         path = "tensor cores" if dt == torch.bfloat16 else "FMA"
         print(f"[build] dynamic shared memory a block, {DT_NAME[dt]} "
               f"({path}): flash_attention " + ", ".join(
-                  f"D={d} {fa.smem_bytes(dt, d)} B" for d in fa.HEAD_DIMS)
-              + "; moe_gmm " + ", ".join(
-                  f"C={c} {gmm.smem_bytes(dt, c)} B" for c in (8, 16, 160)))
+                  f"D={d} {fa.smem_bytes(dt, d)} B" for d in fa.HEAD_DIMS))
+    print("[build] dynamic shared memory a block, moe_gmm: " + ", ".join(
+        f"{p} C={c} {gmm.smem_bytes(p, c)} B" for p, c in (
+            ("fma", 160), ("swap", 8), ("swap", 16), ("fill", 160),
+            ("wgmma", 160))))
+    # moe_gmm's prefill path must be Hopper's: products on wgmma (HGMMA),
+    # operands through TMA (UTMALDG), no spill
+    wg_kernels = [k for k in build_report["moe_gmm"]
+                  if k["kernel"].startswith("gmm_wgmma")]
+    if not wg_kernels:
+        fail("moe_gmm's library holds no gmm_wgmma kernel")
+    for k in wg_kernels:
+        print(f"[build] moe_gmm {k['kernel']}: {k['registers']} registers, "
+              f"{gmm.smem_bytes('wgmma', 160)} B dynamic shared memory, "
+              f"spills {k['spill_stores']} / {k['spill_loads']} B")
+    sass = sass_opcodes(builds["moe_gmm"].path, "gmm_wgmma",
+                        ("HGMMA", "UTMALDG", "UTMASTG"))
+    print(f"[build] moe_gmm gmm_wgmma SASS (cuobjdump -sass): {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        fail(f"gmm_wgmma's SASS lacks HGMMA or UTMALDG: {sass}")
+    build_report["moe_gmm_wgmma_sass"] = sass
     print(f"[build] dynamic shared memory a block, ssd_scan's chunk-parallel "
           f"scan (both dtypes): {ssd.smem_bytes()} B")
     phase_s = {}

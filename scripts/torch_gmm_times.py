@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Device times of the port's grouped-matmul kernel (moe_gmm) on one
+NVIDIA card: the serve shapes ``chip_smoke.py`` (c2) times and the
+expert-parallel shapes of its phase (t), in bf16 and f32.
+
+    PYTHONPATH=<checkout>/src python3 scripts/torch_gmm_times.py [--tag T]
+
+Each shape is timed as 20 wrapper calls captured in a CUDA graph and
+replayed (device time only: back to back, a call this short is timed by
+its wrapper's host dispatch), beside ``torch.bmm`` on the same inputs
+timed the same way, the least time the card could take (``roofline/
+work.gmm_work``: each input byte read once, the rows in use multiplied,
+against 989 TFLOP/s bf16 / 67 TFLOP/s f32 and 3.35 TB/s) and the kernel's
+share of it, with the largest absolute difference from the plain version
+(``ref.gmm_reference``) and the path the wrapper took where it reports
+one. The kernel comes from whichever checkout's ``src`` is first on
+``PYTHONPATH`` (each builds into its own ``build/``), so one copy of this
+script times two commits' kernels in one call. Prints one line a case
+with the card's name and power limit, then one JSON line of every case.
+Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+from torch_gmm_cases import SERVE_SHAPES, ep_cases, gmm_counts
+
+from repro_torch.kernels.moe_gmm import ops as gmm
+from repro_torch.kernels.moe_gmm.ref import gmm_reference
+from repro_torch.roofline.work import gmm_work
+
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of one call: ``iters`` calls in a CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def cases() -> list[tuple]:
+    """(label, E, C, D, F, counts) of (c2)'s serve rows and (t)'s rows,
+    both SwiGLU directions of each (t) buffer, every row counted."""
+    out = list(SERVE_SHAPES)
+    for label, e, C, D, Fd in ep_cases():
+        out += [(f"EP {label} gate/up", e, C, D, Fd, "full"),
+                (f"EP {label} down", e, C, Fd, D, "full")]
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tag", default="", help="label printed on each line")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_gmm_times: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for label, E, C, D, Fd, kind in cases():
+            x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
+            w = (torch.randn((E, D, Fd), generator=gen, device=dev)
+                 * D ** -0.5).to(dt)
+            counts = gmm_counts(kind, E, C, gen, dev)
+            paths = dict(getattr(gmm, "launches_by_path", {}))
+            out = gmm.grouped_matmul(x, w, counts)
+            torch.cuda.synchronize()
+            path = next((p for p, n in getattr(gmm, "launches_by_path",
+                                               {}).items()
+                         if n != paths.get(p)), "not reported")
+            err = (out.float() - gmm_reference(x, w, counts).float()
+                   ).abs().max().item()
+            ops, nbytes = gmm_work(E, C, D, Fd, counts, dt)
+            t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            row = {"tag": args.tag, "case": f"{label} E={E} C={C} D={D} "
+                   f"F={Fd} {DT_NAME[dt]}", "path": path,
+                   "graph_ms": graph_ms(lambda: gmm.grouped_matmul(
+                       x, w, counts)),
+                   "bmm_graph_ms": graph_ms(lambda: torch.bmm(x, w)),
+                   "bound_ms": bound_ms,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "max_abs_err": err, "nvidia_smi": smi}
+            row["share"] = bound_ms / row["graph_ms"]
+            row["ratio"] = row["graph_ms"] / row["bmm_graph_ms"]
+            rows.append(row)
+            print(f"[{args.tag}] {row['case']}: {path} path, kernel "
+                  f"{row['graph_ms']:.4f} ms, bmm {row['bmm_graph_ms']:.4f} "
+                  f"ms, kernel/bmm {row['ratio']:.3f}, bound "
+                  f"{bound_ms:.4f} ms ({row['bound_by']}), "
+                  f"{100 * row['share']:.1f}% of it, max_abs_err {err:.3g} "
+                  f"[{smi}]", flush=True)
+    print(json.dumps(rows))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

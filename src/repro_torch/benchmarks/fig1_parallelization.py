@@ -8,13 +8,18 @@ the clock stops: the GPU's form of per-core work. (b) A thread runs
 ``(a * 1.000001 + a.T).sum()`` on a 1024² f32 tensor back to back, on its
 own stream, while the DNN runs on another: PyTorch's current stream is per
 thread, so two threads left on the default stream would queue behind each
-other instead of contending.
+other instead of contending. The thread keeps ``IN_FLIGHT`` calls queued
+on its stream (JAX's co-runner waits for each call before it issues the
+next): a hog that waited for each ~0.07 ms call, and for the GIL after
+it, left its stream empty most of the time, and its kernels could take
+turns with the DNN's instead of running beside them.
 
     python -m repro_torch.benchmarks.fig1_parallelization [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import threading
 import time
@@ -28,6 +33,9 @@ from repro_torch.models.dave2 import make_dave2
 
 BATCH = 8
 MEM_SHAPE = (1024, 1024)
+# mem_benchmark calls the co-runner keeps queued on its stream: before a
+# launch it waits for the call IN_FLIGHT launches back
+IN_FLIGHT = 3
 
 
 def new_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
@@ -63,8 +71,10 @@ def mem_benchmark(a: torch.Tensor) -> torch.Tensor:
 @contextlib.contextmanager
 def hammering(device: torch.device) -> Iterator[None]:
     """Run ``mem_benchmark`` back to back in a thread, on a stream of its
-    own, for the length of the block (from its first finished call on);
-    what the thread raised is raised when the block ends."""
+    own, for the length of the block (from its first finished call on),
+    ``IN_FLIGHT`` calls queued on the card; the thread drains its stream
+    before it stops. What the thread raised is raised when the block
+    ends."""
     mem = torch.ones(MEM_SHAPE, device=device)
     stream = new_stream(device)
     synchronize(device)
@@ -74,11 +84,22 @@ def hammering(device: torch.device) -> Iterator[None]:
     def hammer():
         try:
             with on(stream):
+                if stream is None:
+                    while not stop.is_set():
+                        mem_benchmark(mem)
+                        started.set()
+                    return
+                queued: collections.deque = collections.deque()
                 while not stop.is_set():
+                    if len(queued) == IN_FLIGHT:
+                        queued.popleft().synchronize()  # frees the GIL
                     mem_benchmark(mem)
-                    if stream is not None:
-                        stream.synchronize()
-                    started.set()
+                    queued.append(torch.cuda.Event())
+                    queued[-1].record(stream)
+                    if not started.is_set():
+                        queued[-1].synchronize()
+                        started.set()
+                stream.synchronize()
         except BaseException as e:
             errors.append(e)
             started.set()

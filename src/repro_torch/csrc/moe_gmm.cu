@@ -5,58 +5,83 @@
 //   src/repro/kernels/moe_gmm/moe_gmm.py:51 moe_gmm (_gmm_kernel,
 //   pl.pallas_call at :68), wrapper src/repro/kernels/moe_gmm/ops.py
 //   grouped_matmul.
-// It computes what _gmm_kernel computes, not block for block: one thread
-// block per (F tile, C tile, expert) with a loop over D tiles inside the
-// block (the loop replaces the TPU's sequential "arbitrary" di grid axis
-// and its VMEM accumulator: the sum lives in registers, in f32); the
-// block reads counts[e] from device memory itself (the TPU kernel's scalar
-// prefetch); output rows >= counts[e] are written as zeros. A block whose
-// first row is at or past counts[e] writes its zero tile and returns
-// without reading x or w (the Pallas kernel's pl.when(row_start < count)).
-// Unlike the Pallas kernel, the ragged edges are masked here, so C, D and
-// F need not be multiples of the tile.
+// It computes what _gmm_kernel computes, not block for block: the loop
+// over D runs inside a block (it replaces the TPU's sequential
+// "arbitrary" di grid axis and its VMEM accumulator: the sum lives in
+// registers, in f32); a block reads counts[e] from device memory itself
+// (the TPU kernel's scalar prefetch); output rows >= counts[e] are
+// written as zeros, and a tile whose first row is at or past counts[e]
+// writes its zeros without reading x or w (the Pallas kernel's
+// pl.when(row_start < count); on the wgmma path, per cluster: a block
+// with no rows in use still loads its share of the w tile its partner
+// needs, and no x). Unlike the Pallas kernel, the ragged edges
+// are handled here, so C, D and F need not be multiples of a tile.
 //
 // What bounds it on this card (olmoe-1b-7b: E 64, d_model 2048, expert
 // d_ff 1024, bf16). Each launch's weights are 64 x 2048 x 1024 x 2 B =
 // 268 MB. Decode (4 slots, top-8: C = 8, at most 32 experts with a row):
-// the work is 2 x 32 x 2048 x 1024 = 0.13 GFLOP against the active
-// experts' 134 MB, 0.040 ms at 3.35 TB/s: bound by bytes. Prefill of 1024
-// tokens (C = 160): 2 x 8192 x 2048 x 1024 = 34 GFLOP, 0.035 ms at
-// 989 TFLOP/s, against 268 MB, 0.080 ms: bound by bytes too, but only
-// once the products run on the tensor cores. Experts (and C tiles) with
-// no rows are skipped without reading their weights, and rows past
-// counts[e] are never read.
+// 0.13 GFLOP against the active experts' 134 MB, 0.040 ms at 3.35 TB/s:
+// bound by bytes. Prefill of 1024 tokens (C = 160): 34 GFLOP, 0.035 ms at
+// 989 TFLOP/s, against 268 MB, 0.080 ms: bound by bytes, once the
+// products run at the tensor cores' rate. Under expert parallelism (4
+// experts a device, C = 2560 rows received) the same products are bound
+// by operations: 43 GFLOP against 17 MB of weights.
 //
-// Two paths, split by dtype; neither falls back to the other.
+// The wrapper (kernels/moe_gmm/ops.py gmm_path) picks one path a call
+// from (dtype, C, D, F, alignment) and passes it in; a path that cannot
+// take the call refuses it, none falls back to another.
 //
-// bf16 (the serve dtype), on the tensor cores (mma.sync m16n8k16, f32
-// accumulators, operands by ldmatrix from shared tiles whose rows are
-// padded by 16 bytes, so an ldmatrix's 8 row addresses hit 8 distinct
-// 16-byte bank groups; x and w tiles come through a 4-stage cp.async ring
-// over D, so three stages of copies are in flight while one is computed):
-//  * C > 16 (prefill): 64 x 128 output tiles, 4 warps of 32 x 64, 64
-//    deep a stage; x is the A operand (ldmatrix), w, stored (D, F)
-//    row-major, the B operand through ldmatrix.trans; a warp loads all
-//    its fragments of a stage before its products; a warp whose rows are
-//    all past counts[e] skips its products. (Tiles of 128 rows, or 32
-//    deep, measured slower: scripts/torch_tile_sweep.py.)
-//  * C <= 16 (decode): the operands swap, out^T = w^T x^T, so the weight
-//    columns fill the 16-row M side of m16n8k16 (w through ldmatrix.trans)
-//    and the 8 or 16 token rows are its n side (x through ldmatrix): no
-//    lane of the tensor core computes a padding row. 128 columns a block,
-//    4 warps of 32, 64 deep a stage: 48 KB of weights in flight a block
-//    (64 KB of ring), across the 256 blocks of decode's 32 experts in use;
-//    decode is all bytes, each active expert's weights read once.
-//  The C tile is staged through shared memory for 16-byte stores. Where
-//  the strides or the base addresses do not keep 16-byte chunks aligned
-//  (D or F not a multiple of 8), the same tiles are filled element by
-//  element, and the products still run on mma.sync.
+// wgmma (bf16, C > 16, D and F multiples of 8, 16-byte aligned bases):
+// gmm_wgmma, built from sm90.cuh. Output tiles of 128 rows x WG_BN (256)
+// columns of one expert. A producer warp (setmaxnreg down to 40
+// registers) keeps TMA loads in flight into a ring of WG_STAGES (4)
+// stages of 48 KB (full / empty mbarriers): x through a 3D map (D, C,
+// E), so a box never reads into the next expert's rows (TMA fills rows
+// past C with zeros), as wgmma's K-major A operand; w in place through a
+// 3D map (F, D, E), 64 columns a box, as its MN-major B operand (the
+// descriptor's transpose bit: no transposed copy of w). Two consumer
+// warpgroups (setmaxnreg up to 232) own 64 rows each and run
+// wgmma.m64n256k16 with f32 accumulators in registers, one group of
+// products in flight while the next stage is awaited; a warpgroup whose
+// rows are all past counts[e] skips its products. Where an expert's rows
+// take more than one M tile (C > 128: prefill's C = 160, expert
+// parallelism's 2560), 2 blocks form a cluster over consecutive M tiles
+// of one (expert, F tile): each loads its own x rows and half of the w
+// boxes, multicast to both, so a weight tile crosses L2 once for the pair
+// and the launch's weights cross HBM about once. The epilogue rounds to
+// bf16 (rows past counts[e] zero) into a 128-byte-swizzled staging tile
+// and TMA-stores it (rows past C and columns past F are not written).
+// Grid walk: one persistent block an SM (clusters an SM pair) walking the
+// tiles expert-major, F tile next, M tiles innermost, so the producer
+// loads a block's next tile while its consumers store the last. Measured
+// (scripts/torch_tile_sweep.py, WG_PERSISTENT): with clusters the
+// persistent walk beats one block a tile (T=1024 0.1176 against 0.1220
+// ms on an H100); without clusters a static walk lost, because an even
+// grid gave every even block M tile 0, the one that streams w from HBM.
+// ptxas serialises wgmma in code it cannot prove warp-uniform (C7518), so
+// the consumers' role, rank and count are broadcast with __shfl_sync and
+// one-lane arrivals and stores are predicated inside their asm.
 //
-// f32: gmm_fwd, the FMA kernel of the first port, kept for the f32 oracle
-// phases (their 1e-4 tolerance needs full-f32 products; tensor cores would
-// mean TF32). Each thread owns a strided TM x TN output tile, the next D
-// tile is fetched into registers while the current one is computed, the C
-// tile is as tall as the buffer needs (8 to 64 rows).
+// swap (bf16, C <= 16: decode) and fill (bf16, C > 16, shapes TMA cannot
+// address): gmm_tc, mma.sync m16n8k16 with the operands swapped, out^T =
+// w^T x^T, so the weight columns fill the 16-row M side and the 8 or 16
+// token rows its n side (w through ldmatrix.trans, x through ldmatrix):
+// no lane of the tensor core computes a padding row. 128 columns a block,
+// 4 warps of 32, 64 deep a stage of a 4-stage cp.async ring; 48 KB of
+// weights in flight a block across decode's 256 blocks (32 experts in
+// use): decode is all bytes, each active expert's weights read once.
+// Shared tiles are padded by 16 bytes a row, so an ldmatrix's 8 row
+// addresses hit 8 distinct bank groups; the C tile is staged through
+// shared memory for 16-byte stores. Where the strides or the bases do not
+// keep 16-byte chunks aligned (D or F not a multiple of 8, which no model
+// has), the tiles are filled element by element; fill runs C > 16 as
+// 16-row tiles of the same kernel.
+//
+// fma (f32): gmm_fwd, the FMA kernel of the first port, kept for the f32
+// oracle phases (their 1e-4 tolerance needs full-f32 products; tensor
+// cores would mean TF32). Each thread owns a strided TM x TN output tile,
+// the next D tile is fetched into registers while the current one is
+// computed, the C tile is as tall as the buffer needs (8 to 64 rows).
 //
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (repro_torch/kernels/moe_gmm/ops.py).
@@ -64,6 +89,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
 #include "tc_bf16.cuh"
 
 namespace {
@@ -255,22 +281,17 @@ cudaError_t dispatch_c(const void* x, const void* w, const int* counts,
   return launch<T, 64, 4, 32>(x, w, counts, out, E, C, D, F, vec_x, vec_w, stream);
 }
 
-// ---- bf16: tensor-core kernels ----
+// ---- bf16, C <= 16 and the fill: mma.sync with the operands swapped ----
 
 constexpr int TC_BN = 128;     // weight (output) columns per block
 constexpr int TC_STAGES = 4;   // cp.async ring depth over D
+constexpr int TC_THREADS = 128;
 
 // shared bytes of one ring stage: an x tile (BC x BK) and a w tile
 // (BK x 128), rows padded by 8 bf16
 template <int BC, int BK>
 __host__ __device__ constexpr int tc_stage_elems() {
   return BC * (BK + 8) + BK * (TC_BN + 8);
-}
-// threads a block: 2 warps per 32 rows of the C tile (prefill), 4 over
-// 128 weight columns (decode)
-template <int BC, bool SWAP>
-__host__ __device__ constexpr int tc_threads() {
-  return SWAP ? 128 : 2 * BC;
 }
 template <int BC, int BK>
 constexpr size_t tc_smem_bytes() {
@@ -281,12 +302,12 @@ constexpr size_t tc_smem_bytes() {
 // depth [k0, k0 + BK) into Xs; w rows [k0, k0 + BK), columns [col0, col0 +
 // 128) into Ws; past D and F zero. 16-byte cp.async where ``vec_*`` says
 // the chunks stay aligned, else element by element.
-template <int BC, int BK, int NTH>
+template <int BC, int BK>
 __device__ __forceinline__ void tc_load_stage(
     __nv_bfloat16* Xs, __nv_bfloat16* Ws, const __nv_bfloat16* xp,
     const __nv_bfloat16* wp, int k0, int nrows, int D, int F, int col0,
     bool vec_x, bool vec_w) {
-  constexpr int XS = BK + 8, WS = TC_BN + 8;
+  constexpr int XS = BK + 8, WS = TC_BN + 8, NTH = TC_THREADS;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
   if (vec_x) {
     for (int i = threadIdx.x; i < BC * BK / 8; i += NTH) {
@@ -320,22 +341,19 @@ __device__ __forceinline__ void tc_load_stage(
 }
 
 // BC token rows x 128 weight columns of one expert's output per block, BK
-// deep a stage. SWAP false: warps (BC / 32) x 2 over the tile, each 32
-// rows (two m16 tiles of x) x 64 columns (eight n8 tiles of w); a warp
-// whose rows are all past counts[e] skips the products. SWAP true: each
-// warp 32 weight columns (two m16 tiles of w^T) x BC token rows (BC / 8
-// n8 tiles of x^T).
-template <int BC, int BK, bool SWAP>
-__global__ void __launch_bounds__(tc_threads<BC, SWAP>(), SWAP ? 2 : 1)
+// deep a stage: each warp 32 weight columns (two m16 tiles of w^T) x BC
+// token rows (BC / 8 n8 tiles of x^T).
+template <int BC, int BK>
+__global__ void __launch_bounds__(TC_THREADS, 2)
 gmm_tc(const __nv_bfloat16* __restrict__ x,
        const __nv_bfloat16* __restrict__ w, const int* __restrict__ counts,
        __nv_bfloat16* __restrict__ out, int C, int D, int F, int vec_x,
        int vec_w, int vec_o) {
   constexpr int XS = BK + 8, WS = TC_BN + 8, OS = TC_BN + 8;
-  constexpr int MI = 2;                     // m16 tiles a warp
-  constexpr int NI = SWAP ? BC / 8 : 8;     // n8 tiles a warp
-  constexpr int NTH = tc_threads<BC, SWAP>();
-  static_assert(SWAP ? (BC % 8 == 0 && BC <= 16) : BC % 32 == 0, "tiling");
+  constexpr int MI = 2;        // m16 tiles a warp
+  constexpr int NI = BC / 8;   // n8 tiles a warp
+  constexpr int NTH = TC_THREADS;
+  static_assert(BC % 8 == 0 && BC <= 16, "tiling");
   static_assert(BK % 16 == 0 && BC * OS <= TC_STAGES *
                 tc_stage_elems<BC, BK>(), "the C tile fits in the ring");
 
@@ -377,8 +395,8 @@ gmm_tc(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
     if (s < nk)
-      tc_load_stage<BC, BK, NTH>(Xs(s), Ws(s), xp, wp, s * BK, nrows, D, F,
-                                 col0, vec_x, vec_w);
+      tc_load_stage<BC, BK>(Xs(s), Ws(s), xp, wp, s * BK, nrows, D, F, col0,
+                            vec_x, vec_w);
     tc::cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -386,61 +404,29 @@ gmm_tc(const __nv_bfloat16* __restrict__ x,
     __syncthreads();  // ... for every thread; stage kt - 1 is free
     const int nx = kt + TC_STAGES - 1;
     if (nx < nk)
-      tc_load_stage<BC, BK, NTH>(Xs(nx % TC_STAGES), Ws(nx % TC_STAGES), xp,
-                                 wp, nx * BK, nrows, D, F, col0, vec_x,
-                                 vec_w);
+      tc_load_stage<BC, BK>(Xs(nx % TC_STAGES), Ws(nx % TC_STAGES), xp, wp,
+                            nx * BK, nrows, D, F, col0, vec_x, vec_w);
     tc::cp_async_commit();
 
     const __nv_bfloat16* xs = Xs(kt % TC_STAGES);
     const __nv_bfloat16* ws = Ws(kt % TC_STAGES);
-    if constexpr (!SWAP) {
-      const int wm = warp >> 1, wn = warp & 1;
-      if (wm * 32 < nrows) {  // warp-uniform: skip a warp with no row in use
-        // the stage's fragments first, then its products
-        uint32_t a[BK / 16][MI][4], b[BK / 16][NI / 2][4];
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MI][4], b[NI][2];
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-            tc::ldsm_x4(a[kk][mi], xs + (wm * 32 + mi * 16 + (lane & 15)) *
-                                            XS + kk * 16 + (lane >> 4) * 8);
+      for (int mi = 0; mi < MI; ++mi)
+        tc::ldsm_x4_t(a[mi], ws + (kk * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                      WS +
+                                  warp * 32 + mi * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
-          for (int np = 0; np < NI / 2; ++np)
-            tc::ldsm_x4_t(b[kk][np], ws + (kk * 16 + ((lane >> 3) & 1) * 8 +
-                                           (lane & 7)) * WS +
-                                         wn * 64 + np * 16 + (lane >> 4) * 8);
-        }
+      for (int ni = 0; ni < NI; ++ni)
+        tc::ldsm_x2(b[ni], xs + (ni * 8 + (lane & 7)) * XS + kk * 16 +
+                               ((lane >> 3) & 1) * 8);
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-          for (int np = 0; np < NI / 2; ++np)
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) {
-              tc::mma(acc[mi][2 * np], a[kk][mi], b[kk][np][0], b[kk][np][1]);
-              tc::mma(acc[mi][2 * np + 1], a[kk][mi], b[kk][np][2],
-                      b[kk][np][3]);
-            }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[MI][4], b[NI][2];
+      for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi)
-          tc::ldsm_x4_t(a[mi], ws + (kk * 16 + (lane >> 4) * 8 +
-                                     (lane & 7)) * WS +
-                                   warp * 32 + mi * 16 +
-                                   ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          tc::ldsm_x2(b[ni], xs + (ni * 8 + (lane & 7)) * XS + kk * 16 +
-                                 ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-            tc::mma(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-      }
+          tc::mma(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
   }
   tc::cp_async_wait<0>();
@@ -454,14 +440,8 @@ gmm_tc(const __nv_bfloat16* __restrict__ x,
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        int r, col;
-        if constexpr (!SWAP) {
-          r = (warp >> 1) * 32 + mi * 16 + g + (c >> 1) * 8;
-          col = (warp & 1) * 64 + ni * 8 + 2 * t + (c & 1);
-        } else {
-          r = ni * 8 + 2 * t + (c & 1);
-          col = warp * 32 + mi * 16 + g + (c >> 1) * 8;
-        }
+        const int r = ni * 8 + 2 * t + (c & 1);
+        const int col = warp * 32 + mi * 16 + g + (c >> 1) * 8;
         Os[r * OS + col] =
             r < nrows ? __float2bfloat16(acc[mi][ni][c]) : zero;
       }
@@ -483,69 +463,377 @@ gmm_tc(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int BC, int BK, bool SWAP>
+template <int BC, int BK>
 cudaError_t launch_tc(const void* x, const void* w, const int* counts,
-                      void* out, int E, int C, int D, int F, int vec_x,
-                      int vec_w, int vec_o, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<BC, BK>();
-  cudaError_t err = cudaFuncSetAttribute(
-      gmm_tc<BC, BK, SWAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((F + TC_BN - 1) / TC_BN, (C + BC - 1) / BC, E);
-  gmm_tc<BC, BK, SWAP><<<grid, tc_threads<BC, SWAP>(), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), counts,
-      static_cast<__nv_bfloat16*>(out), C, D, F, vec_x, vec_w, vec_o);
-  return cudaGetLastError();
-}
-
-// C <= 16 (decode): the operand swap, the C tile 8 or 16 rows; otherwise
-// 64-row C tiles with x as the A operand.
-cudaError_t dispatch_tc(const void* x, const void* w, const int* counts,
-                        void* out, int E, int C, int D, int F,
-                        cudaStream_t stream) {
+                      void* out, int E, int C, int D, int F,
+                      cudaStream_t stream) {
   const auto al = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
   const int vec_x = al(x) && D % 8 == 0;
   const int vec_w = al(w) && F % 8 == 0;
   const int vec_o = al(out) && F % 8 == 0;
-  if (C <= 8)
-    return launch_tc<8, 64, true>(x, w, counts, out, E, C, D, F, vec_x, vec_w, vec_o, stream);
-  if (C <= 16)
-    return launch_tc<16, 64, true>(x, w, counts, out, E, C, D, F, vec_x, vec_w, vec_o, stream);
-  return launch_tc<64, 64, false>(x, w, counts, out, E, C, D, F, vec_x, vec_w, vec_o, stream);
+  constexpr size_t smem = tc_smem_bytes<BC, BK>();
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_tc<BC, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + TC_BN - 1) / TC_BN, (C + BC - 1) / BC, E);
+  gmm_tc<BC, BK><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), counts,
+      static_cast<__nv_bfloat16*>(out), C, D, F, vec_x, vec_w, vec_o);
+  return cudaGetLastError();
+}
+
+// ---- bf16, C > 16: wgmma fed by TMA ----
+
+constexpr int WG_BM = 128;      // output rows a tile: two warpgroups of 64
+constexpr int WG_BN = 256;      // output columns a tile (128 or 256)
+constexpr int WG_BK = 64;       // depth a stage: one 128-byte swizzle row
+constexpr int WG_STAGES = 4;    // TMA ring depth
+constexpr int WG_OBOXES = 2;    // 64-column boxes a warpgroup stages a store
+constexpr bool WG_PERSISTENT = true;  // a block an SM; else one a tile
+constexpr int WG_THREADS = 384; // consumer warpgroups 0 and 1, producer 2
+constexpr int WG_BOX = 64;      // columns of a w / out box (128 bytes)
+
+template <int BN>
+struct WgLayout {  // byte offsets in the 1024-byte aligned dynamic smem
+  static constexpr int A_BYTES = WG_BM * WG_BK * 2;     // x stage: 16 KB
+  static constexpr int BOX_BYTES = WG_BOX * 64 * 2;     // a 64 x 64 box
+  static constexpr int B_BYTES = BN / WG_BOX * BOX_BYTES;
+  static constexpr int OBOXES = WG_OBOXES < BN / WG_BOX ? WG_OBOXES
+                                                        : BN / WG_BOX;
+  static constexpr int O_BYTES = OBOXES * BOX_BYTES;    // a warpgroup's
+  static constexpr int A0 = 0;
+  static constexpr int B0 = A0 + WG_STAGES * A_BYTES;
+  static constexpr int O0 = B0 + WG_STAGES * B_BYTES;
+  static constexpr int BAR0 = O0 + 2 * O_BYTES;
+  static constexpr int BYTES = BAR0 + 2 * WG_STAGES * 8;
+  static constexpr int SMEM = BYTES + 1024;             // + the alignment
+  static_assert(BN % WG_BOX == 0 && (BN == 128 || BN == 256), "WG_BN");
+  static_assert(BN / WG_BOX % OBOXES == 0, "WG_OBOXES");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 128)
+    sm90::wgmma_m64n128k16<0, 1>(acc, da, db);
+  else
+    sm90::wgmma_m64n256k16<0, 1>(acc, da, db);
+}
+
+// out[e] rows [m0, m0 + 128) x columns [n0, n0 + BN) a block. CL blocks
+// (a cluster) take the CL consecutive M tiles of one (expert, F tile):
+// each loads its own x rows and 1 / CL of the w boxes, multicast to all
+// CL, so the weight tile crosses L2 once for the cluster. Clusters in the
+// order (e, F tile, M tiles), M fastest; cluster c takes tiles c, c +
+// clusters, .. (one each on a plain grid).
+template <int BN, int CL>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gmm_wgmma(const __grid_constant__ CUtensorMap map_x,
+          const __grid_constant__ CUtensorMap map_w,
+          const __grid_constant__ CUtensorMap map_o,
+          const int* __restrict__ counts, int E, int C, int D, int F) {
+  using L = WgLayout<BN>;
+  static_assert(CL == 1 || CL == 2, "cluster");
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem =
+      smem_wg + ((1024 - (sm90::smem_u32(smem_wg) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR0);
+  uint64_t* empty = full + WG_STAGES;
+
+  // warp-uniform to the compiler (broadcast from lane 0), so that the
+  // branches around the wgmma are too
+  const int rank =
+      CL == 1 ? 0 : __shfl_sync(0xffffffffu, (int)sm90::cluster_rank(), 0);
+  const int n_mc = ((C + WG_BM - 1) / WG_BM + CL - 1) / CL;  // M tiles / CL
+  const int n_n = (F + BN - 1) / BN;
+  const int tiles = E * n_n * n_mc;
+  const int nk = (D + WG_BK - 1) / WG_BK;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);        // the producer's expect_tx
+      sm90::mbar_init(&empty[s], 8 * CL);  // each consumer warp, each block
+    }
+    sm90::fence_barrier_init();
+  }
+  if constexpr (CL == 1)
+    __syncthreads();
+  else
+    sm90::cluster_sync();  // the peers' barriers exist before any multicast
+
+  if (wg == 2) {  // ---- producer: one thread issues every load ----
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::prefetch_tensor_map(&map_x);
+      sm90::prefetch_tensor_map(&map_w);
+      int stage = 0;
+      uint32_t phase = 1;  // the ring starts empty: the first waits pass
+      for (int t = blockIdx.x / CL; t < tiles; t += gridDim.x / CL) {
+        const int e = t / (n_n * n_mc), n0 = (t / n_mc) % n_n * BN;
+        const int mc = t % n_mc * CL * WG_BM;  // the cluster's first row
+        const int m0 = mc + rank * WG_BM;
+        const int count = max(0, min(counts[e], C));
+        if (mc >= count) continue;  // zeros in every block: no loads
+        const bool rows = m0 < count;  // this block's x rows are in use
+        // boxes of w past F are not loaded (their columns are not stored)
+        const int boxes = min(BN / WG_BOX, (F - n0 + WG_BOX - 1) / WG_BOX);
+        for (int kt = 0; kt < nk; ++kt) {
+          sm90::mbar_wait(&empty[stage], phase);
+          sm90::mbar_arrive_expect_tx(
+              &full[stage], (rows ? L::A_BYTES : 0) + boxes * L::BOX_BYTES);
+          if (rows)
+            sm90::tma_load_3d(smem + L::A0 + stage * L::A_BYTES, &map_x,
+                              &full[stage], kt * WG_BK, m0, e);
+          for (int b = rank; b < boxes; b += CL) {
+            unsigned char* dst =
+                smem + L::B0 + stage * L::B_BYTES + b * L::BOX_BYTES;
+            if constexpr (CL == 1)
+              sm90::tma_load_3d(dst, &map_w, &full[stage], n0 + b * WG_BOX,
+                                kt * WG_BK, e);
+            else
+              sm90::tma_load_3d_multicast(dst, &map_w, &full[stage],
+                                          (1 << CL) - 1, n0 + b * WG_BOX,
+                                          kt * WG_BK, e);
+          }
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // stay until every stage loaded has been released by the consumers
+      // of all CL blocks: their arrivals land in this block's barriers
+      for (int s = 0; s < WG_STAGES; ++s) {
+        sm90::mbar_wait(&empty[stage], phase);
+        if (++stage == WG_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // ---- consumers: warpgroups 0 and 1, 64 rows each ----
+    sm90::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const bool leader = tid == 0, warp_leader = lane == 0;
+    unsigned char* stage_o = smem + L::O0 + wg * L::O_BYTES;
+    // a stage is free once each consumer warp of each block has left it
+    auto release = [&](int s, bool pred) {
+      if constexpr (CL == 1)
+        sm90::mbar_arrive(&empty[s], warp_leader && pred);
+      else
+        for (int c = 0; c < CL; ++c)
+          sm90::mbar_arrive_cluster(&empty[s], c, warp_leader && pred);
+    };
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BN / 2];
+    for (int t = blockIdx.x / CL; t < tiles; t += gridDim.x / CL) {
+      const int e = t / (n_n * n_mc), n0 = (t / n_mc) % n_n * BN;
+      const int mc = t % n_mc * CL * WG_BM;
+      const int count =
+          __shfl_sync(0xffffffffu, max(0, min(counts[e], C)), 0);
+      const int r0 = mc + rank * WG_BM + wg * 64;  // this warpgroup's rows
+      const bool active = r0 < count;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      if (mc < count && active) {  // the producers load this tile
+        sm90::fence_operands(acc);
+        for (int kt = 0, prev = 0; kt < nk; ++kt) {
+          sm90::mbar_wait(&full[stage], phase);
+          const uint32_t a = sm90::smem_u32(smem + L::A0 +
+                                            stage * L::A_BYTES) + wg * 8192;
+          const uint32_t b = sm90::smem_u32(smem + L::B0 +
+                                            stage * L::B_BYTES);
+          const uint64_t da = sm90::desc_sw128(a, 16, 1024);
+          const uint64_t db = sm90::desc_sw128(b, L::BOX_BYTES, 1024);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < WG_BK / 16; ++kk)  // +32 B / +2048 B a k16
+            wgmma_tile<BN>(acc, da + 2 * kk, db + 128 * kk);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();  // the previous stage's products are done
+          release(prev, kt > 0);
+          prev = stage;
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands(acc);
+        release((stage + WG_STAGES - 1) % WG_STAGES, true);
+      } else if (mc < count) {  // loaded, but no row of ours is in use
+        for (int kt = 0; kt < nk; ++kt) {
+          sm90::mbar_wait(&full[stage], phase);
+          release(stage, true);
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if (r0 >= C) continue;  // no row of this warpgroup exists
+      // acc[4j + 2h + i]: row 16 warp + lane / 4 + 8 h, column 8 j + 2
+      // (lane % 4) + i, in box j / 8 of the tile; staged OBOXES boxes at a
+      // time, 128-byte rows, chunk j % 8 ^ row % 8
+#pragma unroll
+      for (int b0 = 0; b0 < BN / WG_BOX; b0 += L::OBOXES) {
+        if (n0 + b0 * WG_BOX >= F) continue;  // these boxes hold no column
+        // the staging tile is free once the last store has read it
+        sm90::tma_store_wait_read<0>(leader);
+        sm90::named_barrier_sync(1 + wg, 128);
+#pragma unroll
+        for (int j = b0 * 8; j < (b0 + L::OBOXES) * 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp * 16 + lane / 4 + 8 * h;
+            const bool keep = active && r0 + r < count;
+            const uint32_t v = tc::pack_bf16(
+                keep ? acc[4 * j + 2 * h] : 0.f,
+                keep ? acc[4 * j + 2 * h + 1] : 0.f);
+            *reinterpret_cast<uint32_t*>(
+                stage_o + (j / 8 - b0) * L::BOX_BYTES + r * 128 +
+                (((j % 8) ^ (r % 8)) << 4) + (lane % 4) * 4) = v;
+          }
+        sm90::fence_async_shared();
+        sm90::named_barrier_sync(1 + wg, 128);
+#pragma unroll
+        for (int b = b0; b < b0 + L::OBOXES; ++b)
+          sm90::tma_store_3d(&map_o, stage_o + (b - b0) * L::BOX_BYTES,
+                             n0 + b * WG_BOX, r0, e,
+                             leader && n0 + b * WG_BOX < F);
+        sm90::tma_store_commit(leader);
+      }
+    }
+    sm90::tma_store_wait<0>(leader);
+  }
+}
+
+template <int CL>
+cudaError_t launch_wgmma_cl(const CUtensorMap& mx, const CUtensorMap& mw,
+                            const CUtensorMap& mo, const int* counts, int E,
+                            int C, int D, int F, cudaStream_t stream) {
+  using L = WgLayout<WG_BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_wgmma<WG_BN, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const long long clusters = (long long)E *
+                             (((C + WG_BM - 1) / WG_BM + CL - 1) / CL) *
+                             ((F + WG_BN - 1) / WG_BN);
+  if (clusters * CL > 0x7fffffff) return cudaErrorInvalidValue;
+  const long long most = sms / CL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(
+      (unsigned)(CL * (WG_PERSISTENT && clusters > most ? most : clusters)));
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* args[] = {const_cast<CUtensorMap*>(&mx),
+                  const_cast<CUtensorMap*>(&mw),
+                  const_cast<CUtensorMap*>(&mo), &counts, &E, &C, &D, &F};
+  err = cudaLaunchKernelExC(
+      &cfg, (const void*)gmm_wgmma<WG_BN, CL>, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// A cluster of 2 blocks shares each weight tile between consecutive M
+// tiles where an expert's rows take more than one (C > 128).
+cudaError_t launch_wgmma(const void* x, const void* w, const int* counts,
+                         void* out, int E, int C, int D, int F,
+                         cudaStream_t stream) {
+  const uint64_t e = E, c = C, d = D, f = F;
+  CUtensorMap mx, mw, mo;
+  cudaError_t err = sm90::tensor_map_bf16<3>(
+      &mx, x, {d, c, e}, {d * 2, c * d * 2}, {WG_BK, WG_BM, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map_bf16<3>(&mw, w, {f, d, e}, {f * 2, d * f * 2},
+                                   {WG_BOX, WG_BK, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map_bf16<3>(&mo, out, {f, c, e}, {f * 2, c * f * 2},
+                                   {WG_BOX, 64, 1});
+  if (err != cudaSuccess) return err;
+  if (C > WG_BM)
+    return launch_wgmma_cl<2>(mx, mw, mo, counts, E, C, D, F, stream);
+  return launch_wgmma_cl<1>(mx, mw, mo, counts, E, C, D, F, stream);
+}
+
+// the paths, as kernels/moe_gmm/ops.py numbers them
+enum Path { FMA = 0, SWAP = 1, WGMMA = 2, FILL = 3 };
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // x: (E, C, D); w: (E, D, F); counts: (E,) int32; out: (E, C, F); x, w and
-// out contiguous, of one dtype (0 = float32, 1 = bfloat16). Launches on
+// out contiguous, float32 for path FMA and bfloat16 for the others (the
+// caller's choice: kernels/moe_gmm/ops.py gmm_path). Launches on
 // ``stream``, allocates nothing, and returns the cudaError_t of the launch
-// (0 on success).
+// (0 on success); a path that cannot take the shape refuses it
+// (cudaErrorInvalidValue) and launches nothing.
 extern "C" int repro_moe_gmm(const void* x, const void* w, const void* counts,
-                             void* out, int dtype, int E, int C, int D, int F,
+                             void* out, int path, int E, int C, int D, int F,
                              void* stream) {
-  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 ||
-      (C + 63) / 64 > 65535)
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* cnt = static_cast<const int*>(counts);
-  if (dtype == 0)
-    return (int)dispatch_c<float>(x, w, cnt, out, E, C, D, F, st);
-  if (dtype == 1)
-    return (int)dispatch_tc(x, w, cnt, out, E, C, D, F, st);
+  switch (path) {
+    case FMA:
+      if ((C + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+      return (int)dispatch_c<float>(x, w, cnt, out, E, C, D, F, st);
+    case SWAP:
+      if (C > 16) return (int)cudaErrorInvalidValue;
+      if (C <= 8)
+        return (int)launch_tc<8, 64>(x, w, cnt, out, E, C, D, F, st);
+      return (int)launch_tc<16, 64>(x, w, cnt, out, E, C, D, F, st);
+    case FILL:
+      if (C <= 16 || (C + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
+      return (int)launch_tc<16, 64>(x, w, cnt, out, E, C, D, F, st);
+    case WGMMA:
+      if (C <= 16 || D % 8 || F % 8 || !aligned16(x) || !aligned16(w) ||
+          !aligned16(out))
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_wgmma(x, w, cnt, out, E, C, D, F, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory, in bytes, that a block of the instantiation
-// (dtype, C) launches takes (the f32 kernel's is static: 0); -1 for what
-// the entry point refuses.
-extern "C" int repro_moe_gmm_smem(int dtype, int C) {
-  if (C <= 0 || (dtype != 0 && dtype != 1)) return -1;
-  if (dtype == 0) return 0;
-  if (C <= 8) return (int)tc_smem_bytes<8, 64>();
-  if (C <= 16) return (int)tc_smem_bytes<16, 64>();
-  return (int)tc_smem_bytes<64, 64>();
+// Dynamic shared memory, in bytes, a block of ``path`` takes at C rows
+// (the FMA kernel's is static: 0); -1 for what the entry point refuses.
+extern "C" int repro_moe_gmm_smem(int path, int C) {
+  if (C <= 0) return -1;
+  switch (path) {
+    case FMA:
+      return 0;
+    case SWAP:
+      return C > 16 ? -1 : C <= 8 ? (int)tc_smem_bytes<8, 64>()
+                                  : (int)tc_smem_bytes<16, 64>();
+    case FILL:
+      return C <= 16 ? -1 : (int)tc_smem_bytes<16, 64>();
+    case WGMMA:
+      return C <= 16 ? -1 : WgLayout<WG_BN>::SMEM;
+  }
+  return -1;
 }

@@ -34,15 +34,16 @@ class Built:
     log: str           # nvcc's output (ptxas register / shared-memory report)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump): on PATH or in CUDA_HOME."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
-                       "machine with the card, with the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels are built on the "
+                       f"machine with the card, with the CUDA toolkit")
 
 
 def build(name: str, sources: tuple[str, ...]) -> Built:
@@ -60,7 +61,7 @@ def build(name: str, sources: tuple[str, ...]) -> Built:
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -108,3 +109,18 @@ def ptxas_report(log: str) -> list[dict]:
     except (OSError, subprocess.SubprocessError):
         pass
     return kernels
+
+
+def sass_opcodes(lib: Path, kernel: str, opcodes: tuple[str, ...]) -> dict:
+    """How many instructions of each of ``opcodes`` the SASS of the kernel
+    whose mangled name contains ``kernel`` holds in the built library
+    (``cuobjdump -sass``); raises if no kernel matches."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    bodies = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+              if kernel in f.split("\n", 1)[0]]
+    if not bodies:
+        raise RuntimeError(f"no kernel {kernel!r} in the SASS of {lib}")
+    return {op: sum(len(re.findall(rf"\b{op}\b", b)) for b in bodies)
+            for op in opcodes}

@@ -5,8 +5,9 @@
 and launches on PyTorch's current stream. A CPU tensor goes to the plain
 version (``ref.gmm_reference``); a CUDA tensor goes to the kernel, or the
 call raises. The kernel is built at its first launch
-(``repro_torch.kernels.build``). bf16 runs on the tensor cores, f32 on
-the FMA kernel (full-f32 products); neither falls back to the other.
+(``repro_torch.kernels.build``). ``gmm_path`` picks the kernel's path
+from the call's dtype, shape and alignment alone; no path falls back to
+another.
 """
 from __future__ import annotations
 
@@ -20,10 +21,18 @@ from repro_torch.kernels.moe_gmm.ref import gmm_reference
 from repro_torch.roofline.work import charged, gmm_work
 
 SOURCES = ("moe_gmm.cu",)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's paths, numbered as csrc/moe_gmm.cu's entry point takes them:
+# "fma" f32 (full-f32 products for the oracles), "swap" bf16 C <= 16
+# (mma.sync, operands swapped), "wgmma" bf16 C > 16 through TMA, "fill"
+# bf16 C > 16 where TMA cannot address the tensors (the swap kernel's
+# 16-row tiles filled element by element)
+PATHS = ("fma", "swap", "wgmma", "fill")
 
-# kernel launches since the last reset (plain-version calls do not count)
+# kernel launches since the last reset (plain-version calls do not count),
+# in all and by path
 launches = 0
+launches_by_path = dict.fromkeys(PATHS, 0)
 
 _built = None
 _build_lock = threading.Lock()
@@ -32,6 +41,24 @@ _build_lock = threading.Lock()
 def reset_launches() -> None:
     global launches
     launches = 0
+    for p in PATHS:
+        launches_by_path[p] = 0
+
+
+def gmm_path(dtype, C: int, D: int, F: int, aligned: bool) -> str:
+    """The kernel path of a call: f32 -> "fma"; bf16 with C <= 16 ->
+    "swap"; bf16 with C > 16 -> "wgmma" where TMA can address x, w and
+    out (D and F multiples of 8: 16-byte row strides; ``aligned``: every
+    base 16-byte aligned), else "fill"."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"moe_gmm has no path for {dtype}")
+    if C <= 16:
+        return "swap"
+    if aligned and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    return "fill"
 
 
 def build():
@@ -51,10 +78,10 @@ def build():
     return _built
 
 
-def smem_bytes(dtype, C: int) -> int:
-    """Dynamic shared memory a block takes at (dtype, C); 0 where the
-    kernel's is static."""
-    return build().lib.repro_moe_gmm_smem(_DTYPES[dtype], C)
+def smem_bytes(path: str, C: int) -> int:
+    """Dynamic shared memory a block of ``path`` takes at C rows; 0 where
+    the kernel's is static."""
+    return build().lib.repro_moe_gmm_smem(PATHS.index(path), C)
 
 
 def _check(x, w, counts) -> None:
@@ -101,12 +128,16 @@ def grouped_matmul(x, w, counts):
     F = w.shape[2]
     lib = build().lib
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    path = gmm_path(x.dtype, C, D, F, all(
+        t.data_ptr() % 16 == 0 for t in (x, w, out)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
-                                out.data_ptr(), _DTYPES[x.dtype], E, C, D, F,
+                                out.data_ptr(), PATHS.index(path), E, C, D, F,
                                 stream)
     if err != 0:
-        raise RuntimeError(f"moe_gmm kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"moe_gmm kernel launch failed ({path} path): "
+                           f"cudaError {err}")
     launches += 1
+    launches_by_path[path] += 1
     return out

@@ -227,7 +227,8 @@ def analyze(fn, *args, memory: bool = False, result: list | None = None,
     ``result``, a list, receives ``fn``'s return value. A wrapper that
     raises raises here."""
     counter = _Counter(memory)
-    saved = [m.launches for m in _KERNEL_MODULES]
+    saved = [(m.launches, dict(getattr(m, "launches_by_path", {})))
+             for m in _KERNEL_MODULES]
     prev = work.set_current(counter)
     prop = DTensor._op_dispatcher.sharding_propagator
     name = "_propagate_tensor_meta_non_cached"
@@ -255,8 +256,10 @@ def analyze(fn, *args, memory: bool = False, result: list | None = None,
         else:
             setattr(prop, name, outer)
         work.set_current(prev)
-        for m, n in zip(_KERNEL_MODULES, saved):
+        for m, (n, by_path) in zip(_KERNEL_MODULES, saved):
             m.launches = n
+            if by_path:
+                m.launches_by_path.update(by_path)
     coll_total = sum(counter.coll_bytes.values())
     return {
         "flops": float(counter.flops),

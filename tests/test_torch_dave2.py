@@ -12,6 +12,7 @@ cannot show).
 Tolerance (f32 on both sides, sums in another order): atol = rtol = 1e-5.
 The benchmarks' tests check structure only, never latency.
 """
+import contextlib
 import threading
 
 import numpy as np
@@ -200,6 +201,63 @@ def test_fig1_run_on_cpu():
     assert set(b) == {"bench", "dnn_solo_ms", "dnn_corun_ms",
                       "dnn_slowdown", "mem_solo_ms"}
     assert all(r["loop_ms"] > 0 for r in rows if r["bench"] == "fig1a")
+
+
+def test_fig1_hammering_starts_stops_and_raises(monkeypatch):
+    """The co-runner has finished a call when the block starts, makes
+    none after it ends, and what its thread raised is raised there."""
+    calls = []
+    monkeypatch.setattr(fig1, "mem_benchmark", lambda a: calls.append(1))
+    with fig1.hammering(torch.device("cpu")):
+        assert calls
+    stopped = len(calls)
+    threading.Event().wait(0.05)
+    assert len(calls) == stopped
+
+    def fault(a):
+        raise RuntimeError("hog fault")
+    monkeypatch.setattr(fig1, "mem_benchmark", fault)
+    with pytest.raises(RuntimeError, match="hog fault"):
+        with fig1.hammering(torch.device("cpu")):
+            pass
+
+
+def test_fig1_hammering_keeps_calls_in_flight(monkeypatch):
+    """On a stream, the co-runner waits for the call IN_FLIGHT launches
+    back before its next launch (never for the one it just made, after
+    the first), and drains its stream when the block ends. A stand-in
+    stream and events count what a card would hold."""
+    state = {"queued": 0, "most": 0, "drained": 0, "launched": 0}
+
+    class Stream:
+        def synchronize(self):
+            state["drained"] += 1
+            state["queued"] = 0
+
+    class Event:
+        def record(self, stream):
+            self.waited = False
+            state["queued"] += 1
+            state["most"] = max(state["most"], state["queued"])
+
+        def synchronize(self):
+            if not self.waited:
+                self.waited = True
+                state["queued"] -= 1
+
+    def launch(a):
+        state["launched"] += 1
+        if state["launched"] > 50:
+            threading.Event().wait(0.001)   # let the block end
+    monkeypatch.setattr(fig1, "new_stream", lambda device: Stream())
+    monkeypatch.setattr(fig1, "on", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(fig1, "mem_benchmark", launch)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    with fig1.hammering(torch.device("cpu")):
+        while state["launched"] < 50:
+            threading.Event().wait(0.001)
+    assert state["most"] == fig1.IN_FLIGHT
+    assert state["drained"] == 1 and state["queued"] == 0
 
 
 def test_deeppicar_gang_example_on_cpu(capsys):

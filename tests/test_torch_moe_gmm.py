@@ -7,9 +7,12 @@ kernel in interpret mode and against ``gmm_reference`` on the shapes of
 ``tests/test_kernels.py``, with random counts and with counts of 0 and C.
 The CUDA kernel is held against the plain version on the card (``gpu``
 marker), ragged shapes and the edges of its tensor-core paths (C of 1, 8,
-9 and 160; D and F not multiples of 8) included.
+9 and 160; D and F not multiples of 8) included; the ``wgmma`` path (bf16,
+C > 16) on its own edges at ``chip_smoke.py``'s ``GMM_TOL``. The wrapper's
+choice of path (``ops.gmm_path``) is a pure function, tested here.
 
-Tolerances are the repo's own: 1e-4 in f32, 1e-1 in bf16.
+Tolerances are the repo's own: 1e-4 in f32, 1e-1 in bf16 (``GMM_TOL``:
+3e-2 in bf16 for the wgmma edges, on weights at std D^-1/2).
 """
 import numpy as np
 import pytest
@@ -38,6 +41,27 @@ EDGES = [  # the bf16 tensor-core paths' edges (C <= 16: the swapped tile)
 ]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 COUNTS = ("random", "zero", "full")
+# the wgmma path (bf16, C > 16, D and F multiples of 8): C of 17, 63, 64,
+# 65, 128, 160, 192 and 2560; E of 1 and 64; D and F multiples of 64 and
+# of 8 only; olmoe-1b-7b's SwiGLU products (d_model 2048, expert d_ff
+# 1024) both ways, at the serve prefill's C and the expert-parallel one's
+WGMMA_EDGES = [  # E, C, D, F
+    (1, 17, 64, 64),
+    (2, 63, 72, 136),
+    (3, 64, 128, 128),
+    (2, 65, 64, 192),
+    (64, 128, 72, 136),
+    (2, 160, 96, 264),
+    (3, 192, 256, 512),
+    (2, 300, 64, 136),      # an odd number of 128-row tiles; 3 w boxes
+    (1, 2560, 128, 64),
+    (64, 160, 2048, 1024),
+    (64, 160, 1024, 2048),
+    (4, 2560, 2048, 1024),
+    (4, 2560, 1024, 2048),
+]
+WGMMA_COUNTS = ("random", "zero", "full", "one")
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 def _tol(dtype):
@@ -108,6 +132,40 @@ def test_plain_matches_reference_on_edges(E, C, D, F, dtype, counts):
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype,C,D,F,aligned,path", [
+    (torch.float32, 8, 2048, 1024, True, "fma"),
+    (torch.float32, 160, 2048, 1024, True, "fma"),
+    (torch.float32, 21, 37, 45, False, "fma"),
+    (torch.bfloat16, 1, 64, 128, True, "swap"),
+    (torch.bfloat16, 8, 2048, 1024, True, "swap"),
+    (torch.bfloat16, 16, 37, 45, False, "swap"),
+    (torch.bfloat16, 17, 64, 64, True, "wgmma"),
+    (torch.bfloat16, 160, 2048, 1024, True, "wgmma"),
+    (torch.bfloat16, 160, 72, 136, True, "wgmma"),
+    (torch.bfloat16, 2560, 1024, 2048, True, "wgmma"),
+    (torch.bfloat16, 160, 2048, 1024, False, "fill"),
+    (torch.bfloat16, 21, 37, 45, True, "fill"),
+    (torch.bfloat16, 70, 64, 130, True, "fill"),
+    (torch.bfloat16, 70, 50, 128, True, "fill"),
+])
+def test_path_is_chosen_from_dtype_shape_and_alignment(dtype, C, D, F,
+                                                       aligned, path):
+    assert ops.gmm_path(dtype, C, D, F, aligned) == path
+    assert path in ops.PATHS
+
+
+def test_path_choice_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="no path"):
+        ops.gmm_path(torch.float16, 160, 2048, 1024, True)
+
+
+def test_cpu_calls_count_no_path():
+    x, w, cnt = _inputs(1, 2, 24, 16, 8, "random")
+    before = dict(ops.launches_by_path)
+    _port(x, w, cnt, "bfloat16")
+    assert ops.launches_by_path == before
+
+
 def test_launch_path_refuses_cpu_tensors():
     x, w, cnt = _inputs(1, 2, 8, 16, 8, "random")
     t = [torch.as_tensor(a) for a in (x, w, cnt)]
@@ -154,3 +212,54 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
         ops.grouped_matmul(xt.transpose(1, 2).contiguous().transpose(1, 2),
                            wt, torch.as_tensor(cnt, device=cuda))
     assert ops.launches == before
+
+
+def _card_inputs(seed, E, C, D, F, counts, device):
+    """bf16 x ~ N(0, 1) and w ~ N(0, 1 / D) drawn on the card (the
+    olmoe-width cases are 134 M weights), int32 counts; "one": every row
+    of one expert in use, the others empty."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn((E, C, D), generator=gen, device=device).bfloat16()
+    w = (torch.randn((E, D, F), generator=gen, device=device)
+         * D ** -0.5).bfloat16()
+    if counts == "random":
+        cnt = torch.randint(0, C + 1, (E,), generator=gen, device=device,
+                            dtype=torch.int32)
+    else:
+        cnt = torch.full((E,), C if counts == "full" else 0,
+                         dtype=torch.int32, device=device)
+        if counts == "one":
+            cnt[E // 2] = C
+    return x, w, cnt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", WGMMA_COUNTS)
+@pytest.mark.parametrize("E,C,D,F", WGMMA_EDGES)
+def test_wgmma_path_matches_plain_on_card(cuda, E, C, D, F, counts):
+    x, w, cnt = _card_inputs(5, E, C, D, F, counts, cuda)
+    before, paths = ops.launches, dict(ops.launches_by_path)
+    out = ops.grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert ops.launches_by_path["wgmma"] == paths["wgmma"] + 1
+    ref = gmm_reference(x, w, cnt)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=GMM_TOL[torch.bfloat16],
+                               rtol=GMM_TOL[torch.bfloat16])
+    rows = torch.arange(C, device=cuda)[None, :, None] >= cnt[:, None, None]
+    assert not out.float().masked_select(rows).any()
+
+
+@pytest.mark.gpu
+def test_wgmma_path_refuses_what_tma_cannot_address(cuda):
+    """The entry point refuses the wgmma path for a shape it cannot take
+    instead of running another kernel."""
+    x, w, cnt = _card_inputs(6, 2, 32, 37, 45, "full", cuda)
+    lib = ops.build().lib
+    out = torch.empty((2, 32, 45), dtype=torch.bfloat16, device=cuda)
+    err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), cnt.data_ptr(),
+                            out.data_ptr(), ops.PATHS.index("wgmma"), 2, 32,
+                            37, 45, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
