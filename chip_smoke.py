@@ -12,9 +12,12 @@ Drives the port in phases and exits non-zero if any fails:
                kernel's registers, static shared memory and spills (fails
                on a spill in a bf16 tensor-core kernel or in a kernel of
                either scan), and the dynamic shared memory a block of
-               flash and moe_gmm takes per dtype (bf16 runs on the tensor
-               cores, f32 on the FMA kernels) and a block of ssd_scan's
-               chunk-parallel scan takes;
+               each path of flash and moe_gmm takes (bf16 runs on the
+               tensor cores, f32 on the FMA kernels) and a block of
+               ssd_scan's chunk-parallel scan takes; fails unless each
+               instantiation of the two wgmma paths (flash_fwd_wgmma,
+               gmm_wgmma) holds HGMMA and UTMALDG in its SASS, and on a
+               wgmma ptxas serialised (C7518 in the nvcc log);
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
@@ -26,13 +29,16 @@ Drives the port in phases and exits non-zero if any fails:
                non-causal 1500 x 1500, and at each of (n)'s decoder prompts,
                4/32/200/300, the decoder's causal self-attention and its
                non-causal cross-attention, Sq x Sk 1500), and on the edges of
-               the bf16 tensor-core path (S not a multiple of 16 or 64,
-               every head dim, GQA groups 1/4/7/16, rows all masked in a
-               kv tile), f32 and bf16, tolerance 2e-5 (f32) / 3e-2 (bf16);
-               times kernel, plain version and torch's
+               the bf16 tensor-core paths (S not a multiple of 16, 64 or
+               128, Sq = 1, Sq != Sk, every head dim, GQA groups
+               1/4/7/8/16/48, rows all masked in a kv tile), f32 and bf16,
+               tolerance 2e-5 (f32) / 3e-2 (bf16); fails if a call takes
+               another path than ops.flash_path gives (bf16 D >= 64:
+               wgmma); times kernel, plain version and torch's
                scaled_dot_product_attention (a yardstick the port never
                calls) with CUDA events, beside the bound, with the kernel /
-               library ratio and the achieved TFLOP/s and TB/s;
+               library ratio and the achieved TFLOP/s and TB/s, and the bf16
+               kernel and SDPA in CUDA graphs with the share of the bound;
   (c2) kernel  holds moe_gmm against its plain version on the shapes of
                tests/test_kernels.py, two ragged ones, the edges of the
                bf16 tensor-core paths (C of 1, 8, 9 and 160, D and F not
@@ -100,7 +106,9 @@ Drives the port in phases and exits non-zero if any fails:
                with the flash kernel as its prefill attention): 6 requests of
                mixed prompt lengths, 16 new tokens each; every request must
                finish and the launch counts over the run must be n_layers x
-               prefills (flash) and 0 (moe_gmm);
+               prefills (flash) and 0 (moe_gmm); here and in every serve,
+               gang and serve+train phase each bf16 flash launch must take
+               the wgmma path;
   (e) oracle   the engine's greedy tokens equal a greedy rollout that
                re-prefills the whole sequence each step (port against port),
                at full width in f32 on the same weights, where the two paths
@@ -423,7 +431,7 @@ from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenSource  # noqa: E402
 from repro_torch.examples import serve_with_background_training as swbt  # noqa: E402
 from repro_torch.examples import vgang_fleet  # noqa: E402
-from repro_torch.kernels.build import ptxas_report, sass_opcodes  # noqa: E402
+from repro_torch.kernels.build import ptxas_report, sass_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
@@ -463,7 +471,8 @@ from repro_torch.vgang.formation import (assign_priorities,  # noqa: E402
                                          intensity_interference,
                                          singleton_vgangs)
 from torch_flash_cases import (AUDIO_FRAMES, AUDIO_PROMPTS,  # noqa: E402
-                               CP_CASES, SOFTCAP_CASES, TIMED, VLM_PROMPTS)
+                               CP_CASES, SOFTCAP_CASES, TIMED, VLM_PROMPTS,
+                               WGMMA_EDGES)
 from torch_gmm_cases import (EP_N, SERVE_SHAPES, ep_cases,  # noqa: E402
                              gmm_counts)
 import torch_fig1_overlap as fig1_trace  # noqa: E402
@@ -490,9 +499,10 @@ VLM_ARCH = "internvl2-1b"
 VLM_MAX_SEQ = 2048
 AUDIO_ARCH = "whisper-base"
 AUDIO_MAX_SEQ = 448
-# the edges of the bf16 tensor-core path (tests/test_torch_flash_attention.
+# the edges of the bf16 tensor-core paths (tests/test_torch_flash_attention.
 # py's EDGES): S not a multiple of 16 or 64, every head dim, GQA groups 1,
-# 4, 7 and 16, one warp's q rows all masked in the first kv tile visited
+# 4, 7 and 16, one warp's q rows all masked in the first kv tile visited;
+# then the wgmma path's (WGMMA_EDGES, scripts/torch_flash_cases.py)
 FLASH_EDGES = [(1, 77, 77, 4, 4, 16, True, 0, torch.bfloat16),
                (1, 100, 100, 8, 2, 32, True, 8, torch.bfloat16),
                (2, 129, 129, 14, 2, 64, True, 0, torch.bfloat16),
@@ -500,7 +510,8 @@ FLASH_EDGES = [(1, 77, 77, 4, 4, 16, True, 0, torch.bfloat16),
                (1, 150, 150, 16, 1, 256, True, 40, torch.bfloat16),
                (1, 65, 65, 4, 4, 128, False, 0, torch.bfloat16),
                (1, 1, 1, 4, 1, 64, True, 0, torch.bfloat16),
-               (1, 300, 300, 16, 1, 256, False, 0, torch.bfloat16)]
+               (1, 300, 300, 16, 1, 256, False, 0, torch.bfloat16)] + \
+    [(*edge, torch.bfloat16) for edge in WGMMA_EDGES]
 REPORTED = (1, 1024, 1024, 28, 4, 128, True, 0, torch.bfloat16)
 
 # moe_gmm: (label, E, C, D, F, counts, dtype); counts as
@@ -749,6 +760,28 @@ def case_name(case) -> str:
             f"{f' window={window}' if window else ''} {DT_NAME[dt]}")
 
 
+def flash_call(q, k, v, **kw) -> tuple[torch.Tensor, str]:
+    """One wrapper call, synchronised; its output and the path it took."""
+    before = dict(fa.launches_by_path)
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    (path,) = [p for p, n in fa.launches_by_path.items() if n != before[p]]
+    return out, path
+
+
+def check_flash_paths(what: str, total: int, smi: str) -> dict:
+    """Flash's launches by path since the last reset, after a bf16 run:
+    each of the ``total`` must have taken the wgmma path (no shipped config
+    has a head dim below 64)."""
+    paths = dict(fa.launches_by_path)
+    print(f"[{what}] flash_attention launches by path {paths} (total "
+          f"{total}) [{smi}]")
+    if paths != {"fma": 0, "tc": 0, "wgmma": total}:
+        fail(f"{what}: flash_attention took {paths}; all {total} bf16 "
+             f"launches must take wgmma")
+    return paths
+
+
 def phase_kernel(dev, smi: str) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -758,14 +791,16 @@ def phase_kernel(dev, smi: str) -> list[dict]:
         q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt)
-        out = fa.flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
+        out, path = flash_call(q, k, v, causal=causal, window=window)
+        want = fa.flash_path(dt, D, True)
+        if path != want:
+            fail(f"(c) {case_name(case)} took the {path} path, not {want}")
         ref = naive_attention(q, k, v, causal=causal, window=window)
         err = (out.float() - ref.float()).abs().max().item()
         tol = TOL[dt]
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        row = {"case": case_name(case), "max_abs_err": err, "tol": tol,
-               "ok": bool(ok)}
+        row = {"case": case_name(case), "path": path, "max_abs_err": err,
+               "tol": tol, "ok": bool(ok)}
         if case in TIMED:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             if window:
@@ -778,9 +813,10 @@ def phase_kernel(dev, smi: str) -> list[dict]:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qh, kh, vh, is_causal=causal, enable_gqa=True)
             bound_ms, bound_by = bound(case)
+            call = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window)
             row.update(
-                ms=time_ms(lambda: fa.flash_attention(
-                    q, k, v, causal=causal, window=window)),
+                ms=time_ms(call),
                 plain_ms=time_ms(lambda: naive_attention(
                     q, k, v, causal=causal, window=window)),
                 library_ms=time_ms(lib), bound_ms=bound_ms,
@@ -789,14 +825,26 @@ def phase_kernel(dev, smi: str) -> list[dict]:
             row.update(ratio=row["ms"] / row["library_ms"],
                        tflops=ops / row["ms"] / 1e9,
                        tbps=nbytes / row["ms"] / 1e9)
-            print(f"[kernel] {row['case']}: kernel {row['ms']:.4f} ms, "
-                  f"plain {row['plain_ms']:.4f} ms, sdpa "
+            graph = ""
+            if dt == torch.bfloat16:   # device time: a CUDA graph each
+                row.update(graph_ms=graph_ms(call),
+                           library_graph_ms=graph_ms(lib))
+                row.update(share=bound_ms / row["graph_ms"],
+                           graph_ratio=row["graph_ms"] /
+                           row["library_graph_ms"])
+                graph = (f" (graph {row['graph_ms']:.4f} ms against sdpa's "
+                         f"{row['library_graph_ms']:.4f}: "
+                         f"{row['graph_ratio']:.2f}x, "
+                         f"{100 * row['share']:.1f}% of the bound)")
+            print(f"[kernel] {row['case']}: {path} path, kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
                   f"{row['library_ms']:.4f} ms, kernel/sdpa "
                   f"{row['ratio']:.2f}x, {row['tflops']:.1f} TFLOP/s, "
                   f"{row['tbps']:.3f} TB/s, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), max_abs_err {err:.3g} [{smi}]")
+                  f"({bound_by}){graph}, max_abs_err {err:.3g} [{smi}]")
         else:
-            print(f"[kernel] {row['case']}: max_abs_err {err:.3g}")
+            print(f"[kernel] {row['case']}: {path} path, max_abs_err "
+                  f"{err:.3g}")
         if not ok:
             fail(f"flash_attention disagrees with its plain version on "
                  f"{row['case']}: max_abs_err {err} > {tol}")
@@ -1643,6 +1691,8 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
                     params=params, log=log)
     launches = read_launches()
     gmm_paths = dict(gmm.launches_by_path)
+    flash_paths = check_flash_paths(f"serve {arch}",
+                                    launches["flash_attention"], smi)
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reqs = res["requests"]
@@ -1736,6 +1786,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
           f"tokens equal the bf16 {kind} (reported, not checked)")
     return {"api": api, "params": params, "launches": launches,
             "moe_gmm_paths": gmm_paths if moe else None,
+            "flash_paths": flash_paths,
             "prefills": prefills, "decode_steps": decode_steps,
             "decode_p50_ms": float(np.percentile(lat, 50)),
             "decode_p99_ms": float(np.percentile(lat, 99)),
@@ -2045,6 +2096,8 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
     t0 = time.perf_counter()
     stats = serve.run_gang(decode_quantum, dev, duration)
     launches = read_launches()
+    flash_paths = check_flash_paths(f"{arch} gang",
+                                    launches["flash_attention"], smi)
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lat = np.array(stats["response_times"].get("decode", [0.0])) * 1e3
@@ -2106,6 +2159,7 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
             (params, longest), prefill_ms, "bfloat16", n_long, smi, cfg)}
     del caches
     return {"api": api, "params": params, "launches": launches,
+            "flash_paths": flash_paths,
             "prefills": n_seq, "decode_steps": len(out) - 1,
             "decode_p50_ms": float(np.percentile(lat, 50)),
             "decode_p99_ms": float(np.percentile(lat, 99)),
@@ -3069,6 +3123,8 @@ def phase_serve_train(dev, smi: str) -> dict:
                        train_bytes=train_bytes,
                        log=lambda line: print(f"{line} [{smi}]"))
         launches = read_launches()
+        flash_paths = check_flash_paths(f"serve+train {mode}",
+                                        launches["flash_attention"], smi)
         expect = {"flash_attention": serve_cfg.n_layers * res["prefills"],
                   "moe_gmm": 0, "ssd_scan": 0, "rglru_scan": 0}
         q, r, t = res["decode_ms"], res["response_ms"], res["train_ms"]
@@ -3093,7 +3149,8 @@ def phase_serve_train(dev, smi: str) -> dict:
             "microstep_p50_ms": float(np.median(t)) if len(t) else None,
             "warmup_loss": res["warmup_loss"], "losses": res["losses"],
             "be_quanta": res["stats"]["be_quanta"],
-            "decode_overlap": ov, "launches": launches}
+            "decode_overlap": ov, "launches": launches,
+            "flash_paths": flash_paths}
         print(f"[serve+train] {mode} (train declared {train_bytes:g} B a "
               f"quantum): decode quantum p50 / p99 / max "
               f"{row['quantum_p50_ms']} / {row['quantum_p99_ms']} / "
@@ -3148,6 +3205,27 @@ def roofline_table(*reps) -> dict:
     return table
 
 
+def check_hopper(built, kernel: str, n: int) -> dict:
+    """A Hopper path of ``built``: its ``n`` instantiations of ``kernel``,
+    each with products on wgmma (HGMMA) and operands through TMA (UTMALDG)
+    in its SASS (cuobjdump -sass), and no wgmma that ptxas serialised (its
+    warning C7518 in the nvcc log); spills are checked with the others.
+    Returns the SASS counts by mangled name."""
+    serialised = [line for line in built.log.splitlines() if "C7518" in line]
+    if serialised:
+        fail(f"ptxas serialised wgmma in {built.path.name}: " +
+             "; ".join(serialised[:4]))
+    counts = sass_counts(built.path, kernel, ("HGMMA", "UTMALDG", "UTMASTG"))
+    for name, c in counts.items():
+        print(f"[build] {kernel} {name} SASS (cuobjdump -sass): {c}")
+        if not (c["HGMMA"] and c["UTMALDG"]):
+            fail(f"{name}'s SASS lacks HGMMA or UTMALDG: {c}")
+    if len(counts) != n:
+        fail(f"{built.path.name} holds {len(counts)} {kernel} kernels, not "
+             f"{n}")
+    return counts
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -3195,17 +3273,19 @@ def main() -> int:
                     name in ("ssd_scan", "rglru_scan")) and \
                     k["spill_stores"] + k["spill_loads"]:
                 fail(f"kernel {k['kernel']} spills registers")
-    for dt in (torch.float32, torch.bfloat16):
-        path = "tensor cores" if dt == torch.bfloat16 else "FMA"
-        print(f"[build] dynamic shared memory a block, {DT_NAME[dt]} "
-              f"({path}): flash_attention " + ", ".join(
-                  f"D={d} {fa.smem_bytes(dt, d)} B" for d in fa.HEAD_DIMS))
+    fa_smem = {f"{p} D={d}": fa.smem_bytes(p, d) for p in fa.PATHS
+               for d in fa.HEAD_DIMS}
+    print("[build] dynamic shared memory a block, flash_attention: " +
+          ", ".join(f"{k} {n} B" for k, n in fa_smem.items() if n >= 0))
+    # flash's bf16 path at D >= 64: D 64, 128, 256, each with and without
+    # a cap
+    build_report["flash_wgmma_sass"] = check_hopper(
+        builds["flash_attention"], "flash_fwd_wgmma", 6)
     print("[build] dynamic shared memory a block, moe_gmm: " + ", ".join(
         f"{p} C={c} {gmm.smem_bytes(p, c)} B" for p, c in (
             ("fma", 160), ("swap", 8), ("swap", 16), ("fill", 160),
             ("wgmma", 160))))
-    # moe_gmm's prefill path must be Hopper's: products on wgmma (HGMMA),
-    # operands through TMA (UTMALDG), no spill
+    # moe_gmm's prefill path: one instantiation without clusters, one with
     wg_kernels = [k for k in build_report["moe_gmm"]
                   if k["kernel"].startswith("gmm_wgmma")]
     if not wg_kernels:
@@ -3214,12 +3294,8 @@ def main() -> int:
         print(f"[build] moe_gmm {k['kernel']}: {k['registers']} registers, "
               f"{gmm.smem_bytes('wgmma', 160)} B dynamic shared memory, "
               f"spills {k['spill_stores']} / {k['spill_loads']} B")
-    sass = sass_opcodes(builds["moe_gmm"].path, "gmm_wgmma",
-                        ("HGMMA", "UTMALDG", "UTMASTG"))
-    print(f"[build] moe_gmm gmm_wgmma SASS (cuobjdump -sass): {sass}")
-    if not (sass["HGMMA"] and sass["UTMALDG"]):
-        fail(f"gmm_wgmma's SASS lacks HGMMA or UTMALDG: {sass}")
-    build_report["moe_gmm_wgmma_sass"] = sass
+    build_report["moe_gmm_wgmma_sass"] = check_hopper(
+        builds["moe_gmm"], "gmm_wgmma", 2)
     print(f"[build] dynamic shared memory a block, ssd_scan's chunk-parallel "
           f"scan (both dtypes): {ssd.smem_bytes()} B")
     phase_s = {}
@@ -3343,6 +3419,11 @@ def main() -> int:
                             replaces[name],
                             {p: n[name] for p, n in by_path.items()},
                             reported[name]) for name in KERNELS]
+    # flash's launches on the serve and gang runs by kernel path
+    runs = [sv, sv2, sv7, sv8, sv3, sv4, sv5, sv6] + \
+        [st_rep[m] for m, _, _ in SERVE_TRAIN_MODES]
+    kernels[list(KERNELS).index("flash_attention")]["kernel_paths"] = {
+        p: sum(r["flash_paths"][p] for r in runs) for p in fa.PATHS}
     detail = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "build_s": {n: b.seconds for n, b in builds.items()},

@@ -1,6 +1,7 @@
 """The flash-attention shapes of ``chip_smoke.py``: the prefill shapes
-its phase (c) checks and times, the softcap cases of its phase (c5), and
-the context-parallel splits of its phase (s).
+its phase (c) checks and times, the edges of the wgmma path it checks, the
+softcap cases of its phase (c5), and the context-parallel splits of its
+phase (s).
 ``scripts/torch_flash_times.py`` times the same lists. A case is (B, Sq,
 Sk, Hq, Hkv, D, causal, window, dtype); a softcap case is (case,
 q_offset, softcap); a split is (arch, Hq, Hkv, D, S, n ranks, window).
@@ -50,6 +51,30 @@ MINITRON_SHAPES = [(1, S, S, 24, 8, 128, True, 0, dt)
                    for S in (32, 200, 1024)]
 TIMED = MAIN_SHAPES + [WINDOW_CASE] + HYBRID_SHAPES + [HYBRID_WINDOW_CASE] \
     + VLM_SHAPES + WHISPER_SHAPES + GRANITE_SHAPES + MINITRON_SHAPES
+
+# the edges of the bf16 wgmma path, (B, Sq, Sk, Hq, Hkv, D, causal,
+# window), bf16 (tests/test_torch_flash_attention.py's WGMMA_EDGES): Sq and
+# Sk not multiples of the 64- or 128-row tiles (77, 129, 300), Sq = 1, Sq
+# != Sk non-causal (300 x 1500), GQA groups 1, 7, 8 and 48, every head
+# dim, and window 40 at S 300: a block takes 64 q rows at D <= 128 and 128
+# at D 256, and in the block at rows 128-191 the last warp's rows, at D
+# 256 in the block at rows 128-255 the second warpgroup's, are all masked
+# in the first kv tile visited.
+WGMMA_EDGES = [(1, 77, 77, 4, 4, 64, True, 0),
+               (2, 129, 129, 14, 2, 64, True, 0),
+               (2, 300, 300, 28, 4, 64, True, 0),
+               (1, 300, 300, 8, 8, 64, True, 40),
+               (1, 300, 1500, 8, 8, 64, False, 0),
+               (1, 1, 1, 4, 1, 64, True, 0),
+               (1, 300, 300, 48, 1, 128, True, 0),
+               (1, 300, 300, 56, 8, 128, True, 40),
+               (1, 200, 200, 16, 1, 128, True, 16),
+               (1, 300, 1500, 48, 1, 128, False, 0),
+               (1, 1, 1, 48, 1, 128, True, 0),
+               (1, 300, 300, 16, 1, 256, True, 40),
+               (1, 129, 129, 7, 1, 256, True, 0),
+               (1, 77, 300, 16, 1, 256, False, 0),
+               (1, 1, 1, 16, 1, 256, True, 0)]
 
 # the logit softcap, (case, q_offset, softcap): qwen2-7b at S 1024,
 # recurrentgemma-9b's D 256 under its 2048 window, whisper-base's

@@ -9,10 +9,15 @@ Each call is timed two ways: 20 wrapper calls back to back between CUDA
 events (``chip_smoke.py``'s ``ms``: a call that short is timed by its
 wrapper's host dispatch), and the same 20 calls captured in a CUDA graph
 and replayed (device time only); beside them, the largest absolute
-difference from the plain version (``ref.naive_attention``). The shapes
-are (c)'s timed cases (``TIMED``), (c5)'s softcap cases
-(``SOFTCAP_CASES``, each also without its cap, for the cap's cost) and
-(s)'s splits (``CP_CASES``), all from ``scripts/torch_flash_cases.py``,
+difference from the plain version (``ref.naive_attention``), the kernel
+path the call took (where the checkout counts launches by path), and for
+each bf16 case of (c) SDPA (``scaled_dot_product_attention`` with the
+same mask and ``enable_gqa``) in a CUDA graph too, the kernel / SDPA
+ratio of the two graph times and the share of the bound
+(``roofline.work.flash_work`` over the H100's peaks) that the kernel's
+graph time reaches. The shapes are (c)'s timed cases (``TIMED``), (c5)'s
+softcap cases (``SOFTCAP_CASES``, each also without its cap, for the
+cap's cost) and (s)'s splits (``CP_CASES``), all from ``scripts/torch_flash_cases.py``,
 which ``chip_smoke.py`` imports too: for a split, rank r's S / n query
 rows against the full K/V at ``q_offset`` r S / n, and the unsplit call.
 A checkout whose kernel takes no ``softcap`` skips (c5)'s cases, one
@@ -32,10 +37,13 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 from torch_flash_cases import CP_CASES, SOFTCAP_CASES, TIMED
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import naive_attention
+from repro_torch.roofline import report as RR
+from repro_torch.roofline.work import flash_work
 
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -86,6 +94,40 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def sdpa_call(q, k, v, causal: bool, window: int):
+    """SDPA on the same inputs and mask, heads first (views: no copy in
+    the timed call)."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        i = torch.arange(q.shape[1], device=q.device)
+        j = torch.arange(k.shape[1], device=q.device)
+        mask = (j[None] > i[:, None] - window) & \
+            ((j[None] <= i[:, None]) if causal else True)
+        return lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=causal, enable_gqa=True)
+
+
+def bound_ms(case) -> float:
+    """The least time for the case: operations over the peak rate of its
+    type against bytes over the memory rate."""
+    ops, nbytes = flash_work(case)
+    return max(ops / RR.PEAK_FLOPS[str(case[-1]).removeprefix("torch.")],
+               nbytes / RR.HBM_BW) * 1e3
+
+
+def traced_path(call) -> str:
+    """The kernel path one call took, where the checkout counts them."""
+    by_path = getattr(fa, "launches_by_path", None)
+    if by_path is None:
+        return "-"
+    before = dict(by_path)
+    call()
+    torch.cuda.synchronize()
+    return ",".join(p for p, n in by_path.items() if n != before[p])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="", help="label printed on each line")
@@ -123,9 +165,18 @@ def main() -> int:
             q, k, v, causal=causal, window=window)
         err = (call().float() - naive_attention(
             q, k, v, causal=causal, window=window).float()).abs().max()
-        print(f"[{args.tag}] {label(case)} {DT_NAME[dt]}: max_abs_err "
-              f"{float(err):.6g}, calls back to back {eager_ms(call):.4f} "
-              f"ms, CUDA graph {graph_ms(call):.4f} ms [{smi}]", flush=True)
+        g_ms = graph_ms(call)
+        lib = ""
+        if dt == torch.bfloat16:
+            lib_ms = graph_ms(sdpa_call(q, k, v, causal, window))
+            b_ms = bound_ms(case)
+            lib = (f", SDPA graph {lib_ms:.4f} ms, kernel / SDPA "
+                   f"{g_ms / lib_ms:.3f}, bound {b_ms:.4f} ms, "
+                   f"{100 * b_ms / g_ms:.1f}% of it")
+        print(f"[{args.tag}] {label(case)} {DT_NAME[dt]}: path "
+              f"{traced_path(call)}, max_abs_err {float(err):.6g}, calls "
+              f"back to back {eager_ms(call):.4f} ms, CUDA graph "
+              f"{g_ms:.4f} ms{lib} [{smi}]", flush=True)
     params = inspect.signature(fa.flash_attention).parameters
     for case, off, cap in SOFTCAP_CASES if "softcap" in params else ():
         B, Sq, Sk, Hq, Hkv, D, causal, window, dt = case

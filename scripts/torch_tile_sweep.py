@@ -4,12 +4,13 @@
     python3 scripts/torch_tile_sweep.py [--kernels flash moe_gmm]
 
 Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
-bf16 tile constants: kv rows a tile, blocks an SM for
-``__launch_bounds__``, the largest head dim whose Q is held in registers)
-and of ``moe_gmm.cu`` (its ``gmm_wgmma`` prefill path: output columns a
-tile ``WG_BN``, TMA ring stages ``WG_STAGES``, 64-column boxes a
-warpgroup stages a store ``WG_OBOXES``, and the grid walk: one persistent
-block an SM or one block a tile) into ``build/tile_sweep/``, one nvcc per
+``flash_fwd_wgmma`` path, bf16 at D >= 64: q rows a block at D <= 128
+``FW_ROWS``, kv rows a tile at D 64 and 128 ``FW_BK_D64`` /
+``FW_BK_D128``, ring stages at D <= 128 ``FW_STAGES``) and of
+``moe_gmm.cu`` (its ``gmm_wgmma`` prefill path: output columns a tile
+``WG_BN``, TMA ring stages ``WG_STAGES``, 64-column boxes a warpgroup
+stages a store ``WG_OBOXES``, and the grid walk: one persistent block an
+SM or one block a tile) into ``build/tile_sweep/``, one nvcc per
 variant, all started together. Prints each variant's registers and spills
 (``-Xptxas -v``), its device time on the serve shapes (20 calls captured
 in a CUDA graph, so the host's launch time is left out), its largest
@@ -31,22 +32,35 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from torch_flash_times import bound_ms as flash_bound, sdpa_call  # noqa: E402
 from repro_torch.kernels.build import CSRC, NVCC_FLAGS, _tool  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm.ops import PATHS  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
 
 OUT = ROOT / "build" / "tile_sweep"
 WGMMA = PATHS.index("wgmma")
-# flash: (kv rows a tile, blocks an SM, largest D with Q in registers);
-# the first is the source's own
-FLASH = [(64, 2, 128), (32, 3, 128), (32, 3, 64), (64, 2, 64), (32, 2, 128)]
-FLASH_SHAPES = [(128, 1024, 28, 4, 0), (128, 1024, 16, 16, 0),
-                (128, 1024, 28, 4, 64), (256, 1024, 16, 1, 2048),
-                (256, 1024, 16, 1, 256)]
+FLASH_WGMMA = fa.PATHS.index("wgmma")
+# flash's wgmma path: (FW_ROWS, FW_BK_D64, FW_BK_D128, FW_STAGES); the
+# first is the source's own. At 64 rows, a 128-row kv tile or 3 stages at
+# D 128 do not leave two blocks an SM (the layout's assertion fails)
+FLASH = [(64, 128, 64, 2), (64, 64, 64, 2), (128, 128, 128, 2),
+         (128, 128, 64, 2), (128, 128, 64, 3)]
+# (D, Sq, Sk, Hq, Hkv, causal, window): the S=1024 prefills of qwen2-7b,
+# granite-20b, minitron-4b, olmoe-1b-7b, internvl2-1b, recurrentgemma-9b;
+# whisper-base's encoder and a cross-attention; qwen2-7b at S 200
+FLASH_SHAPES = [(128, 1024, 1024, 28, 4, True, 0),
+                (128, 1024, 1024, 48, 1, True, 0),
+                (128, 1024, 1024, 24, 8, True, 0),
+                (128, 1024, 1024, 16, 16, True, 0),
+                (64, 1024, 1024, 14, 2, True, 0),
+                (256, 1024, 1024, 16, 1, True, 2048),
+                (64, 1500, 1500, 8, 8, False, 0),
+                (64, 300, 1500, 8, 8, False, 0),
+                (128, 200, 200, 28, 4, True, 0)]
 # moe_gmm's wgmma path: (WG_BN, WG_STAGES, WG_OBOXES, WG_PERSISTENT); the
 # first is the source's own
 GMM = [(256, 4, 2, True), (256, 3, 2, True), (256, 4, 1, True),
@@ -62,13 +76,13 @@ GMM_SHAPES = [("prefill T=1024 gate/up", 64, 160, 2048, 1024, "route1024"),
 
 
 def flash_source(var) -> str:
-    bk, minb, q_regs_d = var
+    rows, bk64, bk128, stages = var
     text = (CSRC / "flash_attention.cu").read_text()
-    for old, new in (("TC_BK = 64, TC_MINB = 2;",
-                      f"TC_BK = {bk}, TC_MINB = {minb};"),
-                     ("  return D <= 128;", f"  return D <= {q_regs_d};")):
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
+    for name, value in (("FW_ROWS", rows), ("FW_BK_D64", bk64),
+                        ("FW_BK_D128", bk128), ("FW_STAGES", stages)):
+        text, n = re.subn(rf"constexpr int {name} = \w+;",
+                          f"constexpr int {name} = {value};", text)
+        assert n == 1, name
     return text
 
 
@@ -139,9 +153,9 @@ def main() -> int:
         return 2
     jobs = []
     if "flash" in args.kernels:
-        jobs += [(f"flash_bk{v[0]}_minb{v[1]}_qregs_to_d{v[2]}",
+        jobs += [(f"flash_rows{v[0]}_bk{v[1]}x{v[2]}_stages{v[3]}",
                   "flash_attention.cu", flash_source(v),
-                  r"flash_fwd_tc<(128|256)>") for v in FLASH]
+                  r"flash_fwd_wgmma<\d+, false>") for v in FLASH]
     if "moe_gmm" in args.kernels:
         jobs += [(f"gmm_bn{v[0]}_stages{v[1]}_oboxes{v[2]}_"
                   f"{'persistent' if v[3] else 'plain'}", "moe_gmm.cu",
@@ -156,23 +170,19 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs.nvidia_smi()}")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     cases = []
-    for d, S, Hq, Hkv, window in FLASH_SHAPES if "flash" in args.kernels \
-            else ():
-        q, k, v = (torch.randn((1, S, h, d), generator=gen, device=dev)
-                   .bfloat16() for h in (Hq, Hkv, Hkv))
-        ref = naive_attention(q, k, v, causal=True, window=window)
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        if window:
-            i = torch.arange(S, device=dev)
-            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qh, kh, vh, attn_mask=mask, enable_gqa=True)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qh, kh, vh, is_causal=True, enable_gqa=True)
-        cases.append((d, S, Hq, Hkv, window, q, k, v, ref, graph_ms(lib)))
-        print(f"[flash] D={d} S={S} Hq={Hq} Hkv={Hkv} window={window}: "
-              f"sdpa {cases[-1][-1]:.4f} ms")
+    for shape in FLASH_SHAPES if "flash" in args.kernels else ():
+        d, Sq, Sk, Hq, Hkv, causal, window = shape
+        q = torch.randn((1, Sq, Hq, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((1, Sk, Hkv, d), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        ref = naive_attention(q, k, v, causal=causal, window=window)
+        lib = sdpa_call(q, k, v, causal, window)
+        cases.append((shape, q, k, v, ref, graph_ms(lib)))
+        b_ms = flash_bound((1, Sq, Sk, Hq, Hkv, d, causal, window,
+                            torch.bfloat16))
+        print(f"[flash] D={d} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} "
+              f"{'causal' if causal else 'full'} window={window}: sdpa "
+              f"{cases[-1][-1]:.4f} ms, bound {b_ms:.4f} ms")
     for name, (lib, info) in built.items():
         if not name.startswith("flash_"):
             continue
@@ -180,14 +190,15 @@ def main() -> int:
             print(f"[flash] {name}: build failed: {info}")
             continue
         fn = ctypes.CDLL(str(lib)).repro_flash_attention_fwd_bshd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
-            [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+            [ctypes.c_float] * 2 + [ctypes.c_void_p]
         row = []
-        for d, S, Hq, Hkv, window, q, k, v, ref, _ in cases:
+        for (d, Sq, Sk, Hq, Hkv, causal, window), q, k, v, ref, _ in cases:
             o = torch.empty_like(q)
             call = lambda: fn(  # noqa: E731
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
-                Hq, Hkv, S, S, d, 1, window, 0, d ** -0.5, stream())
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                FLASH_WGMMA, 1, Hq, Hkv, Sq, Sk, d, int(causal), window, 0,
+                d ** -0.5, 0.0, stream())
             rc = call()
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()

@@ -25,39 +25,63 @@
 // which at S >= ~200, D = 128 is far above the H100's ~295 bf16
 // operations per byte, so the bound is the tensor-core rate.
 //
-// Two paths, split by dtype; neither falls back to the other.
+// Three paths, picked by the caller (kernels/flash_attention/ops.py
+// flash_path) from the dtype and the head dim; none falls back to another.
 //
-// bf16 (the serve dtype): flash_fwd_tc, FlashAttention-2 on the tensor
-// cores. 4 warps, one block per (b*h, 64 q rows), each warp owns 16 q
-// rows. Q is staged in shared memory once (and, at D <= 128, held as
-// ldmatrix A fragments in registers); K and V tiles come through a
-// two-stage cp.async ring, so the next tile's copy overlaps this tile's
-// products. S = Q K^T is mma.sync m16n8k16 with K as the .col B operand
-// (ldmatrix), f32 accumulators; the scale is folded with log2(e) into
-// exp2f on S; the online softmax runs on the accumulator fragments in
-// registers (a row lives on the 4 lanes of a quad: shuffles with xor 1 and
-// 2, no shared score tile, no barrier between softmax and P V). P is
-// rounded to bf16 and repacked from the C layout of S straight into the A
-// layout of the P V product (the C tiles 2j and 2j+1 are the A fragment of
-// k-step j); V is the B operand through ldmatrix.trans. Rows of shared
-// tiles are padded by 16 bytes, so the 8 row addresses of an ldmatrix hit
-// 8 distinct 16-byte bank groups. Masking is applied only in tiles that
-// need it (per warp); a row fully masked so far keeps m = -inf and uses 0
-// as its exponent base, so exp(-inf - -inf) never occurs. Under a
-// softcap the scale no longer folds into exp2f, since the cap acts on
-// s*scale and is not linear: each accumulator fragment becomes
-// c*tanh(s*(scale/c)) right after the products (tanh.approx.f32, one
-// special-function-unit instruction, relative error ~2^-11, below the
-// 2^-9 rounding of P to bf16), m is tracked in capped units, and log2(e)
-// alone is the exp2 factor. Blocks start
-// in order of decreasing work: the last q tile of every head first, then
-// the one before (the longest causal rows start first; in head-major
-// order qwen2-7b's 28 heads left the last long rows to a second wave).
-// D = 256 (recurrentgemma-9b): the 16 x 256 f32 O accumulator is 128
-// registers a thread, so Q is re-read from shared memory by ldmatrix at
-// each kv tile instead of held (165 KB of shared memory: one block an SM).
-// The kernel addresses rows through strides (struct Layout), so it reads
-// the model's (B, S, H, D) tensors and writes its output in place
+// bf16, D in {64, 128, 256} (every shipped config): flash_fwd_wgmma,
+// FlashAttention-3's shape on Hopper's wgmma and TMA (csrc/sm90.cuh).
+// A block takes 64 q rows of one (batch, head) at D <= 128 (one consumer
+// warpgroup, two blocks an SM) and 128 at D = 256 (two consumer
+// warpgroups of 64 rows, one block an SM), beside a producer warpgroup of
+// which one thread issues every TMA load (setmaxnreg: consumers 232 / 240
+// registers, producer 24). Q is loaded once; K and V tiles (128 kv rows at
+// D = 64, 64 at D = 128 and 256) come through two rings of FW_STAGES
+// stages with full / empty mbarriers, so the producer streams tile i + 1
+// while the consumers work on tile i. TMA boxes are 64 D values (128
+// bytes, 128-byte swizzle) x 1 head x the tile's rows x 1 batch of a
+// rank-4 map over (D, H, S, B): rows past Sq or Sk read as zeros (a rank-3
+// map over (D, H, B*S) would read the next batch's rows) and stores past
+// Sq are dropped. S = Q K^T is wgmma with both operands in shared memory,
+// K-major (a key's D values contiguous), f32 accumulators in registers;
+// the online softmax runs on those fragments (each warp's 16 rows have
+// mma.sync's m16n8 layout: a row lives on the 4 lanes of a quad), the
+// scale folded into the exponent (ex2.approx); P is rounded to bf16 and
+// repacked in registers into the A fragments of O += P V (wgmma with A in
+// registers), V the MN-major B operand (the transpose bit).
+// Intra-warpgroup overlap: tile i's Q K^T is issued before tile i - 1's
+// P V, so the softmax of one tile runs while the tensor cores work on the
+// other. Masking runs only on tiles where some pair of the warpgroup's
+// rows needs it (the causal diagonal, the window's edge, the ragged last
+// tile: a zero-filled K row scores 0, not -inf, so it is masked too);
+// every branch around a wgmma is uniform over the warpgroup (ptxas
+// serialises wgmma behind a branch it cannot prove warp-uniform, C7518).
+// The output is staged through the warpgroup's own rows of Q's buffer and
+// written by a TMA store. Both entry points reach it: the model's (B, S,
+// H, D) layout and (B*H, S, D), through the same map with B = 1.
+//
+// bf16, D in {16, 32} (test shapes and reduced configs only):
+// flash_fwd_tc, FlashAttention-2 on sm_80's mma.sync. 4 warps, one block
+// per (b*h, 64 q rows), each warp owns 16 q rows. Q is staged in shared
+// memory once and held as ldmatrix A fragments in registers; K and V tiles
+// come through a two-stage cp.async ring, so the next tile's copy
+// overlaps this tile's products. S = Q K^T is mma.sync m16n8k16 with K as
+// the .col B operand (ldmatrix), f32 accumulators; the online softmax,
+// the P repack and the masking are the wgmma path's; V is the B operand
+// through ldmatrix.trans. Rows of shared tiles are padded by 16 bytes, so
+// the 8 row addresses of an ldmatrix hit 8 distinct 16-byte bank groups.
+//
+// Both bf16 paths: a row fully masked so far keeps m = -inf and uses 0 as
+// its exponent base, so exp(-inf - -inf) never occurs. Under a softcap
+// the scale no longer folds into exp2f, since the cap acts on s*scale and
+// is not linear: each accumulator fragment becomes c*tanh(s*(scale/c))
+// right after the products (tanh.approx.f32, one special-function-unit
+// instruction, relative error ~2^-11, below the 2^-9 rounding of P to
+// bf16), m is tracked in capped units, and log2(e) alone is the exp2
+// factor. Blocks start in order of decreasing work: the last q tile of
+// every head first, then the one before (the longest causal rows start
+// first; in head-major order qwen2-7b's 28 heads left the last long rows
+// to a second wave). Rows are addressed through strides, so the model's
+// (B, S, H, D) tensors are read and written in place
 // (repro_flash_attention_fwd_bshd): no transposed copies around the call.
 //
 // f32: flash_fwd, the FMA kernel of the first port, kept for the f32
@@ -77,6 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
 #include "tc_bf16.cuh"
 
 namespace {
@@ -323,15 +348,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 // ---- bf16: tensor-core kernel ----
 
 // 4 warps a block, each owning 16 q rows (64 a block); 64 kv rows a tile;
-// two blocks an SM. Registers a thread: O D/2, S 32, Q D/4 where it is held
-// as A fragments for the whole kv loop (D <= 128); at D = 256 (O alone is
-// 128 registers) Q is re-read from shared memory by ldmatrix at each tile.
-// scripts/torch_tile_sweep.py times the alternatives.
+// two blocks an SM. Registers a thread: O D/2, S 32, Q D/4 (held as A
+// fragments for the whole kv loop). D in {16, 32} only.
 constexpr int TC_NT = 128, TC_BQ = 64, TC_BK = 64, TC_MINB = 2;
-template <int D>
-__host__ __device__ constexpr bool tc_q_regs() {
-  return D <= 128;
-}
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
@@ -385,11 +404,11 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              int Sq, int Sk, int causal, int window, int q_offset,
              float scale_log2, float c_in, float c_out) {
   constexpr int BQ = TC_BQ, BK = TC_BK, RS = D + 8;
-  constexpr bool Q_REGS = tc_q_regs<D>();
   constexpr int KS = D / 16;   // k-steps of S = Q K^T
   constexpr int NS = BK / 8;   // n8 tiles of S
   constexpr int NO = D / 8;    // n8 tiles of O
-  static_assert(D % 16 == 0 && BQ == 16 * (TC_NT / 32), "tiling");
+  static_assert(D % 16 == 0 && D <= 32 && BQ == 16 * (TC_NT / 32),
+                "tiling");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -435,7 +454,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const int v_lane =
       (((lane >> 3) & 1) * 8 + (lane & 7)) * RS + (lane >> 4) * 8;
 
-  uint32_t qf[Q_REGS ? KS : 1][4];
+  uint32_t qf[KS][4];
   float acc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j)
@@ -458,11 +477,9 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (Q_REGS) {
-      if (tile == t_first) {
+    if (tile == t_first) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) tc::ldsm_x4(qf[kk], q_lane + kk * 16);
-      }
+      for (int kk = 0; kk < KS; ++kk) tc::ldsm_x4(qf[kk], q_lane + kk * 16);
     }
     const __nv_bfloat16* Kt = Ks + st * BK * RS;
     const __nv_bfloat16* Vt = Vs + st * BK * RS;
@@ -476,13 +493,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4];
-      if constexpr (Q_REGS) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
-      } else {
-        tc::ldsm_x4(qa, q_lane + kk * 16);
-      }
+      const uint32_t(&qa)[4] = qf[kk];
       uint32_t kb[NS / 2][4];  // this k-step's fragments first
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp)
@@ -628,35 +639,468 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 
 // One grid row per (batch, q head): bhq = batches x hq; the kv head of q
 // head h is h / group.
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 cudaError_t dispatch_tc(int d, const void* q, const void* k, const void* v,
                         void* o, const Layout& lay, int bhq, int hq,
                         int group, int sq, int sk, int causal, int window,
                         int q_offset, float scale, float softcap,
                         cudaStream_t stream) {
-  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
-       15) != 0)
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return cudaErrorMisalignedAddress;  // cp.async moves 16-byte chunks
   switch (d) {
     case 16: return launch_tc<16>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
     case 32: return launch_tc<32>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
-    case 64: return launch_tc<64>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
-    case 128: return launch_tc<128>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
-    case 256: return launch_tc<256>(q, k, v, o, lay, bhq, hq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// ---- bf16, D >= 64: wgmma fed by TMA ----
+
+// q rows a block at D <= 128: 64 (one consumer warpgroup, two blocks an
+// SM) or 128 (two, one block an SM). 64 was faster at every D <= 128
+// shape scripts/torch_tile_sweep.py times, grids of 40 to 768 64-row
+// blocks: two blocks an SM hide each other's prologue (Q's load, the
+// first Q K^T) and epilogue, and causal blocks of unequal length balance
+// better. D = 256 takes 128 rows: its 64 KB K + V stage leaves room for
+// one block an SM, whose two warpgroups then share each tile.
+constexpr int FW_ROWS = 64;
+constexpr int FW_BK_D64 = 128;   // kv rows a tile at D = 64
+constexpr int FW_BK_D128 = 64;   // at D = 128 (a 128-row tile does not
+                                 // leave two 64-row blocks an SM)
+constexpr int FW_BK_D256 = 64;   // at D = 256
+constexpr int FW_STAGES = 2;     // stages of the K and V rings, D <= 128
+constexpr int FW_BOX = 64;       // D values a box: one 128-byte row
+
+// NWG consumer warpgroups of 64 q rows each and a producer warpgroup;
+// byte offsets in the 1024-byte aligned dynamic shared memory
+template <int D>
+struct FwLayout {
+  static constexpr int BQ = D == 256 ? 128 : FW_ROWS;
+  static constexpr int NWG = BQ / 64;
+  static constexpr int BK =
+      D == 64 ? FW_BK_D64 : D == 128 ? FW_BK_D128 : FW_BK_D256;
+  static constexpr int NB = D / FW_BOX;         // boxes across D
+  static constexpr int Q_BOX = BQ * 128;        // a Q box: BQ rows
+  static constexpr int KV_BOX = BK * 128;       // a K or V box: BK rows
+  static constexpr int KV_STAGE = NB * KV_BOX;  // one tile of K (or V)
+  static constexpr int ST = D == 256 ? 2 : FW_STAGES;  // ring stages
+  static constexpr int Q0 = 0;
+  static constexpr int K0 = Q0 + NB * Q_BOX;
+  static constexpr int V0 = K0 + ST * KV_STAGE;
+  static constexpr int BAR0 = V0 + ST * KV_STAGE;
+  static constexpr int BYTES = BAR0 + (1 + 4 * ST) * 8;
+  static constexpr int SMEM = BYTES + 1024;     // + the alignment
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int MINB = NWG == 1 ? 2 : 1;  // blocks an SM
+  // registers a thread after setmaxnreg: the launch's share (65536 /
+  // THREADS / MINB, a multiple of 8) moved from the producer to the
+  // consumers
+  static constexpr int REG_P = 24, REG_C = NWG == 1 ? 232 : 240;
+  static_assert((D == 64 || D == 128 || D == 256) &&
+                    (BQ == 64 || BQ == 128), "head_dim, rows");
+  static_assert(BK % 16 == 0 && (BK == 64 || BK == 128), "kv tile");
+  static_assert(MINB * (SMEM + 1024) <= 233472, "shared memory");
+};
+
+// 2^x on the special-function unit (ex2.approx.ftz, relative error
+// 2^-22; a result below 2^-126 flushes to 0, far under P's bf16 rounding)
+__device__ __forceinline__ float fw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (64 x BK) = Q K^T over one k16 slice; both K-major in shared memory
+template <int BK>
+__device__ __forceinline__ void fw_qk(float (&s)[BK / 2], uint64_t da,
+                                      uint64_t db, bool accumulate) {
+  if constexpr (BK == 64)
+    sm90::wgmma_m64n64k16<0, 0>(s, da, db, accumulate);
+  else
+    sm90::wgmma_m64n128k16<0, 0>(s, da, db, accumulate);
+}
+
+// O (64 x D) += P (registers) V (k16 x D, MN-major in shared memory)
+template <int D>
+__device__ __forceinline__ void fw_pv(float (&o)[D / 2],
+                                      const uint32_t (&p)[4], uint64_t db) {
+  if constexpr (D == 64)
+    sm90::wgmma_m64n64k16_rs<1>(o, p, db);
+  else if constexpr (D == 128)
+    sm90::wgmma_m64n128k16_rs<1>(o, p, db);
+  else
+    sm90::wgmma_m64n256k16_rs<1>(o, p, db);
+}
+
+// One block: q rows [q0, q0 + BQ) of one (batch, q head); the kv tiles
+// [t_first, t_first + n) any of its rows can see. scale_log2, c_in, c_out
+// as flash_fwd_tc's; sms: the card's SMs.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(FwLayout<D>::THREADS, FwLayout<D>::MINB)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_o, int hq, int group,
+                int Sq, int Sk, int causal, int window, int q_offset,
+                float scale_log2, float c_in, float c_out, int sms) {
+  using L = FwLayout<D>;
+  constexpr int BQ = L::BQ, NWG = L::NWG, BK = L::BK, NB = L::NB, ST = L::ST;
+  constexpr int NS = BK / 8;  // n8 column groups of S
+  extern __shared__ __align__(1024) unsigned char smem_fw[];
+  unsigned char* smem =
+      smem_fw + ((1024 - (sm90::smem_u32(smem_fw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR0);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+
+  // grid (b * hq, q tiles). Blocks start in order of decreasing work (q
+  // tiles from the last: the longest causal rows first), except that the
+  // blocks which take an SM's second slot in the first wave (MINB = 2)
+  // come in reverse: the SM that got the longest first block gets the
+  // shortest second one. Everything up to the role split is uniform over
+  // the block.
+  long long w = blockIdx.x + (long long)blockIdx.y * gridDim.x;  // launch
+  if constexpr (L::MINB == 2) {
+    const long long wave =
+        min((long long)gridDim.x * gridDim.y, 2LL * sms);
+    if (w >= sms && w < wave) w = sms + wave - 1 - w;
+  }
+  const int bh = (int)(w % gridDim.x);
+  const int b = bh / hq, h = bh % hq;
+  const int q0 = (int)(gridDim.y - 1 - w / gridDim.x) * BQ;
+  const int k_end = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
+  const int k_first = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+  const int t_first = k_first / BK;
+  const int n = max(0, (k_end + BK - 1) / BK - t_first);  // tiles to visit
+  // warp-uniform to the compiler (broadcast from lane 0), so that the
+  // branches around the wgmma are too
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      sm90::mbar_init(&k_full[i], 1);          // the producer's expect_tx
+      sm90::mbar_init(&v_full[i], 1);
+      sm90::mbar_init(&k_empty[i], 4 * NWG);   // each consumer warp
+      sm90::mbar_init(&v_empty[i], 4 * NWG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // ---- producer: one thread issues every load ----
+    sm90::setmaxnreg_dec<L::REG_P>();
+    if (threadIdx.x == NWG * 128) {
+      sm90::prefetch_tensor_map(&map_q);
+      sm90::prefetch_tensor_map(&map_k);
+      sm90::prefetch_tensor_map(&map_v);
+      const int hk = h / group;
+      sm90::mbar_arrive_expect_tx(q_full, NB * L::Q_BOX);
+      for (int x = 0; x < NB; ++x)
+        sm90::tma_load_4d(smem + L::Q0 + x * L::Q_BOX, &map_q, q_full,
+                          x * FW_BOX, h, q0, b);
+      // the i-th tile of K or V into stage i % ST, once the consumers
+      // have released the tile that stage held before
+      auto load = [&](const CUtensorMap* map, int base, uint64_t* full,
+                      uint64_t* empty, int i) {
+        const int st = i % ST;
+        sm90::mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[st], L::KV_STAGE);
+        for (int x = 0; x < NB; ++x)
+          sm90::tma_load_4d(smem + base + st * L::KV_STAGE + x * L::KV_BOX,
+                            map, &full[st], x * FW_BOX, hk,
+                            (t_first + i) * BK, b);
+      };
+      // in the order the consumers take them: K 0, then K i, V i - 1
+      if (n > 0) load(&map_k, L::K0, k_full, k_empty, 0);
+      for (int i = 1; i < n; ++i) {
+        load(&map_k, L::K0, k_full, k_empty, i);
+        load(&map_v, L::V0, v_full, v_empty, i - 1);
+      }
+      if (n > 0) load(&map_v, L::V0, v_full, v_empty, n - 1);
+    }
+  } else {  // ---- consumers: warpgroup wg owns q rows 64 wg .. +63 ----
+    sm90::setmaxnreg_inc<L::REG_C>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    // key position of the warpgroup's first row (uniform), and of this
+    // lane's two rows: g (fragments 0, 1) and g + 8 (fragments 2, 3) of
+    // its warp's 16
+    const int p_wg = q_offset + q0 + 64 * wg;
+    const int row[2] = {p_wg + 16 * warp + g, p_wg + 16 * warp + g + 8};
+    const uint32_t q_s = sm90::smem_u32(smem + L::Q0) + wg * 64 * 128;
+    const uint32_t k_s = sm90::smem_u32(smem + L::K0);
+    const uint32_t v_s = sm90::smem_u32(smem + L::V0);
+
+    // fragment 4j + 2hf + i: row hf, column 8j + 2t + i
+    float o[D / 2], s[BK / 2];
+    uint32_t p[BK / 16][4];  // P as the A fragments of BK / 16 k16 slices
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    // per row: running max (unscaled; capped under CAP), this lane's share
+    // of the sum, the last tile's rescale factor
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float corr[2] = {1.f, 1.f};
+
+    // a stage is free once each consumer warp of the block has left it
+    auto release = [&](uint64_t* empty, int i) {
+      sm90::mbar_arrive(&empty[i % ST], lane == 0);
+    };
+    // S = Q K_i^T, issued and committed (the caller waits)
+    auto qk = [&](int i) {
+      const int st = i % ST;
+      sm90::mbar_wait(&k_full[st], (i / ST) & 1);
+      sm90::fence_operands(s);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // +32 B a k16, a box a 64
+        fw_qk<BK>(s,
+                  sm90::desc_sw128(q_s + kk / 4 * L::Q_BOX + kk % 4 * 32,
+                                   16, 1024),
+                  sm90::desc_sw128(k_s + st * L::KV_STAGE +
+                                       kk / 4 * L::KV_BOX + kk % 4 * 32,
+                                   16, 1024),
+                  kk > 0);
+      sm90::wgmma_commit();
+    };
+    // O += P V_i, issued and committed; 16 V rows (2048 B) a k16 slice,
+    // boxes of 64 D values KV_BOX bytes apart
+    auto pv = [&](int i) {
+      const int st = i % ST;
+      sm90::mbar_wait(&v_full[st], (i / ST) & 1);
+      sm90::fence_operands(o);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        fw_pv<D>(o, p[kk],
+                 sm90::desc_sw128(v_s + st * L::KV_STAGE + kk * 2048,
+                                  L::KV_BOX, 1024));
+      sm90::wgmma_commit();
+    };
+    // cap, mask and online softmax of tile i on S's fragments: S becomes
+    // exp(S - m) (f32), m and l move, corr takes the factor for O
+    auto softmax = [&](int i) {
+      const int k0 = (t_first + i) * BK;
+      if constexpr (CAP) {  // before the mask: a masked score stays -inf
+#pragma unroll
+        for (int x = 0; x < BK / 2; ++x) s[x] = tc_softcap(s[x], c_in, c_out);
+      }
+      // uniform over the warpgroup: some pair of its rows and this tile
+      const bool need_mask = k0 + BK > Sk ||
+                             (causal && k0 + BK - 1 > p_wg) ||
+                             (window > 0 && k0 <= p_wg + 63 - window);
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = k0 + 8 * j + 2 * t + (c & 1);
+            const int r = row[c >> 1];
+            const bool ok = col < Sk && (!causal || col <= r) &&
+                            (window <= 0 || col > r - window);
+            s[4 * j + c] = ok ? s[4 * j + c] : -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = m[hf];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // exponent base; 0 while the row has seen no unmasked column
+        const float base = mx == -INFINITY ? 0.f : mx * scale_log2;
+        corr[hf] = fw_exp2(m[hf] * scale_log2 - base);
+        m[hf] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int c = 2 * hf; c < 2 * hf + 2; ++c) {
+            s[4 * j + c] = fw_exp2(fmaf(s[4 * j + c], scale_log2, -base));
+            sum += s[4 * j + c];
+          }
+        l[hf] = l[hf] * corr[hf] + sum;
+      }
+    };
+    auto rescale = [&] {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+    };
+    // S's column groups 2kk, 2kk + 1 are the A fragment of k16 slice kk
+    auto pack = [&] {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[kk][r] = tc::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+
+    sm90::mbar_wait(q_full, 0);
+    if (n > 0) {
+      qk(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(s);
+      release(k_empty, 0);
+      softmax(0);
+      pack();
+      for (int i = 1; i < n; ++i) {
+        qk(i);      // tile i's products start ...
+        rescale();  // (O is not in flight: the last P V has finished)
+        pv(i - 1);  // ... and tile i - 1's P V behind them
+        sm90::wgmma_wait<1>();  // S of tile i is done
+        sm90::fence_operands(s);
+        release(k_empty, i);
+        softmax(i);
+        sm90::wgmma_wait<0>();  // P V of tile i - 1 is done
+        sm90::fence_operands(o);
+        release(v_empty, i - 1);
+        pack();
+      }
+      rescale();
+      pv(n - 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      release(v_empty, n - 1);
+    }
+
+    // O / max(l, 1e-20) into this warpgroup's rows of Q's buffer (no wgmma
+    // of it reads Q any more), 128-byte rows, chunk j % 8 ^ row % 8 of box
+    // j / 8; then one TMA store a box (rows past Sq are dropped)
+    unsigned char* o_s = smem + L::Q0 + wg * 64 * 128;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float sum = l[hf];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / fmaxf(sum, 1e-20f);
+      const int r = 16 * warp + g + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(
+            o_s + j / 8 * L::Q_BOX + r * 128 + (((j % 8) ^ (r % 8)) << 4) +
+            4 * t) = tc::pack_bf16(o[4 * j + 2 * hf] * inv,
+                                   o[4 * j + 2 * hf + 1] * inv);
+    }
+    sm90::fence_async_shared();
+    sm90::named_barrier_sync(1 + wg, 128);
+    const bool leader = tid == 0;
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      sm90::tma_store_4d(&map_o, o_s + x * L::Q_BOX, x * FW_BOX, h,
+                         q0 + 64 * wg, b, leader);
+    sm90::tma_store_commit(leader);
+    sm90::tma_store_wait<0>(leader);
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma_map(const CUtensorMap& mq, const CUtensorMap& mk,
+                             const CUtensorMap& mv, const CUtensorMap& mo,
+                             int bhq, int hq, int group, int sq, int sk,
+                             int causal, int window, int q_offset,
+                             float scale, float softcap,
+                             cudaStream_t stream) {
+  using L = FwLayout<D>;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const bool cap = softcap > 0.f;
+  auto kernel = cap ? flash_fwd_wgmma<D, true> : flash_fwd_wgmma<D, false>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bhq, (sq + L::BQ - 1) / L::BQ);
+  kernel<<<grid, L::THREADS, L::SMEM, stream>>>(
+      mq, mk, mv, mo, hq, group, sq, sk, causal, window, q_offset,
+      cap ? LOG2E : scale * LOG2E, cap ? scale / softcap : 0.f,
+      cap ? softcap : 0.f, sms);
+  return cudaGetLastError();
+}
+
+// The four tensor maps (q and o: boxes of 64 D values x 1 head x the
+// block's rows (q) or a warpgroup's 64 (o) x 1 batch; k and v: x the kv
+// tile's rows), then the launch. lay's strides are in elements; a map
+// takes them in bytes.
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, const Layout& lay, int batches, int hq,
+                         int hkv, int sq, int sk, int causal, int window,
+                         int q_offset, float scale, float softcap,
+                         cudaStream_t stream) {
+  using L = FwLayout<D>;
+  const cuuint64_t qdims[4] = {(cuuint64_t)D, (cuuint64_t)hq, (cuuint64_t)sq,
+                               (cuuint64_t)batches};
+  const cuuint64_t kdims[4] = {(cuuint64_t)D, (cuuint64_t)hkv,
+                               (cuuint64_t)sk, (cuuint64_t)batches};
+  const cuuint64_t qstr[3] = {(cuuint64_t)lay.q_h * 2, (cuuint64_t)lay.q_s * 2,
+                              (cuuint64_t)lay.q_b * 2};
+  const cuuint64_t kstr[3] = {(cuuint64_t)lay.kv_h * 2,
+                              (cuuint64_t)lay.kv_s * 2,
+                              (cuuint64_t)lay.kv_b * 2};
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err = sm90::tensor_map_bf16<4>(&mq, q, qdims, qstr,
+                                             {FW_BOX, 1, L::BQ, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map_bf16<4>(&mk, k, kdims, kstr, {FW_BOX, 1, L::BK, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map_bf16<4>(&mv, v, kdims, kstr, {FW_BOX, 1, L::BK, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map_bf16<4>(&mo, o, qdims, qstr, {FW_BOX, 1, 64, 1});
+  if (err != cudaSuccess) return err;
+  return launch_wgmma_map<D>(mq, mk, mv, mo, batches * hq, hq, hq / hkv, sq,
+                             sk, causal, window, q_offset, scale, softcap,
+                             stream);
+}
+
+cudaError_t dispatch_wgmma(int d, const void* q, const void* k,
+                           const void* v, void* o, const Layout& lay,
+                           int batches, int hq, int hkv, int sq, int sk,
+                           int causal, int window, int q_offset, float scale,
+                           float softcap, cudaStream_t stream) {
+  // TMA: 16-byte aligned bases, row strides of 128 bytes or more
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return cudaErrorMisalignedAddress;
+  switch (d) {
+    case 64: return launch_wgmma<64>(q, k, v, o, lay, batches, hq, hkv, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, lay, batches, hq, hkv, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 256: return launch_wgmma<256>(q, k, v, o, lay, batches, hq, hkv, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the paths, as kernels/flash_attention/ops.py numbers them
+enum Path { FMA = 0, TC = 1, WGMMA = 2 };
+
 }  // namespace
 
 // q: (bhq, sq, d); k, v: (bhq / group, sk, d); o: (bhq, sq, d); all
-// contiguous, of one dtype (0 = float32, 1 = bfloat16). The kv row of q row
-// bh is bh / group; q row i sits at key position q_offset + i (>= 0).
-// softcap > 0 caps each scaled score s at softcap * tanh(s / softcap);
-// 0 leaves it. Launches on ``stream``, allocates nothing, and returns
-// the cudaError_t of the launch (0 on success).
+// contiguous; float32 for path FMA, bfloat16 for TC (d 16, 32) and WGMMA
+// (d 64, 128, 256): the caller's choice (kernels/flash_attention/ops.py
+// flash_path). The kv row of q row bh is bh / group; q row i sits at key
+// position q_offset + i (>= 0). softcap > 0 caps each scaled score s at
+// softcap * tanh(s / softcap); 0 leaves it. Launches on ``stream``,
+// allocates nothing, and returns the cudaError_t of the launch (0 on
+// success); a path that does not take the call refuses it
+// (cudaErrorInvalidValue) and launches nothing.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int dtype,
+                                         const void* v, void* o, int path,
                                          int bhq, int group, int sq, int sk,
                                          int d, int causal, int window,
                                          int q_offset, float scale,
@@ -666,29 +1110,34 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
       !(softcap >= 0.f && softcap < INFINITY))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(d, q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, st);
-  else if (dtype == 1)
-    err = dispatch_tc(d, q, k, v, o,
-                      Layout{0, (long long)sq * d, d, 0, (long long)sk * d, d},
-                      bhq, bhq, group, sq, sk, causal, window, q_offset,
-                      scale, softcap, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  // one batch of bhq heads; its stride only has to be a valid one
+  const Layout lay{(long long)bhq * sq * d, (long long)sq * d, d,
+                   (long long)(bhq / group) * sk * d, (long long)sk * d, d};
+  switch (path) {
+    case FMA:
+      return (int)dispatch_d<float>(d, q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, st);
+    case TC:
+      return (int)dispatch_tc(d, q, k, v, o, lay, bhq, bhq, group, sq, sk,
+                              causal, window, q_offset, scale, softcap, st);
+    case WGMMA:
+      return (int)dispatch_wgmma(d, q, k, v, o, lay, 1, bhq, bhq / group, sq,
+                                 sk, causal, window, q_offset, scale,
+                                 softcap, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// The model's layout, read and written in place, bf16 only (the tensor-core
-// kernel): q: (b, sq, hq, d); k, v: (b, sk, hkv, d); o: (b, sq, hq, d); all
+// The model's layout, read and written in place, bf16 only (path TC or
+// WGMMA): q: (b, sq, hq, d); k, v: (b, sk, hkv, d); o: (b, sq, hq, d); all
 // contiguous. The kv head of q head h is h / (hq / hkv); q row i sits at
 // key position q_offset + i (>= 0); softcap as above. Launches on
 // ``stream``, allocates nothing, and returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
-                                              const void* v, void* o, int b,
-                                              int hq, int hkv, int sq, int sk,
-                                              int d, int causal, int window,
+                                              const void* v, void* o,
+                                              int path, int b, int hq,
+                                              int hkv, int sq, int sk, int d,
+                                              int causal, int window,
                                               int q_offset, float scale,
                                               float softcap, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || sk <= 0 || hq % hkv != 0 ||
@@ -697,22 +1146,40 @@ extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const Layout lay{(long long)sq * hq * d, d, (long long)hq * d,
                    (long long)sk * hkv * d, d, (long long)hkv * d};
-  return (int)dispatch_tc(d, q, k, v, o, lay, b * hq, hq, hq / hkv, sq, sk,
-                          causal, window, q_offset, scale, softcap,
-                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (path) {
+    case TC:
+      return (int)dispatch_tc(d, q, k, v, o, lay, b * hq, hq, hq / hkv, sq,
+                              sk, causal, window, q_offset, scale, softcap,
+                              st);
+    case WGMMA:
+      return (int)dispatch_wgmma(d, q, k, v, o, lay, b, hq, hkv, sq, sk,
+                                 causal, window, q_offset, scale, softcap,
+                                 st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory, in bytes, that a block of the instantiation
-// (dtype, d) launches takes; -1 for what the entry point refuses.
-extern "C" int repro_flash_attention_smem(int dtype, int d) {
-  if (dtype != 0 && dtype != 1) return -1;
-  const bool tc = dtype == 1;
-  switch (d) {
-    case 16: return (int)(tc ? tc_smem_bytes<16>() : fma_smem_bytes<16>());
-    case 32: return (int)(tc ? tc_smem_bytes<32>() : fma_smem_bytes<32>());
-    case 64: return (int)(tc ? tc_smem_bytes<64>() : fma_smem_bytes<64>());
-    case 128: return (int)(tc ? tc_smem_bytes<128>() : fma_smem_bytes<128>());
-    case 256: return (int)(tc ? tc_smem_bytes<256>() : fma_smem_bytes<256>());
-    default: return -1;
+// Dynamic shared memory, in bytes, that a block of ``path`` takes at head
+// dim d; -1 for what the entry points refuse.
+extern "C" int repro_flash_attention_smem(int path, int d) {
+  switch (path) {
+    case FMA:
+      switch (d) {
+        case 16: return (int)fma_smem_bytes<16>();
+        case 32: return (int)fma_smem_bytes<32>();
+        case 64: return (int)fma_smem_bytes<64>();
+        case 128: return (int)fma_smem_bytes<128>();
+        case 256: return (int)fma_smem_bytes<256>();
+      }
+      return -1;
+    case TC:
+      return d == 16 ? (int)tc_smem_bytes<16>()
+                     : d == 32 ? (int)tc_smem_bytes<32>() : -1;
+    case WGMMA:
+      return d == 64 ? FwLayout<64>::SMEM
+                     : d == 128 ? FwLayout<128>::SMEM
+                                : d == 256 ? FwLayout<256>::SMEM : -1;
   }
+  return -1;
 }

@@ -111,16 +111,18 @@ def ptxas_report(log: str) -> list[dict]:
     return kernels
 
 
-def sass_opcodes(lib: Path, kernel: str, opcodes: tuple[str, ...]) -> dict:
-    """How many instructions of each of ``opcodes`` the SASS of the kernel
+def sass_counts(lib: Path, kernel: str,
+                opcodes: tuple[str, ...]) -> dict[str, dict]:
+    """How many instructions of each of ``opcodes`` the SASS of each kernel
     whose mangled name contains ``kernel`` holds in the built library
-    (``cuobjdump -sass``); raises if no kernel matches."""
+    (``cuobjdump -sass``), by mangled name; raises if no kernel matches."""
     sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    bodies = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
-              if kernel in f.split("\n", 1)[0]]
+    bodies = {f.split("\n", 1)[0].strip(): f
+              for f in re.split(r"\n\s*Function : ", sass)[1:]
+              if kernel in f.split("\n", 1)[0]}
     if not bodies:
         raise RuntimeError(f"no kernel {kernel!r} in the SASS of {lib}")
-    return {op: sum(len(re.findall(rf"\b{op}\b", b)) for b in bodies)
-            for op in opcodes}
+    return {name: {op: len(re.findall(rf"\b{op}\b", b)) for op in opcodes}
+            for name, b in bodies.items()}

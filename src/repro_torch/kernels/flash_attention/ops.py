@@ -1,11 +1,14 @@
 """Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
 
 ``flash_attention`` takes the model layout (B, S, H, D) and launches on
-PyTorch's current stream. bf16 runs on the tensor-core kernel, which reads
-and writes that layout in place; f32 runs on the FMA kernel (full-f32
-products), which takes the (B*H, S, D) layout the JAX wrapper reorders
-to, so the f32 call makes those copies; neither falls back to the other.
-``flash_attention_bhsd`` launches either on the (B*H, S, D) layout. A
+PyTorch's current stream. ``flash_path`` picks the kernel's path from the
+dtype and head dim before the launch: bf16 at D 64, 128 and 256 (every
+shipped config) runs on ``flash_fwd_wgmma`` (Hopper's wgmma fed by TMA),
+bf16 at D 16 and 32 on ``flash_fwd_tc`` (mma.sync); both read and write
+that layout in place. f32 runs on the FMA kernel (full-f32 products),
+which takes the (B*H, S, D) layout the JAX wrapper reorders to, so the
+f32 call makes those copies. No path falls back to another.
+``flash_attention_bhsd`` launches any path on the (B*H, S, D) layout. A
 CPU tensor goes to the plain version (``ref.naive_attention``); a CUDA
 tensor goes to the kernel, or the call raises. The kernel is built at its
 first launch (``repro_torch.kernels.build``).
@@ -34,10 +37,16 @@ from repro_torch.roofline.work import charged, flash_work
 
 SOURCES = ("flash_attention.cu",)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's paths, numbered as csrc/flash_attention.cu's entry points
+# take them: "fma" f32 (full-f32 products for the oracles), "tc" bf16 at D
+# 16 and 32 (mma.sync), "wgmma" bf16 at D 64, 128 and 256 (wgmma + TMA)
+PATHS = ("fma", "tc", "wgmma")
 
-# kernel launches since the last reset (plain-version calls do not count)
+# kernel launches since the last reset (plain-version calls do not count),
+# in all and by path
 launches = 0
+launches_by_path = dict.fromkeys(PATHS, 0)
 
 _built = None
 _build_lock = threading.Lock()
@@ -46,6 +55,25 @@ _build_lock = threading.Lock()
 def reset_launches() -> None:
     global launches
     launches = 0
+    for p in PATHS:
+        launches_by_path[p] = 0
+
+
+def flash_path(dtype, D: int, aligned: bool) -> str:
+    """The kernel path of a call: f32 -> "fma"; bf16 with D in {16, 32} ->
+    "tc"; bf16 with D in {64, 128, 256} -> "wgmma". Both bf16 paths copy
+    16-byte chunks (cp.async, TMA): ``aligned`` (q, k, v and the output
+    start on 16-byte boundaries) must hold, or the call raises."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention has no path for {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if not aligned:
+        raise ValueError("the bf16 kernels copy 16-byte chunks: q, k, v "
+                         "must start on 16-byte boundaries")
+    return "tc" if D <= 32 else "wgmma"
 
 
 def build():
@@ -55,11 +83,13 @@ def build():
         if _built is None:
             from repro_torch.kernels.build import build as nvcc_build
             built = nvcc_build("flash_attention", SOURCES)
-            # q, k, v, o; 9 ints; scale, softcap; the stream
-            for fn in (built.lib.repro_flash_attention_fwd,
-                       built.lib.repro_flash_attention_fwd_bshd):
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
-                    [ctypes.c_float] * 2 + [ctypes.c_void_p]
+            # q, k, v, o; the path and 8 (bshd: 9) ints; scale, softcap;
+            # the stream
+            for fn, n_int in ((built.lib.repro_flash_attention_fwd, 9),
+                              (built.lib.repro_flash_attention_fwd_bshd, 10)):
+                fn.argtypes = [ctypes.c_void_p] * 4 + \
+                    [ctypes.c_int] * n_int + [ctypes.c_float] * 2 + \
+                    [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             built.lib.repro_flash_attention_smem.argtypes = [ctypes.c_int] * 2
             built.lib.repro_flash_attention_smem.restype = ctypes.c_int
@@ -67,9 +97,11 @@ def build():
     return _built
 
 
-def smem_bytes(dtype, head_dim: int) -> int:
-    """Dynamic shared memory a block takes at (dtype, head_dim)."""
-    return build().lib.repro_flash_attention_smem(_DTYPES[dtype], head_dim)
+def smem_bytes(path: str, head_dim: int) -> int:
+    """Dynamic shared memory a block of ``path`` takes at ``head_dim``; -1
+    where the path does not take the head dim."""
+    return build().lib.repro_flash_attention_smem(PATHS.index(path),
+                                                  head_dim)
 
 
 def _check_softcap(softcap: float) -> None:
@@ -93,18 +125,20 @@ def _check(q, k, v, window: int, q_offset: int, softcap: float) -> None:
     _check_softcap(softcap)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous tensors")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
-        raise ValueError("the bf16 kernel copies 16-byte chunks: q, k, v "
-                         "must start on 16-byte boundaries")
 
 
-def _launched(err: int) -> None:
+def _path(q, k, v, o) -> str:
+    return flash_path(q.dtype, q.shape[-1],
+                      all(t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
+
+
+def _launched(err: int, path: str) -> None:
     global launches
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({path} "
+                           f"path): cudaError {err}")
     launches += 1
+    launches_by_path[path] += 1
 
 
 def _bhsd_work(q, k, v, *, causal: bool = True, window: int = 0,
@@ -144,20 +178,22 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"unsupported extent B*Hq={BHq}, Sq={Sq}, Sk={Sk}")
     lib = build().lib
     o = torch.empty_like(q)
+    path = _path(q, k, v, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], BHq, group, Sq, Sk, D, int(causal),
+            PATHS.index(path), BHq, group, Sq, Sk, D, int(causal),
             int(window), int(q_offset), float(D ** -0.5), float(softcap),
             stream)
-    _launched(err)
+    _launched(err, path)
     return o
 
 
 def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int,
                 softcap: float):
-    """bf16 kernel launch on the model layout, read and written in place."""
+    """bf16 kernel launch on the model layout, read and written in place
+    (the tc or wgmma path)."""
     _check(q, k, v, window, q_offset, softcap)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -166,13 +202,15 @@ def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int,
                          f"Sk={Sk}")
     lib = build().lib
     o = torch.empty_like(q)
+    path = _path(q, k, v, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd_bshd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
-            Hkv, Sq, Sk, D, int(causal), int(window), int(q_offset),
-            float(D ** -0.5), float(softcap), stream)
-    _launched(err)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            PATHS.index(path), B, Hq, Hkv, Sq, Sk, D, int(causal),
+            int(window), int(q_offset), float(D ** -0.5), float(softcap),
+            stream)
+    _launched(err, path)
     return o
 
 

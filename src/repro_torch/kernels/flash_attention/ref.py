@@ -4,8 +4,10 @@
 scores, f32 softmax). The wrapper in ``ops.py`` takes it for tensors on the
 CPU; on the card it is what the CUDA kernel is held against.
 
-``tiled_attention`` computes with the bf16 tensor-core kernel's rounding
-points, so that the CPU tests can show what they cost against the oracle.
+``tiled_attention`` computes with the bf16 kernels' rounding points, so
+that the CPU tests can show what they cost against the oracle: ``block_k``
+is the kernel's kv tile, 64 rows on the tc path (D 16, 32) and on the
+wgmma path at D 128 and 256, 128 rows on the wgmma path at D 64.
 """
 from __future__ import annotations
 

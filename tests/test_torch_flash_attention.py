@@ -9,7 +9,14 @@ against ``naive_attention`` only. ``tiled_attention``, the bf16 kernel's
 rounding points in plain PyTorch (online softmax over kv tiles, P rounded
 to bf16 before P V), is held in bf16 against both on small versions of
 the served shapes. The CUDA kernel is held against the plain version on
-the card (``gpu`` marker), on the edges of its tensor-core path too.
+the card (``gpu`` marker), on the edges of its tensor-core paths too.
+
+The wgmma path (bf16, D 64 / 128 / 256): ``flash_path`` for each dtype,
+head dim and alignment; ``tiled_attention`` at that path's kv tiles (128
+rows at D 128, 64 at D 256) with a ragged Sk, a window that binds inside
+a tile and softcap 1.0 against JAX's oracle; on the card the path against
+``naive_attention`` on its edges (``WGMMA_EDGES``) through both layouts,
+each call one launch on "wgmma" and none on "tc".
 
 The logit softcap: ``naive_attention`` and ``layers.attention`` (the
 wrapper's CPU path) with softcap 1.0 and 50.0 against JAX's
@@ -72,7 +79,8 @@ TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # P V, so the output moves by about 2^-9 |o| (|o| <= max |v| ~ 4 here);
 # the repo's bf16 tolerance of 3e-2 holds it with room
 TILED_TOL = 3e-2
-KV_TILE = 64   # the bf16 kernel's kv tile, at every head dim
+KV_TILE = 64   # the tc path's kv tile, and the wgmma path's at D 128
+               # and 256 (WGMMA_TILES holds D 64's 128 rows)
 
 
 def _tol(dtype):
@@ -179,6 +187,57 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_bhsd(*t, group=2)
     assert ops.launches == before
+
+
+# flash_path: (dtype, D, aligned) -> the path, or the exception it raises
+PATH_CASES = [("float32", D, al, "fma") for D in (16, 64, 256)
+              for al in (True, False)] + \
+    [("bfloat16", D, True, "tc") for D in (16, 32)] + \
+    [("bfloat16", D, True, "wgmma") for D in (64, 128, 256)] + \
+    [("bfloat16", D, False, ValueError) for D in (16, 64, 128)] + \
+    [("bfloat16", 48, True, ValueError), ("float16", 64, True, TypeError)]
+
+
+@pytest.mark.parametrize("dtype,D,aligned,want", PATH_CASES)
+def test_flash_path(dtype, D, aligned, want):
+    dt = getattr(torch, dtype)
+    if isinstance(want, str):
+        assert ops.flash_path(dt, D, aligned) == want
+    else:
+        with pytest.raises(want):
+            ops.flash_path(dt, D, aligned)
+
+
+# tiled_attention at the wgmma path's kv tiles (128 rows at D <= 128, 64 at
+# D 256): (B, S, Hq, Hkv, D, causal, window, softcap, block_k); S 300 is
+# ragged against either tile, window 40 binds inside a tile
+WGMMA_TILES = [(1, 300, 4, 2, 128, True, 0, 0.0, 128),
+               (1, 300, 4, 1, 128, True, 40, 0.0, 128),
+               (1, 300, 4, 4, 128, False, 0, 1.0, 128),
+               (1, 300, 4, 1, 256, True, 40, 0.0, 64),
+               (1, 300, 4, 1, 256, True, 0, 1.0, 64),
+               (1, 300, 6, 3, 64, True, 40, 1.0, 128)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,cap,block_k",
+                         WGMMA_TILES)
+def test_tiled_bf16_at_wgmma_tiles_matches_jax(B, S, Hq, Hkv, D, causal,
+                                               window, cap, block_k):
+    """The wgmma path's arithmetic at its own kv tiles against JAX's
+    capped oracle (``masked_attention``) in bf16, at TILED_TOL."""
+    import jax.numpy as jnp
+    from repro.models import layers as jL
+    q, k, v = _inputs(13, B, S, Hq, Hkv, D)
+    ref = jL.masked_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                for x in (q, k, v)),
+                              causal=causal, window=window, softcap=cap)
+    t = [torch.as_tensor(x).bfloat16() for x in (q, k, v)]
+    out = tiled_attention(*t, causal=causal, window=window,
+                          block_k=block_k, softcap=cap)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=TILED_TOL, rtol=TILED_TOL)
 
 
 @pytest.fixture
@@ -348,3 +407,53 @@ def test_layers_attention_with_softcap_launches_on_card(cuda, dtype):
     torch.testing.assert_close(
         out.float(), naive_attention(*t, softcap=1.0).float(),
         atol=_tol(dtype), rtol=_tol(dtype))
+
+
+# the edges of the wgmma path, (B, Sq, Sk, Hq, Hkv, D, causal, window), bf16
+# (chip_smoke.py's FLASH_EDGES hold them too): Sq and Sk not multiples of
+# the 64- or 128-row tiles (77, 129, 300), Sq = 1, Sq != Sk non-causal (300
+# x 1500), GQA groups 1, 7, 8 and 48, every head dim, and window 40 at S
+# 300: a block takes 64 q rows at D <= 128 and 128 at D 256, and in the
+# block at rows 128-191 the last warp's rows (176-191), at D 256 in the
+# block at rows 128-255 the second warpgroup's (192-255), are all masked
+# in the first kv tile visited (keys 0-127 at D 64, 64-127 at D 128 and
+# 256).
+WGMMA_EDGES = [(1, 77, 77, 4, 4, 64, True, 0),
+               (2, 129, 129, 14, 2, 64, True, 0),
+               (2, 300, 300, 28, 4, 64, True, 0),
+               (1, 300, 300, 8, 8, 64, True, 40),
+               (1, 300, 1500, 8, 8, 64, False, 0),
+               (1, 1, 1, 4, 1, 64, True, 0),
+               (1, 300, 300, 48, 1, 128, True, 0),
+               (1, 300, 300, 56, 8, 128, True, 40),
+               (1, 200, 200, 16, 1, 128, True, 16),
+               (1, 300, 1500, 48, 1, 128, False, 0),
+               (1, 1, 1, 48, 1, 128, True, 0),
+               (1, 300, 300, 16, 1, 256, True, 40),
+               (1, 129, 129, 7, 1, 256, True, 0),
+               (1, 77, 300, 16, 1, 256, False, 0),
+               (1, 1, 1, 16, 1, 256, True, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", WGMMA_EDGES)
+def test_wgmma_path_matches_plain_on_card(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                          causal, window, layout):
+    q, k, v = (torch.as_tensor(x).to(device=cuda, dtype=torch.bfloat16)
+               for x in _qkv(14, B, Sq, Sk, Hq, Hkv, D))
+    before = dict(ops.launches_by_path)
+    if layout == "bshd":
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        t = [x.transpose(1, 2).reshape(-1, x.shape[1], D).contiguous()
+             for x in (q, k, v)]
+        out = ops.flash_attention_bhsd(*t, causal=causal, window=window,
+                                       group=Hq // Hkv)
+        out = out.reshape(B, Hq, Sq, D).transpose(1, 2)
+    torch.cuda.synchronize()
+    moved = {p: n - before[p] for p, n in ops.launches_by_path.items()}
+    assert moved == {"fma": 0, "tc": 0, "wgmma": 1}
+    ref = naive_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_tol("bfloat16"), rtol=_tol("bfloat16"))
