@@ -16,8 +16,10 @@ Drives the port in phases and exits non-zero if any fails:
                tensor cores, f32 on the FMA kernels) and a block of
                ssd_scan's chunk-parallel scan takes; fails unless each
                instantiation of the two wgmma paths (flash_fwd_wgmma,
-               gmm_wgmma) holds HGMMA and UTMALDG in its SASS, and on a
-               wgmma ptxas serialised (C7518 in the nvcc log);
+               gmm_wgmma) and of ssd_scan's two kernels (ssd_cb,
+               ssd_chunk: split-TF32 wgmma) holds HGMMA and UTMALDG in its
+               SASS, and on a wgmma ptxas serialised (C7518 in the nvcc
+               log);
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
@@ -55,8 +57,13 @@ Drives the port in phases and exits non-zero if any fails:
                version (the chunked scan of the JAX model) on the shapes of
                tests/test_kernels.py, two ragged ones (S not a chunk
                multiple), the chunk-parallel kernel's structure (8 and 16
-               chunks at S 2048 and 4096, B=4 at mamba2's widths, P of 40:
-               not a multiple of a block's 32 columns) and mamba2-1.3b's
+               chunks at S 2048 and 4096, B=4 at mamba2's widths, P of 40),
+               the edges of its 64-row tiles (S 1, 7, 33, 65; P 8, 24,
+               40; N 8, 40; B 4; S 150, 230: one chunk split over two
+               blocks),
+               strong
+               decay (unit-scale inputs, A dt down to about -60 a step)
+               and mamba2-1.3b's
                serve shapes (B=1, H 64, P 64, N 128, chunk 256, S 32/200/
                300/1024), f32 and bf16, inputs at the model's scale, TF32
                off; tolerance atol 1e-3 (f32, as tests/test_kernels.py) and
@@ -66,7 +73,9 @@ Drives the port in phases and exits non-zero if any fails:
                only: back-to-back calls of a short kernel time its
                wrapper's host dispatch), with the achieved GFLOP/s and the
                share of the bound on the device time (no single PyTorch
-               call computes this function, so no library time);
+               call computes this function, so no library time); the f32
+               bound is at the split-TF32 rate (three products at 495
+               TFLOP/s), printed beside the FMA-rate bound (67 TFLOP/s);
   (c4) kernel  holds rglru_scan (every h and the last, f32) against its
                plain version (the sequential recurrence in f32) on the shapes
                of tests/test_kernels.py (strong decay included), two ragged
@@ -562,7 +571,24 @@ SSD_CASES = [(label, *shape, dt)
                                   ("chunks", (1, 2048, 64, 64, 128, 256)),
                                   ("chunks", (1, 4096, 64, 64, 128, 256)),
                                   ("batch", (4, 300, 64, 64, 128, 256)),
-                                  ("P slice", (2, 600, 8, 40, 128, 256)))]
+                                  ("P slice", (2, 600, 8, 40, 128, 256)),
+                                  # the 64-row tiles' edges: S under and
+                                  # across a tile, P and N not multiples
+                                  # of 16, B = 4
+                                  ("edge", (1, 1, 4, 64, 128, 256)),
+                                  ("edge", (2, 7, 3, 24, 40, 256)),
+                                  ("edge", (4, 33, 2, 8, 8, 256)),
+                                  ("edge", (1, 65, 5, 40, 128, 256)),
+                                  ("edge", (4, 65, 3, 24, 8, 32)),
+                                  ("edge", (2, 130, 4, 8, 40, 64)),
+                                  ("edge", (2, 150, 4, 24, 40, 256)),
+                                  # one chunk of four query tiles (and of
+                                  # three above), split over two blocks a
+                                  # (b, h)
+                                  ("edge", (2, 230, 4, 24, 40, 256)),
+                                  # unit-scale inputs, A dt down to -60
+                                  ("strong", (2, 300, 3, 24, 40, 256)),
+                                  ("strong", (1, 77, 2, 64, 128, 32)))]
 SSD_SERVE = [("serve", 1, S, 64, 64, 128, 256, dt)
              for dt in (torch.float32, torch.bfloat16)
              for S in (32, 200, 300, 1024)]
@@ -1394,11 +1420,20 @@ def phase_mesh(dev, smi: str) -> dict:
     return out
 
 
-def ssd_inputs(B, S, H, P, N, dt, gen, dev):
+def ssd_inputs(B, S, H, P, N, dt, gen, dev, strong: bool = False):
     """Inputs at mamba2's scale: x, B and C are silu of the causal conv's
     output (std 0.5 under the model's init), dt is softplus of a unit
     normal (dt_bias 0), A = -exp(A_log) with A_log uniform in [0, log 16]
-    (from -1, the init, to -16)."""
+    (from -1, the init, to -16). ``strong``: as tests/test_torch_ssd_scan.py
+    draws its strong decay: unit normal x, B, C, dt = 2 |N|, A = -16
+    (|N| + 0.1), so exp(Lc) and the decays underflow inside a chunk."""
+    if strong:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        return (randn(B, S, H, P).to(dt), (2.0 * randn(B, S, H).abs()).to(dt),
+                randn(B, S, N).to(dt), randn(B, S, N).to(dt),
+                -16.0 * (randn(H).abs() + 0.1))
+
     def act(shape):
         return F.silu(0.5 * torch.randn(shape, generator=gen, device=dev))
     x = act((B, S, H, P)).to(dt)
@@ -1410,11 +1445,24 @@ def ssd_inputs(B, S, H, P, N, dt, gen, dev):
     return x, dtv, Bm, Cm, A
 
 
-def ssd_bound(B, S, H, P, N, chunk, dt) -> tuple[float, str]:
+# f32 products at f32's accuracy on the tensor cores: three TF32 products
+# (split TF32) at the card's dense TF32 rate
+TF32_OPS_PER_S = 495e12
+SPLIT_TF32 = 3
+
+
+def ssd_bound(B, S, H, P, N, chunk, dt,
+              fma: bool = False) -> tuple[float, str]:
     """Least time for this call: ssd_work's operations over the peak rate
-    of the input type against its bytes over the memory rate."""
+    against its bytes over the memory rate. f32 products are taken at the
+    split-TF32 rate (three TF32 products at 495 TFLOP/s), as the kernel
+    takes them on the tensor cores; ``fma``: at the f32 FMA rate (67
+    TFLOP/s), the bound of the earlier FMA kernels. bf16 at 989 TFLOP/s."""
     ops, nbytes = ssd_work(B, S, H, P, N, chunk, dt)
-    t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
+    rate = PEAK_OPS[dt]
+    if dt == torch.float32 and not fma:
+        rate = TF32_OPS_PER_S / SPLIT_TF32
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1425,7 +1473,8 @@ def phase_ssd(dev, smi: str) -> list[dict]:
     rows = []
     for case in SSD_CASES + SSD_SERVE:
         label, B, S, H, P, N, chunk, dt = case
-        args = ssd_inputs(B, S, H, P, N, dt, gen, dev)
+        args = ssd_inputs(B, S, H, P, N, dt, gen, dev,
+                          strong=label == "strong")
         y, h = ssd.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
         yr, hr = ssd_chunked_reference(*args, chunk=chunk)
@@ -1441,6 +1490,8 @@ def phase_ssd(dev, smi: str) -> list[dict]:
                "rtol": rtol, "ok": bool(ok)}
         if case in SSD_SERVE:
             bound_ms, bound_by = ssd_bound(B, S, H, P, N, chunk, dt)
+            fma_ms, _ = ssd_bound(B, S, H, P, N, chunk, dt, fma=True)
+            row.update(bound_fma_ms=fma_ms)
             row.update(
                 ms=time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
                 plain_ms=time_ms(lambda: ssd_chunked_reference(
@@ -1455,8 +1506,8 @@ def phase_ssd(dev, smi: str) -> list[dict]:
             print(f"[ssd] {name}: kernel {row['ms']:.4f} ms (calls back to "
                   f"back), {row['graph_ms']:.4f} ms (CUDA graph, device "
                   f"only), plain {row['plain_ms']:.4f} ms, library none, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"{row['gflops']:.0f} GFLOP/s and "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; at the FMA rate "
+                  f"{fma_ms:.4f} ms), {row['gflops']:.0f} GFLOP/s and "
                   f"{100 * row['bound_share']:.1f}% of the bound on the "
                   f"device time, max_abs_err {err:.3g} [{smi}]")
         else:
@@ -2456,7 +2507,8 @@ def phase_fig1(dev, smi: str) -> dict:
           f"{ov['dnn_kernels']} kernels take {ov['dnn_kernel_ms']:.4f} ms, "
           f"{ov['overlap_ms']:.4f} ms of it ({ov['share']:.3f}) beside the "
           f"co-runner's {ov['other_kernels']} kernels "
-          f"({ov['other_busy_ms']:.4f} ms busy) [{smi}]")
+          f"({ov['other_busy_ms']:.4f} ms busy, {ov['other_span_share']:.3f} "
+          f"of the DNN's {ov['dnn_span_ms']:.4f} ms span) [{smi}]")
     if ov["overlap_ms"] <= 0:
         fail("fig1: the co-runner's kernels never ran beside the DNN's: "
              "the co-run measured queueing, not contention")
@@ -3296,8 +3348,18 @@ def main() -> int:
               f"spills {k['spill_stores']} / {k['spill_loads']} B")
     build_report["moe_gmm_wgmma_sass"] = check_hopper(
         builds["moe_gmm"], "gmm_wgmma", 2)
-    print(f"[build] dynamic shared memory a block, ssd_scan's chunk-parallel "
-          f"scan (both dtypes): {ssd.smem_bytes()} B")
+    # ssd_scan: C B^T (ssd_cb) and the chunk-parallel scan (ssd_chunk), each
+    # in f32 and bf16, products on wgmma in split TF32
+    for k in build_report["ssd_scan"]:
+        # by substring, as check_hopper matches: names stay mangled where
+        # c++filt is missing
+        name = next(n for n in ssd.KERNELS if n in k["kernel"])
+        print(f"[build] ssd_scan {k['kernel']}: {k['registers']} registers, "
+              f"{ssd.smem_bytes(name)} B dynamic shared memory, spills "
+              f"{k['spill_stores']} / {k['spill_loads']} B")
+    for name in ssd.KERNELS:
+        build_report[f"{name}_sass"] = check_hopper(builds["ssd_scan"], name,
+                                                    2)
     phase_s = {}
 
     def timed(name, fn, *args, **kw):

@@ -9,8 +9,11 @@ Each repetition runs the DNN 10 times on a stream of its own inside
 ``fig1_parallelization.hammering`` under ``torch.profiler`` (as (g) does),
 takes the DNN's stream (the one with the most distinct kernels) and the
 co-runner's (the busiest other one) from the trace, and prints how much
-of the DNN's kernel time the co-runner's kernels ran beside it: (g) fails
-a run whose overlap is 0. ``chip_smoke.py`` reads its traces with this
+of the DNN's kernel time the co-runner's kernels ran beside it (and how
+much of the DNN's span, first kernel to last, the co-runner kept its
+stream busy): (g) fails a run whose overlap is 0. ``--busy-threads N``
+runs N pure-Python threads beside each co-run, a host whose GIL is
+contended. ``chip_smoke.py`` reads its traces with this
 module's ``device_events``, ``overlap`` and ``corun_overlap``. The benchmark comes from whichever checkout's
 ``src`` is first on ``PYTHONPATH``, so one copy of this script compares
 two commits in one call. Prints one line a repetition, then the count of
@@ -24,6 +27,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -58,12 +62,17 @@ def overlap(dnn: list[dict], others: list[dict]) -> dict:
         else:
             merged.append([a, b])
     dnn_us = sum(e["dur"] for e in dnn)
+    t0 = min((e["ts"] for e in dnn), default=0.0)
+    t1 = max((e["ts"] + e["dur"] for e in dnn), default=0.0)
+    in_span_us = sum(max(0.0, min(b, t1) - max(a, t0)) for a, b in merged)
     both_us = sum(max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"]))
                   for e in dnn for a, b in merged)
     return {"dnn_kernel_ms": dnn_us / 1e3, "overlap_ms": both_us / 1e3,
             "share": both_us / dnn_us if dnn_us else 0.0,
             "dnn_kernels": len(dnn), "other_kernels": len(others),
-            "other_busy_ms": sum(b - a for a, b in merged) / 1e3}
+            "other_busy_ms": sum(b - a for a, b in merged) / 1e3,
+            "dnn_span_ms": (t1 - t0) / 1e3,
+            "other_span_share": in_span_us / (t1 - t0) if t1 > t0 else 0.0}
 
 
 def corun_overlap(by_stream: dict) -> dict:
@@ -83,6 +92,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--tag", default="", help="label printed on each line")
+    ap.add_argument("--busy-threads", type=int, default=0,
+                    help="pure-Python threads spinning beside each co-run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_fig1_overlap: needs an NVIDIA card", file=sys.stderr)
@@ -102,9 +113,23 @@ def main() -> int:
         with torch.cuda.stream(stream):
             model(img)
 
+    def spin(stop):
+        while not stop.is_set():
+            sum(range(1000))
+
     def corun():
-        with fig1.hammering(dev):
-            fig1.time_fn(dnn, stream, iters=10)
+        stop = threading.Event()
+        spinners = [threading.Thread(target=spin, args=(stop,))
+                    for _ in range(args.busy_threads)]
+        for t in spinners:
+            t.start()
+        try:
+            with fig1.hammering(dev):
+                fig1.time_fn(dnn, stream, iters=10)
+        finally:
+            stop.set()
+            for t in spinners:
+                t.join()
     zero, shares = 0, []
     with tempfile.TemporaryDirectory() as tmp:
         for rep in range(args.reps):
@@ -117,10 +142,13 @@ def main() -> int:
             print(f"[{args.tag}] rep {rep}: overlap {ov['overlap_ms']:.4f} ms "
                   f"of the DNN's {ov['dnn_kernel_ms']:.4f} ms kernel time "
                   f"({ov['share']:.3f}), {ov['other_kernels']} co-runner "
-                  f"kernels", flush=True)
+                  f"kernels busy {ov['other_span_share']:.3f} of the DNN's "
+                  f"{ov['dnn_span_ms']:.4f} ms span", flush=True)
     print(f"[{args.tag}] {zero} of {args.reps} repetitions with no overlap; "
           f"share min {min(shares):.3f}, max {max(shares):.3f}; in flight "
-          f"{getattr(fig1, 'IN_FLIGHT', 1)} [{smi}]")
+          f"{getattr(fig1, 'IN_FLIGHT', 1)} x "
+          f"{getattr(fig1, 'CALLS_PER_LAUNCH', 1)} calls, "
+          f"{args.busy_threads} busy threads [{smi}]")
     return 0
 
 

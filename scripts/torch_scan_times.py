@@ -11,7 +11,9 @@ scale as ``chip_smoke.py`` draws them. Each kernel is timed two ways: 20
 wrapper calls back to back between CUDA events (``chip_smoke.py``'s
 ``ms``: a short kernel's time is then its wrapper's host dispatch), and
 the same 20 calls captured in a CUDA graph and replayed (device time
-only). The kernels come from whichever checkout's ``src`` is first on
+only), ssd_scan's beside its bound (f32 at the split-TF32 rate: three
+TF32 products at 495 TFLOP/s) and its share. The kernels come from
+whichever checkout's ``src`` is first on
 ``PYTHONPATH`` (each builds into its own ``build/``), so one copy of this
 script times two commits' kernels in one call. Prints one line per shape
 with the card's name and power limit. Exits non-zero without a card.
@@ -28,8 +30,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import ops as rg
 from repro_torch.kernels.ssd_scan import ops as ssd
+from repro_torch.roofline.work import ssd_work
 
 SEQS = (32, 200, 300, 1024)
+# ssd_scan's bound: f32 products in split TF32 (three TF32 products at 495
+# TFLOP/s), bf16 at 989 TFLOP/s; bytes at 3.35 TB/s
+SSD_RATE = {"f32": 495e12 / 3, "bf16": 989e12}
+HBM = 3.35e12
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -117,9 +124,13 @@ def main() -> int:
         for S in SEQS:
             a = ssd_inputs(S, dt, gen, dev)
             call = lambda: ssd.ssd_scan(*a, chunk=256)  # noqa: E731
+            ops, nbytes = ssd_work(1, S, 64, 64, 128, 256, dt)
+            bound = max(ops / SSD_RATE[name], nbytes / HBM) * 1e3
+            g_ms = graph_ms(call)
             print(f"[{args.tag}] ssd_scan S={S} {name}: calls back to back "
                   f"{eager_ms(call):.4f} ms, CUDA graph "
-                  f"{graph_ms(call):.4f} ms [{smi}]", flush=True)
+                  f"{g_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({100 * bound / g_ms:.1f}%) [{smi}]", flush=True)
     for name, dt in DTYPES.items():
         for S in SEQS:
             la, gx = rglru_inputs(S, dt, gen, dev)

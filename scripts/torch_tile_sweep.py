@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Tile sweep of the port's two bf16 tensor-core kernels on one NVIDIA card.
+"""Tile sweep of the port's tensor-core kernels on one NVIDIA card.
 
-    python3 scripts/torch_tile_sweep.py [--kernels flash moe_gmm]
+    python3 scripts/torch_tile_sweep.py [--kernels flash moe_gmm ssd]
 
 Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
 ``flash_fwd_wgmma`` path, bf16 at D >= 64: q rows a block at D <= 128
@@ -10,12 +10,18 @@ Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
 ``moe_gmm.cu`` (its ``gmm_wgmma`` prefill path: output columns a tile
 ``WG_BN``, TMA ring stages ``WG_STAGES``, 64-column boxes a warpgroup
 stages a store ``WG_OBOXES``, and the grid walk: one persistent block an
-SM or one block a tile) into ``build/tile_sweep/``, one nvcc per
-variant, all started together. Prints each variant's registers and spills
+SM or one block a tile) and of ``ssd_scan.cu`` (the rule that splits a
+one-chunk call's query tiles over two blocks: as shipped, never, or
+whenever the chunk has two query tiles or more, at any grid; and, as a
+check of the numerics, lo of each split left unrounded; its key-tile
+rows and stages are fixed by the 64-row wgmma tile and one block of 218
+KB an SM) into ``build/tile_sweep/``, one nvcc per variant, all started
+together. Prints each variant's registers and spills
 (``-Xptxas -v``), its device time on the serve shapes (20 calls captured
 in a CUDA graph, so the host's launch time is left out), its largest
 error against the plain version, and the library call's time beside it
-(SDPA, ``torch.bmm``). Exits non-zero without a card.
+(SDPA, ``torch.bmm``; none for ssd_scan). Exits non-zero without a
+card.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm.ops import PATHS  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 
 OUT = ROOT / "build" / "tile_sweep"
 WGMMA = PATHS.index("wgmma")
@@ -74,6 +81,25 @@ GMM_SHAPES = [("prefill T=1024 gate/up", 64, 160, 2048, 1024, "route1024"),
               ("EP a2a gate/up", 4, 2560, 2048, 1024, "full"),
               ("EP a2a down", 4, 2560, 1024, 2048, "full")]
 
+# ssd_scan: variants as (source line, its replacement); the first is the
+# source's own
+SSD_SPLIT = ("const int qsplit = l.n_chunks == 1 && Q > 2 * KT && "
+             "2LL * blocks <= sms;")
+SSD_LO = ("make_float4(sm90::to_tf32(a - h.x), sm90::to_tf32(b - h.y),\n"
+          "                    sm90::to_tf32(c - h.z), sm90::to_tf32(d - h.w))")
+SSD = {"ssd_split_rule": (),
+       "ssd_split_never": ((SSD_SPLIT, "const int qsplit = 0;"),),
+       "ssd_split_always": ((SSD_SPLIT, "const int qsplit = l.n_chunks == 1 "
+                                        "&& Q > KT;"),),
+       "ssd_lo_unrounded": ((SSD_LO, "make_float4(a - h.x, b - h.y, c - h.z, "
+                                     "d - h.w)"),)}
+# (B, S, strong decay): mamba2-1.3b's prefills (H 64, P 64, N 128, chunk
+# 256); one chunk of two and of three query tiles, and of four at batch 2
+# (128 blocks unsplit); the strong decay of (c3) at S 1024
+SSD_SHAPES = ((1, 32, False), (1, 128, False), (1, 192, False),
+              (1, 200, False), (1, 300, False), (1, 1024, False),
+              (2, 200, False), (1, 1024, True))
+
 
 def flash_source(var) -> str:
     rows, bk64, bk128, stages = var
@@ -95,6 +121,14 @@ def gmm_source(var) -> str:
         text, n = re.subn(rf"constexpr {name} = \w+;",
                           f"constexpr {name} = {value};", text)
         assert n == 1, name
+    return text
+
+
+def ssd_source(edits) -> str:
+    text = (CSRC / "ssd_scan.cu").read_text()
+    for line, repl in edits:
+        assert text.count(line) == 1, line
+        text = text.replace(line, repl)
     return text
 
 
@@ -146,7 +180,7 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", nargs="+", default=["flash", "moe_gmm"],
-                    choices=["flash", "moe_gmm"])
+                    choices=["flash", "moe_gmm", "ssd"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_tile_sweep: needs an NVIDIA card", file=sys.stderr)
@@ -160,6 +194,9 @@ def main() -> int:
         jobs += [(f"gmm_bn{v[0]}_stages{v[1]}_oboxes{v[2]}_"
                   f"{'persistent' if v[3] else 'plain'}", "moe_gmm.cu",
                   gmm_source(v), rf"gmm_wgmma<{v[0]},") for v in GMM]
+    if "ssd" in args.kernels:
+        jobs += [(name, "ssd_scan.cu", ssd_source(edits), r"ssd_chunk<float>")
+                 for name, edits in SSD.items()]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip((j[0] for j in jobs),
                          pool.map(lambda j: build(*j), jobs)))
@@ -237,6 +274,47 @@ def main() -> int:
             err = (o.float() - ref.float()).abs().max().item()
             row.append(f"{graph_ms(call):.4f} ms (err {err:.3g}, rc {rc})")
         print(f"[gmm] {name}: {info}: " + "; ".join(row))
+    cases = []
+    for dt in (torch.float32, torch.bfloat16) if "ssd" in args.kernels \
+            else ():
+        for B, S, strong in SSD_SHAPES:
+            a = cs.ssd_inputs(B, S, 64, 64, 128, dt, gen, dev, strong)
+            cases.append((B, S, strong, dt, a,
+                          ssd_chunked_reference(*a, chunk=256),
+                          cs.ssd_bound(B, S, 64, 64, 128, 256, dt)[0]))
+    for name, (lib, info) in built.items():
+        if not name.startswith("ssd_"):
+            continue
+        if lib is None:
+            print(f"[ssd] {name}: build failed: {info}")
+            continue
+        so = ctypes.CDLL(str(lib))
+        fn = so.repro_ssd_scan
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p]
+        so.repro_ssd_scan_workspace.argtypes = [ctypes.c_int] * 6
+        so.repro_ssd_scan_workspace.restype = ctypes.c_longlong
+        row = []
+        for B, S, strong, dt, (x, dtv, Bm, Cm, A), (yr, hr), b_ms in cases:
+            Q = min(256, S)
+            ws = torch.empty(so.repro_ssd_scan_workspace(B, S, 64, 64, 128, Q),
+                             dtype=torch.uint8, device=dev)
+            y = torch.empty_like(x)
+            h = torch.empty((B, 64, 64, 128), device=dev)
+            call = lambda: fn(  # noqa: E731
+                x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                A.data_ptr(), y.data_ptr(), h.data_ptr(), ws.data_ptr(),
+                0 if dt == torch.float32 else 1, B, S, 64, 64, 128, Q,
+                stream())
+            rc = call()
+            torch.cuda.synchronize()
+            err = max((y.float() - yr).abs().max().item(),
+                      (h - hr).abs().max().item())
+            t = graph_ms(call)
+            row.append(f"B={B} S={S}{' strong' if strong else ''} "
+                       f"{cs.DT_NAME[dt]} {t:.4f} ms ({100 * b_ms / t:.1f}"
+                       f"% of the bound, err {err:.3g}, rc {rc})")
+        print(f"[ssd] {name}: {info}: " + "; ".join(row))
     return 0
 
 

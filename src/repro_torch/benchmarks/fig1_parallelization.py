@@ -8,11 +8,13 @@ the clock stops: the GPU's form of per-core work. (b) A thread runs
 ``(a * 1.000001 + a.T).sum()`` on a 1024² f32 tensor back to back, on its
 own stream, while the DNN runs on another: PyTorch's current stream is per
 thread, so two threads left on the default stream would queue behind each
-other instead of contending. The thread keeps ``IN_FLIGHT`` calls queued
-on its stream (JAX's co-runner waits for each call before it issues the
-next): a hog that waited for each ~0.07 ms call, and for the GIL after
-it, left its stream empty most of the time, and its kernels could take
-turns with the DNN's instead of running beside them.
+other instead of contending. On the card one launch of the co-runner is a
+CUDA graph of ``CALLS_PER_LAUNCH`` calls (~8 ms of device work), and the
+thread keeps ``IN_FLIGHT`` launches queued on its stream (JAX's co-runner
+waits for each call before it issues the next). A thread that launched
+each ~0.07 ms call from Python needed the GIL for every one; beside the
+DNN's launching thread it got it rarely, left its stream empty most of
+the co-run, and its kernels could miss the DNN's altogether.
 
     python -m repro_torch.benchmarks.fig1_parallelization [--device cpu]
 """
@@ -33,9 +35,11 @@ from repro_torch.models.dave2 import make_dave2
 
 BATCH = 8
 MEM_SHAPE = (1024, 1024)
-# mem_benchmark calls the co-runner keeps queued on its stream: before a
-# launch it waits for the call IN_FLIGHT launches back
+# launches the co-runner keeps queued on its stream: before a launch it
+# waits for the one IN_FLIGHT launches back
 IN_FLIGHT = 3
+# mem_benchmark calls a launch replays on the card (one CUDA graph)
+CALLS_PER_LAUNCH = 128
 
 
 def new_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
@@ -68,15 +72,34 @@ def mem_benchmark(a: torch.Tensor) -> torch.Tensor:
     return (a * 1.000001 + a.T).sum()
 
 
+def co_runner_launch(mem: torch.Tensor,
+                     stream: Optional[torch.cuda.Stream]) -> Callable:
+    """One launch of the co-runner: on the card the replay of a CUDA graph
+    of ``CALLS_PER_LAUNCH`` ``mem_benchmark`` calls, captured on
+    ``stream``; elsewhere one call."""
+    if mem.device.type != "cuda":
+        return lambda: mem_benchmark(mem)
+    with on(stream):
+        mem_benchmark(mem)          # warm-up outside the capture
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        for _ in range(CALLS_PER_LAUNCH):
+            mem_benchmark(mem)
+    return graph.replay
+
+
 @contextlib.contextmanager
 def hammering(device: torch.device) -> Iterator[None]:
     """Run ``mem_benchmark`` back to back in a thread, on a stream of its
-    own, for the length of the block (from its first finished call on),
-    ``IN_FLIGHT`` calls queued on the card; the thread drains its stream
-    before it stops. What the thread raised is raised when the block
-    ends."""
+    own, for the length of the block (from its first finished launch on),
+    ``IN_FLIGHT`` launches (``co_runner_launch``) queued on the card; the
+    thread drains its stream before it stops. What the thread raised is
+    raised when the block ends."""
     mem = torch.ones(MEM_SHAPE, device=device)
     stream = new_stream(device)
+    launch = co_runner_launch(mem, stream)
     synchronize(device)
     stop, started = threading.Event(), threading.Event()
     errors: List[BaseException] = []
@@ -93,7 +116,7 @@ def hammering(device: torch.device) -> Iterator[None]:
                 while not stop.is_set():
                     if len(queued) == IN_FLIGHT:
                         queued.popleft().synchronize()  # frees the GIL
-                    mem_benchmark(mem)
+                    launch()
                     queued.append(torch.cuda.Event())
                     queued[-1].record(stream)
                     if not started.is_set():

@@ -3,19 +3,22 @@
 //
 //   host:   tensor maps (cuTensorMapEncodeTiled, reached through the
 //           runtime's cudaGetDriverEntryPoint, so the library needs no
-//           -lcuda) for bf16 tensors of rank 2-5, 128-byte swizzle;
-//   TMA:    tensor loads (rank 3 and 4) into shared memory that complete
+//           -lcuda) for bf16 or f32 tensors of rank 2-5, 128-byte swizzle;
+//   TMA:    tensor loads (rank 2, 3 and 4) into shared memory that complete
 //           on an mbarrier, tensor stores from shared memory in bulk groups;
 //   mbarrier: init, arrive, arrive.expect_tx, a parity wait;
 //   wgmma:  shared-memory descriptors of 128-byte-swizzled tiles (K-major
 //           and MN-major), m64n{64,128,256}k16 bf16 products with f32
 //           accumulators, A and B in shared memory or A in registers (the
-//           m16n8k16 A fragment of each warp's 16 rows), fence /
+//           m16n8k16 A fragment of each warp's 16 rows), m64n64k8 tf32
+//           products (K-major A and B in shared memory: tf32 has no
+//           transposed form) and the tf32 rounding of an f32, fence /
 //           commit_group / wait_group;
 //   clusters: the block's rank, a cluster-wide barrier, TMA loads
 //           multicast to several blocks' shared memory, arrivals on a
 //           peer block's mbarrier;
-//   setmaxnreg, named barriers, the async-proxy fence.
+//   setmaxnreg, named barriers, the async-proxy fence;
+//   programmatic dependent launch: a grid's early start and its wait.
 //
 // Layouts. A TMA box whose inner extent is 64 bf16 (128 bytes) lands in
 // shared memory as rows of 128 bytes, the 16-byte chunk c of row r stored
@@ -31,6 +34,8 @@
 //    atom, K groups 1024 bytes apart (SBO), 64-column blocks of N LBO
 //    bytes apart (one box: 128 bytes a K row, 8192 at 64 rows); a k16
 //    slice is 2048 bytes further.
+// An f32 (tf32) tile is the same with 32 values a 128-byte row: a K-major
+// k8 slice starts 32 bytes further into the row, as a bf16 k16 slice does.
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -67,28 +72,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of the bf16 tensor at ``base`` with extents ``dims`` (innermost
-// first, elements) and byte strides ``strides`` of dims 1.., cut into
-// boxes of ``box`` elements (box[0] * 2 <= 128 bytes), 128-byte swizzle.
-// A load reads elements outside the extents as zeros; a store skips them.
-// The base must be 16-byte aligned and each stride a multiple of 16.
+// A map of the tensor of element type ``type`` at ``base`` with extents
+// ``dims`` (innermost first, elements) and byte strides ``strides`` of
+// dims 1.., cut into boxes of ``box`` elements (box[0] elements <= 128
+// bytes), 128-byte swizzle. A load reads elements outside the extents as
+// zeros; a store skips them. The base must be 16-byte aligned and each
+// stride a multiple of 16.
 template <int R>
-inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
-                                   const cuuint64_t (&dims)[R],
-                                   const cuuint64_t (&strides)[R - 1],
-                                   const cuuint32_t (&box)[R]) {
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                              const void* base, const cuuint64_t (&dims)[R],
+                              const cuuint64_t (&strides)[R - 1],
+                              const cuuint32_t (&box)[R]) {
   static_assert(R >= 2 && R <= 5, "rank");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint32_t elem[R];
   for (int i = 0; i < R; ++i) elem[i] = 1;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, R, const_cast<void*>(base), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the same for a bf16 tensor
+template <int R>
+inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
+                                   const cuuint64_t (&dims)[R],
+                                   const cuuint64_t (&strides)[R - 1],
+                                   const cuuint32_t (&box)[R]) {
+  return tensor_map<R>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                       strides, box);
 }
 
 // -------------------------------------------------------------- device --
@@ -126,13 +141,16 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool pred = true) {
       : "memory");
 }
 
-// arrive and announce ``bytes`` that TMA will deliver to this phase
+// if ``pred``: arrive and announce ``bytes`` that TMA will deliver to
+// this phase
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
+                                                      uint32_t bytes,
+                                                      bool pred = true) {
   asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
           smem_u32(bar)),
-      "r"(bytes)
+      "r"(bytes), "r"((uint32_t)pred)
       : "memory");
 }
 
@@ -166,6 +184,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// if ``pred``: box at (c0, c1) of ``map`` -> shared ``dst``; completes
+// on ``bar``
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            bool pred = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n}\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"((uint32_t)pred)
       : "memory");
 }
 
@@ -603,6 +636,57 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// ---- tf32 ----
+
+// ``a`` rounded to tf32 (10 mantissa bits, to nearest, ties away from
+// zero), as f32 bits whose low 13 bits are zero
+__device__ __forceinline__ float to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return __uint_as_float(r);
+}
+
+// d (64 x 64, f32, in registers) (+)= A (64 x 8) B (8 x 64), tf32, both
+// K-major in shared memory through descriptors (wgmma's tf32 form reads
+// f32 bits and ignores the low 13 mantissa bits); ``accumulate`` false
+// overwrites d
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    uint64_t da, uint64_t db,
+                                                    bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"((uint32_t)accumulate));
+}
+
+// ---- programmatic dependent launch ----
+
+// a grid launched with programmatic stream serialization may start once
+// every block of the grid before it has run this (or exited)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// waits until the grid before this one has finished and its writes are
+// visible (at once without a programmatic launch)
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 }  // namespace sm90

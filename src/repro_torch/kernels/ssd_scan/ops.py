@@ -5,8 +5,12 @@
 the model layout as it is: B and C stay shared across heads, so C B^T is
 computed once per (b, chunk) instead of per head from a copy broadcast
 over heads. A call makes two device launches on PyTorch's current stream
-(C B^T, then the chunk-parallel scan; ``csrc/ssd_scan.cu``) into a scratch
-tensor the wrapper allocates, and counts as one launch. A CPU tensor goes
+(C B^T, then the chunk-parallel scan, which starts while the first runs;
+``csrc/ssd_scan.cu``), both with their products on the tensor cores in
+split TF32 and their operands brought by TMA, into a scratch tensor the
+wrapper allocates, and counts as one launch. TMA reads x, B and C in
+place: they must start on 16-byte boundaries, with rows (H P and N
+elements) of a multiple of 16 bytes. A CPU tensor goes
 to the plain version (``models.mamba2._ssd_chunked``, imported at the
 call: the model module imports this one); a CUDA tensor goes
 to the kernel, or the call raises. The kernel is built at its first launch
@@ -25,8 +29,9 @@ from torch.distributed.tensor import DTensor
 from repro_torch.roofline.work import charged, ssd_work
 
 SOURCES = ("ssd_scan.cu",)
-MAX_STATE = 128      # N: a block's state pass splits 128 state rows
-MAX_CHUNK = 256      # Q: a block holds its chunk's x slice, a row a thread
+MAX_STATE = 128      # N: the state tile's 128 columns (two warpgroups')
+MAX_CHUNK = 256      # Q: four query tiles of 64 rows a block
+KERNELS = ("ssd_chunk", "ssd_cb")   # repro_ssd_scan_smem's numbering
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (plain-version calls do not count)
@@ -55,15 +60,16 @@ def build():
             ws = built.lib.repro_ssd_scan_workspace
             ws.argtypes = [ctypes.c_int] * 6
             ws.restype = ctypes.c_longlong
-            built.lib.repro_ssd_scan_smem.argtypes = []
+            built.lib.repro_ssd_scan_smem.argtypes = [ctypes.c_int]
             built.lib.repro_ssd_scan_smem.restype = ctypes.c_int
             _built = built
     return _built
 
 
-def smem_bytes() -> int:
-    """Dynamic shared memory of a block of the chunk-parallel scan."""
-    return build().lib.repro_ssd_scan_smem()
+def smem_bytes(kernel: str = "ssd_chunk") -> int:
+    """Dynamic shared memory of a block of ``kernel`` (``KERNELS``): the
+    chunk-parallel scan or C B^T."""
+    return build().lib.repro_ssd_scan_smem(KERNELS.index(kernel))
 
 
 @functools.lru_cache(maxsize=256)
@@ -103,6 +109,13 @@ def _check(xh, dt, Bm, Cm, A, h0, chunk: int) -> None:
                          f"(min(chunk, S) at most {MAX_CHUNK})")
     if not all(t.is_contiguous() for t in (xh, dt, Bm, Cm, A)):
         raise ValueError("ssd_scan needs contiguous tensors")
+    es = xh.element_size()
+    if (H * P * es) % 16 or (N * es) % 16 or \
+            any(t.data_ptr() % 16 for t in (xh, Bm, Cm)):
+        raise ValueError(f"ssd_scan's TMA loads need xh, Bm, Cm starting on "
+                         f"16-byte boundaries and rows of a multiple of 16 "
+                         f"bytes: H*P={H * P} and N={N} elements of "
+                         f"{es} bytes")
     if not (xh.is_cuda and all(t.device == xh.device
                                for t in (dt, Bm, Cm, A))):
         raise ValueError("xh, dt, Bm, Cm, A must lie on one CUDA device")

@@ -16,6 +16,14 @@
   from chunk to chunk; (iv) the inter-chunk output from the state before
   each chunk. Used by neither the wrapper nor the model: it lets the CPU
   show that the kernel's algorithm computes the function.
+* ``tf32_split`` — an f32 tensor as hi + lo, both rounded to tf32 the way
+  ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero, on the
+  f32 bits).
+* ``ssd_tf32x3_reference`` — the CUDA kernel's numerics: the same
+  decomposition, in 64-row tiles, with each of its four products taken as
+  hi hi + hi lo + lo hi of the split operands (split TF32), as the tensor
+  cores take them; decays, states and sums in f32. It shows on the CPU
+  that three TF32 products keep f32's tolerance.
 """
 from __future__ import annotations
 
@@ -81,3 +89,79 @@ def ssd_state_passing_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
     y = y + torch.exp(lc)[..., None] * torch.einsum(
         "bcin,bchpn->bcihp", Cc, torch.stack(before, dim=1))
     return y.reshape(Bsz, nc * Q, H, P)[:, :S], h
+
+
+TILE = 64   # rows of the kernel's query and key tiles
+
+
+def _tf32(a):
+    """``a`` (f32) rounded to tf32: half an ulp of a 10-bit mantissa added to
+    the magnitude, the low 13 bits cut; infinities and NaNs kept."""
+    u = a.contiguous().view(torch.int32)
+    keep = (u & 0x7F800000) == 0x7F800000
+    return torch.where(keep, u, (u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a):
+    """a (f32) -> (hi, lo): hi = tf32(a), lo = tf32(a - hi)."""
+    a = a.float()
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _mm3(a, b):
+    """a @ b in split TF32: hi hi + hi lo + lo hi (each product of two tf32
+    values is exact in f32)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def ssd_tf32x3_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
+    """``ssd_state_passing_reference`` with the CUDA kernel's products.
+
+    Per chunk: (i) CB = C B^T; (ii) M = CB exp(Lc_i - Lc_j) dt_j, j <= i,
+    factored off the diagonal tiles as exp(Lc_i - Lc_i0) exp(Lc_i0 - Lc_j)
+    dt_j (i0 the query tile's first row), y = M x; (iii) s = (w x)^T B,
+    w_j = exp(Ltot - Lc_j) dt_j, h_c = exp(Ltot) h_{c-1} + s_c; (iv) y_i +=
+    exp(Lc_i) (C h_{c-1}^T)[i]. Each product in split TF32. Same
+    arguments and results as ``ssd_state_passing_reference``.
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x = F.pad(xh.float(), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, Q, H, P)
+    d = F.pad(dt.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, H)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, Q, N)
+    lc = torch.cumsum(d * A.float(), dim=2)                  # (B,nc,Q,H)
+    ltot = lc[:, :, -1]
+    idx = torch.arange(Q, device=xh.device)
+    i0 = idx // TILE * TILE                                  # a row's tile
+    tri = idx[:, None] >= idx[None, :]
+    same = i0[:, None] == i0[None, :]
+
+    cb = _mm3(Cc, Bc.transpose(-1, -2))                      # (B,nc,i,j)
+    li = lc.permute(0, 1, 3, 2)                              # (B,nc,H,Q)
+    dj = d.permute(0, 1, 3, 2)
+    diff = li[..., :, None] - li[..., None, :]               # (B,nc,H,i,j)
+    diag = torch.exp(diff.clamp(max=0.0)) * cb[:, :, None] * dj[..., None, :]
+    u = torch.exp(li - li[..., i0])                          # (B,nc,H,i)
+    v = torch.exp((li[..., i0][..., :, None] - li[..., None, :])
+                  .clamp(max=0.0)) * dj[..., None, :]        # (B,nc,H,i,j)
+    off = cb[:, :, None] * (u[..., None] * v)
+    m = torch.where(same, diag, off).masked_fill(~tri, 0.0)
+    xp = x.permute(0, 1, 3, 2, 4)                            # (B,nc,H,Q,P)
+    y = _mm3(m, xp)                                          # (B,nc,H,i,p)
+    w = torch.exp(ltot[:, :, None, :] - lc) * d              # (B,nc,Q,H)
+    wx = w.permute(0, 1, 3, 2)[..., None] * xp               # (B,nc,H,j,p)
+    s = _mm3(wx.transpose(-1, -2), Bc[:, :, None])           # (B,nc,H,p,n)
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+    for c in range(nc):
+        inter = _mm3(Cc[:, c, None], h.transpose(-1, -2))   # (B,H,i,p)
+        y[:, c] = y[:, c] + torch.exp(li[:, c])[..., None] * inter
+        h = torch.exp(ltot[:, c])[:, :, None, None] * h + s[:, c]
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * Q, H, P)[:, :S]
+    return y, h

@@ -260,6 +260,48 @@ def test_fig1_hammering_keeps_calls_in_flight(monkeypatch):
     assert state["drained"] == 1 and state["queued"] == 0
 
 
+def test_fig1_co_runner_launch_replays_a_graph_of_calls(monkeypatch):
+    """On the card one co-runner launch replays a CUDA graph of
+    CALLS_PER_LAUNCH calls, captured on the co-runner's stream after one
+    warm-up call outside the capture; on the CPU it is one call. Stand-in
+    graph and stream record what a card would get."""
+    state = {"capturing": False, "warm": 0, "captured": 0, "replays": 0,
+             "stream": None, "synced": 0}
+
+    class Graph:
+        def replay(self):
+            state["replays"] += 1
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None, capture_error_mode="global"):
+        state["capturing"], state["stream"] = True, stream
+        yield
+        state["capturing"] = False
+
+    class Stream:
+        def synchronize(self):
+            state["synced"] += 1
+
+    def call(a):
+        state["captured" if state["capturing"] else "warm"] += 1
+    monkeypatch.setattr(fig1, "mem_benchmark", call)
+    monkeypatch.setattr(fig1, "on", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    stream = Stream()
+    mem = type("Mem", (), {"device": torch.device("cuda")})()
+    launch = fig1.co_runner_launch(mem, stream)
+    assert (state["warm"], state["captured"]) == (1, fig1.CALLS_PER_LAUNCH)
+    assert state["stream"] is stream and state["synced"] == 1
+    launch()
+    launch()
+    assert state["replays"] == 2 and state["captured"] == \
+        fig1.CALLS_PER_LAUNCH
+    cpu_launch = fig1.co_runner_launch(torch.ones(2), None)
+    cpu_launch()
+    assert state["warm"] == 2 and state["replays"] == 2
+
+
 def test_deeppicar_gang_example_on_cpu(capsys):
     rows = deeppicar_gang.main(["--device", "cpu", "--duration", "0.4"])
     assert set(rows) == {"Co-Sched", "RT-Gang"}

@@ -15,6 +15,10 @@ card has none.
 once per (b, chunk), per-chunk outputs and states, then state passing) is
 held against the plain version, the per-token oracle and the Pallas kernel
 with many chunks, ragged S, S = 1, B > 1 and strong decay.
+``ssd_tf32x3_reference`` (the kernel's numerics: each of its products in
+split TF32, hi hi + hi lo + lo hi of operands rounded as cvt.rna.tf32
+rounds) is held against the Pallas kernel and the per-token oracle on all
+of those shapes at the kernel's tolerance; ``tf32_split`` on its own.
 
 Tolerance: atol 1e-3, as ``tests/test_kernels.py``; 1e-5 between the
 chunked f32 paths (the same algorithm, sums in another order); bf16 y
@@ -27,7 +31,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_chunked_reference, ssd_reference, ssd_state_passing_reference)
+    ssd_chunked_reference, ssd_reference, ssd_state_passing_reference,
+    ssd_tf32x3_reference, tf32_split)
 
 CASES = [  # B, S, H, P, N, chunk (tests/test_kernels.py)
     (2, 64, 3, 16, 32, 16),
@@ -46,6 +51,20 @@ CARD_SHAPES = [
     (1, 4096, 4, 64, 128, 256),
     (4, 300, 64, 64, 128, 256),
     (2, 600, 3, 40, 128, 256),
+]
+# the edges of the kernel's 64-row tiles: S under and across a tile (1, 7,
+# 33, 65), P of 8, 24, 40 and N of 8, 40 (not multiples of 16), B = 4;
+# one chunk of three and of four query tiles on a small grid (split over
+# two blocks a (b, h))
+TILE_EDGES = [
+    (1, 1, 4, 64, 128, 256),
+    (2, 7, 3, 24, 40, 256),
+    (4, 33, 2, 8, 8, 256),
+    (1, 65, 5, 40, 128, 256),
+    (4, 65, 3, 24, 8, 32),
+    (2, 130, 4, 8, 40, 64),
+    (2, 150, 4, 24, 40, 256),
+    (2, 230, 4, 24, 40, 256),
 ]
 # the decomposition on the CPU: many chunks, S not a chunk multiple, S = 1,
 # B > 1; last field: strong decay (A and dt scaled up, so exp(Lc) and the
@@ -70,6 +89,22 @@ def _inputs(seed, B, S, H, P, N):
     Cm = rng.normal(size=(B, S, N)).astype(np.float32)
     A = (-np.abs(rng.normal(size=(H,))) - 0.1).astype(np.float32)
     return xh, dt, Bm, Cm, A
+
+
+def _pallas_padded(args, S, chunk):
+    """The Pallas kernel in interpret mode on S padded to a chunk multiple
+    with dt = 0, x = 0 tokens (it takes S % chunk == 0 only; the padding
+    changes neither y before it nor h)."""
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+    Q = min(chunk, S)
+    pad = -S % Q
+    xh, dt, Bm, Cm, A = args
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for a in (xh, dt, Bm, Cm)]
+    jy, jh = jax_ssd_scan(*(jnp.asarray(a) for a in padded), jnp.asarray(A),
+                          chunk=Q, interpret=True)
+    return np.asarray(jy)[:, :S], np.asarray(jh)
 
 
 def _strong(xh, dt, Bm, Cm, A):
@@ -188,6 +223,66 @@ def test_state_passing_matches_plain_oracle_and_pallas(B, S, H, P, N, chunk,
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-3)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,strong_decay",
+                         [(*c, False) for c in CASES + RAGGED] + STATE_PASSING)
+def test_tf32x3_reference_matches_pallas_and_oracle(B, S, H, P, N, chunk,
+                                                    strong_decay):
+    """The kernel's split-TF32 numerics keep the f32 tolerance: against the
+    Pallas kernel in interpret mode and the per-token oracle (atol 1e-3, as
+    tests/test_kernels.py), at the tests' unit-normal scale, strong decay
+    included; and within 1e-4 of the f32 decomposition."""
+    args = _inputs(9, B, S, H, P, N)
+    if strong_decay:
+        args = _strong(*args)
+    targs = [torch.as_tensor(a) for a in args]
+    y, h = ssd_tf32x3_reference(*targs, chunk=chunk)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    jy, jh = _pallas_padded(args, S, chunk)
+    np.testing.assert_allclose(y.numpy(), jy, atol=1e-3)
+    np.testing.assert_allclose(h.numpy(), jh, atol=1e-3)
+    yr, hr = ssd_reference(*(torch.as_tensor(np.array(a))
+                             for a in _bh(*args)))
+    np.testing.assert_allclose(
+        y.numpy(), yr.reshape(B, H, S, P).permute(0, 2, 1, 3).numpy(),
+        atol=1e-3)
+    np.testing.assert_allclose(h.numpy(), hr.reshape(B, H, P, N).numpy(),
+                               atol=1e-3)
+    ys, hs = ssd_state_passing_reference(*targs, chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), ys.numpy(), atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), hs.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 3.0e4, 1e30])
+def test_tf32_split_reproduces_f32(scale):
+    """hi + lo is a to within 2^-21 of |a|; hi and lo carry 10 mantissa
+    bits (their low 13 bits are zero); the rounding is to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 rounds."""
+    a = torch.as_tensor(np.random.default_rng(10).normal(size=4096)
+                        .astype(np.float32)) * scale
+    hi, lo = tf32_split(a)
+    assert hi.dtype == torch.float32 and lo.dtype == torch.float32
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert int((lo.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    err = ((hi.double() + lo.double()) - a.double()).abs()
+    assert bool((err <= 2.0 ** -21 * a.double().abs()).all())
+    assert bool(((hi - a).abs() <= 2.0 ** -11 * a.abs()).all())
+    # ties: 1 + 2^-11 is half-way between two tf32 values and rounds up in
+    # magnitude, on either sign; just below half-way rounds down (scaled by
+    # the power of two nearest ``scale``, which keeps the mantissas)
+    p2 = 2.0 ** float(np.round(np.log2(scale)))
+    one = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                        1.0 + 2.0 ** -11 - 2.0 ** -23]) * p2
+    h1, _ = tf32_split(one.float())
+    ref = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]) * p2
+    np.testing.assert_array_equal(h1.numpy(), ref.float().numpy())
+    inf = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    hi_s, _ = tf32_split(inf)
+    assert hi_s[0] == float("inf") and hi_s[1] == -float("inf")
+    assert bool(torch.isnan(hi_s[2]))
+
+
 def test_plain_keeps_input_dtype_for_y():
     args = [torch.as_tensor(a) for a in _inputs(3, 1, 40, 2, 16, 16)]
     y, h = ops.ssd_scan(*(a.bfloat16() for a in args[:4]), args[4],
@@ -225,6 +320,17 @@ def test_launch_checks_raise_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         ops._check(x.transpose(2, 3).contiguous().transpose(2, 3), dt, Bm,
                    Cm, A, None, 8)
+    # TMA: rows of H P and N elements a multiple of 16 bytes, bases on
+    # 16-byte boundaries
+    odd = [torch.as_tensor(a) for a in _inputs(11, 1, 16, 3, 5, 8)]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check(*odd, None, 8)
+    narrow = [torch.as_tensor(a) for a in _inputs(12, 1, 16, 2, 8, 6)]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check(*narrow, None, 8)
+    shifted = torch.zeros(Bm.numel() + 1)[1:].view(Bm.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops._check(x, dt, shifted, Cm, A, None, 8)
     assert ops.launches == before
 
 
@@ -237,11 +343,17 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,P,N,chunk", CASES + RAGGED + CARD_SHAPES)
-def test_kernel_matches_plain_on_card(cuda, B, S, H, P, N, chunk, dtype):
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk,strong_decay",
+    [(*c, False) for c in CASES + RAGGED + CARD_SHAPES + TILE_EDGES] +
+    [(2, 300, 3, 24, 40, 256, True), (1, 77, 2, 64, 128, 32, True)])
+def test_kernel_matches_plain_on_card(cuda, B, S, H, P, N, chunk,
+                                      strong_decay, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
-    xh, dt, Bm, Cm, A = (torch.as_tensor(a).to(cuda)
-                         for a in _inputs(6, B, S, H, P, N))
+    args = _inputs(6, B, S, H, P, N)
+    if strong_decay:
+        args = _strong(*args)
+    xh, dt, Bm, Cm, A = (torch.as_tensor(a).to(cuda) for a in args)
     xh, dt, Bm, Cm = (t.to(TORCH_DT[dtype]) for t in (xh, dt, Bm, Cm))
     before = ops.launches
     y, h = ops.ssd_scan(xh, dt, Bm, Cm, A, chunk=chunk)
