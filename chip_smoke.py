@@ -15,11 +15,11 @@ Drives the port in phases and exits non-zero if any fails:
                each path of flash and moe_gmm takes (bf16 runs on the
                tensor cores, f32 on the FMA kernels) and a block of
                ssd_scan's chunk-parallel scan takes; fails unless each
-               instantiation of the two wgmma paths (flash_fwd_wgmma,
-               gmm_wgmma) and of ssd_scan's two kernels (ssd_cb,
-               ssd_chunk: split-TF32 wgmma) holds HGMMA and UTMALDG in its
-               SASS, and on a wgmma ptxas serialised (C7518 in the nvcc
-               log);
+               instantiation of the three wgmma paths (flash_fwd_wgmma,
+               gmm_wgmma, moe_gmm's decode path gmm_swap_wgmma) and of
+               ssd_scan's two kernels (ssd_cb, ssd_chunk: split-TF32
+               wgmma) holds HGMMA and UTMALDG in its SASS, and on a wgmma
+               ptxas serialised (C7518 in the nvcc log);
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
@@ -44,11 +44,19 @@ Drives the port in phases and exits non-zero if any fails:
   (c2) kernel  holds moe_gmm against its plain version on the shapes of
                tests/test_kernels.py, two ragged ones, the edges of the
                bf16 tensor-core paths (C of 1, 8, 9 and 160, D and F not
-               multiples of 8, every count 0, every count C) and
+               multiples of 8 with the fill path's 8- and 16-row tiles,
+               every count 0, every count C; the swap path's C of 1, 7, 8,
+               9, 16 and its split over D at 1, 2, 4 and 8 blocks on
+               EP-shaped calls) and
                olmoe-1b-7b's serve shapes (decode C=8 with 32 of 64 experts in use, prefill
                C=160 and C=48 with counts from routing 1024 and 300 random
                tokens), f32 and bf16, inputs at the model's scale; tolerance
-               1e-4 (f32, TF32 off) / 3e-2 (bf16: output rounding); times
+               1e-4 (f32, TF32 off) / 3e-2 (bf16: output rounding); fails
+               if a call takes another path than ops.gmm_path gives, if a
+               row past counts[e] is not exactly zero, if two swap-path
+               calls differ in a bit, or if a swap-path call is more than
+               one bf16 ulp (and 1e-4) from the plain version of its split
+               over D; times
                kernel, plain version and torch.bmm on the capacity buffer (a
                yardstick the port never calls) beside the bound, which counts
                the rows in use and the weights of the experts in use only,
@@ -444,7 +452,8 @@ from repro_torch.kernels.build import ptxas_report, sass_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
-from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
+    gmm_reference, gmm_split_reference)
 from repro_torch.kernels.rglru_scan import ops as rg  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
@@ -527,6 +536,9 @@ REPORTED = (1, 1024, 1024, 28, 4, 128, True, 0, torch.bfloat16)
 # scripts/torch_gmm_cases.py's gmm_counts draws them; the serve shapes and
 # (t)'s are that module's
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the swap path against the plain version of its split over D
+# (gmm_split_reference): at most one bf16 ulp, and 1e-4 for sums that cancel
+SPLIT_ULP_TOL = {"atol": 1e-4, "rtol": 2 ** -7}
 GMM_CASES = [
     ("test", 4, 32, 16, 24, "random", torch.float32),
     ("test", 2, 64, 32, 32, "random", torch.float32),
@@ -535,10 +547,12 @@ GMM_CASES = [
     ("ragged", 3, 70, 50, 130, "random", torch.bfloat16),
 ]
 # the edges of the bf16 tensor-core paths (tests/test_torch_moe_gmm.py's
-# EDGES): C of 1, 8, 9 and 160, D and F not multiples of 8, every count 0,
-# every count C
+# EDGES): C of 1, 8, 9 and 160, D and F not multiples of 8 (the fill
+# path's 8-row tile at C 1 and 8, its 16-row tile at C 9 and 21), every
+# count 0, every count C
 GMM_EDGES = [("edge", E, C, D, F, kind, torch.bfloat16)
              for E, C, D, F in ((4, 1, 64, 128), (3, 8, 72, 136),
+                                (4, 1, 36, 64), (3, 8, 40, 100),
                                 (3, 9, 40, 100), (2, 160, 96, 264),
                                 (3, 21, 37, 45))
              for kind in ("random", "zero", "full")]
@@ -552,6 +566,22 @@ GMM_EDGES += [("wgmma edge", E, C, D, F, kind, torch.bfloat16)
                                  (64, 128, 72, 136), (3, 192, 256, 512),
                                  (2, 300, 64, 136), (1, 2560, 128, 64))
               for kind in ("random", "zero", "full", "one")]
+# the edges of the swap path (bf16, C <= 16, D and F multiples of 8;
+# tests/test_torch_moe_gmm.py's SWAP_EDGES at small widths): C of 1, 7,
+# 8, 9 and 16, E of 1, 4 and 64, D of 64, 72 and 2048, F of 64 and 136;
+# counts random, 0, C, every row in one expert, one row in half of them
+GMM_EDGES += [("swap edge", E, C, D, F, kind, torch.bfloat16)
+              for E, C, D, F in ((1, 1, 64, 64), (4, 7, 72, 136),
+                                 (3, 9, 64, 136), (64, 16, 72, 64),
+                                 (64, 8, 64, 136))
+              for kind in ("random", "zero", "full", "one", "decode")]
+# and olmoe's EP 16 decode shapes, one for each split over D on 132 SMs
+# (gmm_splits): 4 experts x 2 tiles of 128 columns (F 256) -> 8 blocks a
+# tile, 4 x 8 (gate/up, C 16 and 8) -> 4, 4 x 16 (down) -> 2; 64 x 2 -> 1
+GMM_EDGES += [("swap EP edge", E, C, D, F, "random", torch.bfloat16)
+              for E, C, D, F in ((4, 16, 2048, 256), (4, 16, 2048, 1024),
+                                 (4, 8, 2048, 1024), (4, 16, 1024, 2048),
+                                 (64, 8, 512, 256))]
 GMM_SERVE = [(*shape, dt) for dt in (torch.bfloat16, torch.float32)
              for shape in SERVE_SHAPES]
 GMM_REPORTED = GMM_SERVE[0]
@@ -1048,6 +1078,7 @@ def gmm_times(x, w, counts) -> dict:
 
 
 def phase_gmm(dev, smi: str) -> list[dict]:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
@@ -1062,11 +1093,32 @@ def phase_gmm(dev, smi: str) -> list[dict]:
         err = (out.float() - ref.float()).abs().max().item()
         tol = GMM_TOL[dt]
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        splits = gmm.gmm_splits(E, C, D, F, sms) if path == "swap" else 1
         name = (f"{label} E={E} C={C} D={D} F={F} {DT_NAME[dt]} "
                 f"rows in use {int(counts.sum())}, experts in use "
-                f"{int((counts > 0).sum())}")
+                f"{int((counts > 0).sum())}"
+                f"{f', splits {splits}' if path == 'swap' else ''}")
+        want = gmm.gmm_path(dt, C, D, F, all(
+            t.data_ptr() % 16 == 0 for t in (x, w, out)))
+        if path != want:
+            fail(f"moe_gmm took the {path} path on {name}, not {want}")
+        unused = torch.arange(C, device=dev)[None, :, None] >= \
+            counts[:, None, None]
+        if torch.where(unused, out.float(), 0.0).abs().max().item() != 0.0:
+            fail(f"moe_gmm left a nonzero row past counts on {name}")
+        split_err = None
+        if path == "swap":
+            if not torch.equal(out, gmm_call(x, w, counts)[0]):
+                fail(f"moe_gmm's swap path differs between two calls on "
+                     f"{name}")
+            split_ref = gmm_split_reference(x, w, counts, splits).float()
+            split_err = (out.float() - split_ref).abs().max().item()
+            if not torch.allclose(out.float(), split_ref, **SPLIT_ULP_TOL):
+                fail(f"moe_gmm's swap path is more than one bf16 ulp from "
+                     f"the plain version of its split on {name} (max abs "
+                     f"err {split_err:.3g})")
         row = {"case": name, "path": path, "max_abs_err": err, "tol": tol,
-               "ok": bool(ok)}
+               "ok": bool(ok), "splits": splits, "split_err": split_err}
         if case in GMM_SERVE:
             row.update(gmm_times(x, w, counts), reported=case == GMM_REPORTED)
             ops, nbytes = gmm_work(E, C, D, F, counts, dt)
@@ -1776,7 +1828,8 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     if moe:
         # every prefill (the warm-up's prompt is the first) whose capacity
         # buffer holds more than 16 rows runs on the wgmma path; the
-        # others and every decode step on the swapped mma.sync tile
+        # others and every decode step on the swap path (wgmma, operands
+        # swapped); none on fill or fma
         caps = [M._capacity(T, cfg.moe.top_k, cfg.moe.n_experts,
                             cfg.moe.capacity_factor)
                 for T in (SERVE_PROMPTS[0], *SERVE_PROMPTS)]
@@ -1785,9 +1838,11 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
               f"prefill capacities {caps}, {wide} launches with C > 16 "
               f"[{smi}]")
         if gmm_paths["wgmma"] != wide or gmm_paths["fill"] or \
-                gmm_paths["fma"]:
+                gmm_paths["fma"] or \
+                gmm_paths["swap"] != expect["moe_gmm"] - wide:
             fail(f"{arch}: moe_gmm took {gmm_paths}; the {wide} launches "
-                 f"with C > 16 must all take wgmma")
+                 f"with C > 16 must all take wgmma, the "
+                 f"{expect['moe_gmm'] - wide} others swap")
     # the engine alone (no executor, no best-effort thread): one decode
     # step over 4 busy slots and one 1024-token prefill, host clock around
     # work that ends in a synchronize
@@ -3335,8 +3390,8 @@ def main() -> int:
         builds["flash_attention"], "flash_fwd_wgmma", 6)
     print("[build] dynamic shared memory a block, moe_gmm: " + ", ".join(
         f"{p} C={c} {gmm.smem_bytes(p, c)} B" for p, c in (
-            ("fma", 160), ("swap", 8), ("swap", 16), ("fill", 160),
-            ("wgmma", 160))))
+            ("fma", 160), ("swap", 8), ("swap", 16), ("fill", 8),
+            ("fill", 160), ("wgmma", 160))))
     # moe_gmm's prefill path: one instantiation without clusters, one with
     wg_kernels = [k for k in build_report["moe_gmm"]
                   if k["kernel"].startswith("gmm_wgmma")]
@@ -3348,6 +3403,16 @@ def main() -> int:
               f"spills {k['spill_stores']} / {k['spill_loads']} B")
     build_report["moe_gmm_wgmma_sass"] = check_hopper(
         builds["moe_gmm"], "gmm_wgmma", 2)
+    # moe_gmm's decode path: 8 and 16 token rows a tile
+    for k in build_report["moe_gmm"]:
+        if k["kernel"].startswith("gmm_swap_wgmma"):
+            c = 8 if "<8>" in k["kernel"] else 16
+            print(f"[build] moe_gmm {k['kernel']}: {k['registers']} "
+                  f"registers, {gmm.smem_bytes('swap', c)} B dynamic shared "
+                  f"memory, spills {k['spill_stores']} / "
+                  f"{k['spill_loads']} B")
+    build_report["moe_gmm_swap_sass"] = check_hopper(
+        builds["moe_gmm"], "gmm_swap_wgmma", 2)
     # ssd_scan: C B^T (ssd_cb) and the chunk-parallel scan (ssd_chunk), each
     # in f32 and bf16, products on wgmma in split TF32
     for k in build_report["ssd_scan"]:

@@ -7,8 +7,12 @@ expert-parallel shapes of its phase (t), in bf16 and f32.
 
 Each shape is timed as 20 wrapper calls captured in a CUDA graph and
 replayed (device time only: back to back, a call this short is timed by
-its wrapper's host dispatch), beside ``torch.bmm`` on the same inputs
-timed the same way, the least time the card could take (``roofline/
+its wrapper's host dispatch), twice: warm, every call on the same
+weights, and cold, the calls rotating over copies of the weights that
+together pass 100 MB (the card's L2 holds 50 MB, and a served step
+streams each layer's weights from device memory; x is not rotated). Beside
+them ``torch.bmm`` on the same inputs, timed the same two ways, the least
+time the card could take (``roofline/
 work.gmm_work``: each input byte read once, the rows in use multiplied,
 against 989 TFLOP/s bf16 / 67 TFLOP/s f32 and 3.35 TB/s) and the kernel's
 share of it, with the largest absolute difference from the plain version
@@ -38,18 +42,22 @@ HBM_BYTES_PER_S = 3.35e12
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+COLD_BYTES = 100e6   # weight copies a cold reading rotates over, in all
+
+
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
-    """Mean device time of one call: ``iters`` calls in a CUDA graph."""
+    """Mean device time of one call: ``iters`` calls ``fn(0)``, ``fn(1)``,
+    .. in a CUDA graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for i in range(3):
+            fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fn(i)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -105,23 +113,35 @@ def main() -> int:
             ops, nbytes = gmm_work(E, C, D, Fd, counts, dt)
             t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
             bound_ms = max(t_ops, t_bytes) * 1e3
+            n_cold = max(2, -(-int(COLD_BYTES) // w.nbytes))
+            ws = [w] + [w.clone() for _ in range(n_cold - 1)]
             row = {"tag": args.tag, "case": f"{label} E={E} C={C} D={D} "
                    f"F={Fd} {DT_NAME[dt]}", "path": path,
-                   "graph_ms": graph_ms(lambda: gmm.grouped_matmul(
+                   "graph_ms": graph_ms(lambda i: gmm.grouped_matmul(
                        x, w, counts)),
-                   "bmm_graph_ms": graph_ms(lambda: torch.bmm(x, w)),
-                   "bound_ms": bound_ms,
+                   "bmm_graph_ms": graph_ms(lambda i: torch.bmm(x, w)),
+                   "cold_graph_ms": graph_ms(lambda i: gmm.grouped_matmul(
+                       x, ws[i % n_cold], counts)),
+                   "bmm_cold_graph_ms": graph_ms(
+                       lambda i: torch.bmm(x, ws[i % n_cold])),
+                   "cold_copies": n_cold, "bound_ms": bound_ms,
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "max_abs_err": err, "nvidia_smi": smi}
+            del ws
             row["share"] = bound_ms / row["graph_ms"]
+            row["cold_share"] = bound_ms / row["cold_graph_ms"]
             row["ratio"] = row["graph_ms"] / row["bmm_graph_ms"]
+            row["cold_ratio"] = row["cold_graph_ms"] / row["bmm_cold_graph_ms"]
             rows.append(row)
             print(f"[{args.tag}] {row['case']}: {path} path, kernel "
                   f"{row['graph_ms']:.4f} ms, bmm {row['bmm_graph_ms']:.4f} "
                   f"ms, kernel/bmm {row['ratio']:.3f}, bound "
                   f"{bound_ms:.4f} ms ({row['bound_by']}), "
-                  f"{100 * row['share']:.1f}% of it, max_abs_err {err:.3g} "
-                  f"[{smi}]", flush=True)
+                  f"{100 * row['share']:.1f}% of it; cold L2 ({n_cold} "
+                  f"weight copies) kernel {row['cold_graph_ms']:.4f} ms, bmm "
+                  f"{row['bmm_cold_graph_ms']:.4f} ms, kernel/bmm "
+                  f"{row['cold_ratio']:.3f}, {100 * row['cold_share']:.1f}% "
+                  f"of the bound; max_abs_err {err:.3g} [{smi}]", flush=True)
     print(json.dumps(rows))
     return 0
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Tile sweep of the port's tensor-core kernels on one NVIDIA card.
 
-    python3 scripts/torch_tile_sweep.py [--kernels flash moe_gmm ssd]
+    python3 scripts/torch_tile_sweep.py [--kernels flash moe_gmm swap ssd]
 
 Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
 ``flash_fwd_wgmma`` path, bf16 at D >= 64: q rows a block at D <= 128
@@ -10,7 +10,10 @@ Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
 ``moe_gmm.cu`` (its ``gmm_wgmma`` prefill path: output columns a tile
 ``WG_BN``, TMA ring stages ``WG_STAGES``, 64-column boxes a warpgroup
 stages a store ``WG_OBOXES``, and the grid walk: one persistent block an
-SM or one block a tile) and of ``ssd_scan.cu`` (the rule that splits a
+SM or one block a tile; and its ``gmm_swap_wgmma`` decode path: TMA ring
+stages ``SW_STAGES``, each at every split over D, the one ``gmm_splits``
+picks marked) and of ``ssd_scan.cu``
+(the rule that splits a
 one-chunk call's query tiles over two blocks: as shipped, never, or
 whenever the chunk has two query tiles or more, at any grid; and, as a
 check of the numerics, lo of each split left unrounded; its key-tile
@@ -44,12 +47,13 @@ from torch_flash_times import bound_ms as flash_bound, sdpa_call  # noqa: E402
 from repro_torch.kernels.build import CSRC, NVCC_FLAGS, _tool  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
-from repro_torch.kernels.moe_gmm.ops import PATHS  # noqa: E402
+from repro_torch.kernels.moe_gmm.ops import PATHS, gmm_splits  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 
 OUT = ROOT / "build" / "tile_sweep"
 WGMMA = PATHS.index("wgmma")
+SWAP = PATHS.index("swap")
 FLASH_WGMMA = fa.PATHS.index("wgmma")
 # flash's wgmma path: (FW_ROWS, FW_BK_D64, FW_BK_D128, FW_STAGES); the
 # first is the source's own. At 64 rows, a 128-row kv tile or 3 stages at
@@ -80,6 +84,17 @@ GMM_SHAPES = [("prefill T=1024 gate/up", 64, 160, 2048, 1024, "route1024"),
               ("prefill T=300 gate/up", 64, 48, 2048, 1024, "route300"),
               ("EP a2a gate/up", 4, 2560, 2048, 1024, "full"),
               ("EP a2a down", 4, 2560, 1024, 2048, "full")]
+# moe_gmm's swap path: SW_STAGES (the first is the source's own; up to 5
+# leave two blocks an SM, 12 is the most one block of 16 token rows fits)
+SWAP_STAGES = (4, 3, 5, 6, 8)
+# (label, E, C, D, F, counts): olmoe-1b-7b's decode on one card and its
+# replicated decode under EP 16 (4 experts a device, every row counted)
+SWAP_SHAPES = [("decode gate/up", 64, 8, 2048, 1024, "decode"),
+               ("decode down", 64, 8, 1024, 2048, "decode"),
+               ("EP C=16 gate/up", 4, 16, 2048, 1024, "full"),
+               ("EP C=16 down", 4, 16, 1024, 2048, "full"),
+               ("EP C=8 gate/up", 4, 8, 2048, 1024, "full"),
+               ("EP C=8 down", 4, 8, 1024, 2048, "full")]
 
 # ssd_scan: variants as (source line, its replacement); the first is the
 # source's own
@@ -121,6 +136,14 @@ def gmm_source(var) -> str:
         text, n = re.subn(rf"constexpr {name} = \w+;",
                           f"constexpr {name} = {value};", text)
         assert n == 1, name
+    return text
+
+
+def swap_source(stages: int) -> str:
+    text = (CSRC / "moe_gmm.cu").read_text()
+    text, n = re.subn(r"constexpr int SW_STAGES = \w+;",
+                      f"constexpr int SW_STAGES = {stages};", text)
+    assert n == 1, "SW_STAGES"
     return text
 
 
@@ -180,7 +203,7 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", nargs="+", default=["flash", "moe_gmm"],
-                    choices=["flash", "moe_gmm", "ssd"])
+                    choices=["flash", "moe_gmm", "swap", "ssd"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_tile_sweep: needs an NVIDIA card", file=sys.stderr)
@@ -194,6 +217,9 @@ def main() -> int:
         jobs += [(f"gmm_bn{v[0]}_stages{v[1]}_oboxes{v[2]}_"
                   f"{'persistent' if v[3] else 'plain'}", "moe_gmm.cu",
                   gmm_source(v), rf"gmm_wgmma<{v[0]},") for v in GMM]
+    if "swap" in args.kernels:
+        jobs += [(f"swap_stages{s}", "moe_gmm.cu", swap_source(s),
+                  r"gmm_swap_wgmma") for s in SWAP_STAGES]
     if "ssd" in args.kernels:
         jobs += [(name, "ssd_scan.cu", ssd_source(edits), r"ssd_chunk<float>")
                  for name, edits in SSD.items()]
@@ -260,7 +286,7 @@ def main() -> int:
             print(f"[gmm] {name}: build failed: {info}")
             continue
         fn = ctypes.CDLL(str(lib)).repro_moe_gmm
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p]
         row = []
         for label, x, w, cnt, ref, _ in cases:
@@ -268,12 +294,53 @@ def main() -> int:
             o = torch.empty((E, C, w.shape[2]), dtype=x.dtype, device=dev)
             call = lambda: fn(  # noqa: E731
                 x.data_ptr(), w.data_ptr(), cnt.data_ptr(), o.data_ptr(),
-                WGMMA, E, C, D, w.shape[2], stream())
+                WGMMA, 1, E, C, D, w.shape[2], stream())
             rc = call()
             torch.cuda.synchronize()
             err = (o.float() - ref.float()).abs().max().item()
             row.append(f"{graph_ms(call):.4f} ms (err {err:.3g}, rc {rc})")
         print(f"[gmm] {name}: {info}: " + "; ".join(row))
+    cases = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, E, C, D, Fd, kind in SWAP_SHAPES if "swap" in \
+            args.kernels else ():
+        x = torch.randn((E, C, D), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((E, D, Fd), generator=gen, device=dev)
+             * D ** -0.5).bfloat16()
+        cnt = cs.gmm_counts(kind, E, C, gen, dev)
+        bound_ms, bound_by = cs.gmm_bound(E, C, D, Fd, cnt, torch.bfloat16)
+        cases.append((label, x, w, cnt, gmm_reference(x, w, cnt), bound_ms))
+        print(f"[swap] {label}: bmm {graph_ms(lambda: torch.bmm(x, w)):.4f}"
+              f" ms, bound {bound_ms:.4f} ms ({bound_by}), splits "
+              f"{gmm_splits(E, C, D, Fd, sms)} on {sms} SMs")
+    for name, (lib, info) in built.items():
+        if not name.startswith("swap_"):
+            continue
+        if lib is None:
+            print(f"[swap] {name}: build failed: {info}")
+            continue
+        fn = ctypes.CDLL(str(lib)).repro_moe_gmm
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        row = []
+        for label, x, w, cnt, ref, b_ms in cases:
+            E, C, D = x.shape
+            Fd = w.shape[2]
+            chosen = gmm_splits(E, C, D, Fd, sms)
+            for splits in (1, 2, 4, 8):
+                o = torch.empty((E, C, Fd), dtype=x.dtype, device=dev)
+                call = lambda: fn(  # noqa: E731
+                    x.data_ptr(), w.data_ptr(), cnt.data_ptr(), o.data_ptr(),
+                    SWAP, splits, E, C, D, Fd, stream())
+                rc = call()
+                torch.cuda.synchronize()
+                err = (o.float() - ref.float()).abs().max().item()
+                ms = graph_ms(call)
+                row.append(f"{label} splits {splits}"
+                           f"{' (chosen)' if splits == chosen else ''} "
+                           f"{ms:.4f} ms ({100 * b_ms / ms:.1f}% of the "
+                           f"bound, err {err:.3g}, rc {rc})")
+        print(f"[swap] {name}: {info}: " + "; ".join(row))
     cases = []
     for dt in (torch.float32, torch.bfloat16) if "ssd" in args.kernels \
             else ():

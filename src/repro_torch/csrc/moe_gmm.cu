@@ -62,20 +62,49 @@
 // the consumers' role, rank and count are broadcast with __shfl_sync and
 // one-lane arrivals and stores are predicated inside their asm.
 //
-// swap (bf16, C <= 16: decode) and fill (bf16, C > 16, shapes TMA cannot
-// address): gmm_tc, mma.sync m16n8k16 with the operands swapped, out^T =
-// w^T x^T, so the weight columns fill the 16-row M side and the 8 or 16
-// token rows its n side (w through ldmatrix.trans, x through ldmatrix):
-// no lane of the tensor core computes a padding row. 128 columns a block,
-// 4 warps of 32, 64 deep a stage of a 4-stage cp.async ring; 48 KB of
-// weights in flight a block across decode's 256 blocks (32 experts in
-// use): decode is all bytes, each active expert's weights read once.
-// Shared tiles are padded by 16 bytes a row, so an ldmatrix's 8 row
-// addresses hit 8 distinct bank groups; the C tile is staged through
-// shared memory for 16-byte stores. Where the strides or the bases do not
-// keep 16-byte chunks aligned (D or F not a multiple of 8, which no model
-// has), the tiles are filled element by element; fill runs C > 16 as
-// 16-row tiles of the same kernel.
+// swap (bf16, C <= 16: decode; D and F multiples of 8, 16-byte aligned
+// bases): gmm_swap_wgmma, built from sm90.cuh. Decode reads each active
+// expert's weights once for 1 to 16 rows (olmoe on one card: 0.13 GFLOP
+// against 134 MB, 0.040 ms at 3.35 TB/s): all bytes, so the design is for
+// weight bytes in flight on every SM, not for the tensor cores. The
+// product runs with the operands swapped, out^T = w^T x^T, so the 8 or 16
+// token rows are wgmma's N (m64n8k16 or m64n16k16) and no lane computes a
+// padding row: w through the 3D map (F, D, E) in 64 x 64 boxes, read in
+// place as wgmma's MN-major A (the descriptor's transpose bit), x through
+// the 3D map (D, C, E) as its K-major B (TMA fills rows past C with
+// zeros). A tile is 128 columns of one expert: two consumer warpgroups of
+// 64 columns, one producer warp keeping a ring of SW_STAGES (4) stages of
+// 18 KB in flight (full / empty mbarriers), two blocks an SM. Where E x
+// tiles leaves SMs idle (expert parallelism: 4 experts a device, 32 or 64
+// tiles), ops.py gmm_splits makes the ``splits`` blocks of a tile a
+// cluster along D, each streaming 1 / splits of the tile's weights. Rank
+// r sums 128 / splits columns: each block sends each peer its f32 partial
+// of the peer's columns with st.async into the peer's shared memory,
+// completing on the peer's receive mbarrier, and the owner adds the
+// partials in rank order (deterministic: no atomics, no workspace, one
+// launch) and stores them rounded to bf16 with 16-byte stores. A block
+// whose expert has no row in use writes its zeros without loading.
+// Measured on an H100 80GB HBM3 at 700 W (scripts/torch_gmm_times.py and
+// torch_tile_sweep.py --kernels swap, CUDA-graph device time; PERF.md
+// §6): one card's decode gate/up / down 0.0476-0.0483 ms, 84-85% of the
+// bound (the mma.sync tile before it: 0.0518-0.0540); EP 16's C = 16
+// gate/up 0.0066 (splits 4; the mma.sync tile: 0.0233-0.0241),
+// torch.bmm 0.0051-0.0052: the partials' exchange (1.2 us: without it
+// 0.0054) and the prologue before the first load (counts[e], the
+// barriers) stay above bmm's whole call. Pulling the partials through
+// ld.shared::cluster between two cluster barriers took 0.0077; a ring
+// of more than 5 stages (one block an SM) leaves clusters of 4 unable
+// to co-schedule all of EP gate/up's 32 tiles (0.0118).
+//
+// fill (bf16, shapes TMA cannot address: D or F not a multiple of 8, or a
+// base off 16 bytes, which no model has): gmm_tc, mma.sync m16n8k16 with
+// the operands swapped (w through ldmatrix.trans, x through ldmatrix), 8
+// or 16 token rows a tile, 128 columns a block, 4 warps, a 4-stage
+// cp.async ring 64 deep, the tiles filled element by element where the
+// strides or bases do not keep 16-byte chunks aligned; C > 16 runs as
+// 16-row tiles of the same kernel. Shared tiles are padded by 16 bytes a
+// row, so an ldmatrix's 8 row addresses hit 8 distinct bank groups; the
+// C tile is staged through shared memory for 16-byte stores.
 //
 // fma (f32): gmm_fwd, the FMA kernel of the first port, kept for the f32
 // oracle phases (their 1e-4 tolerance needs full-f32 products; tensor
@@ -281,7 +310,7 @@ cudaError_t dispatch_c(const void* x, const void* w, const int* counts,
   return launch<T, 64, 4, 32>(x, w, counts, out, E, C, D, F, vec_x, vec_w, stream);
 }
 
-// ---- bf16, C <= 16 and the fill: mma.sync with the operands swapped ----
+// ---- bf16, the fill: mma.sync with the operands swapped ----
 
 constexpr int TC_BN = 128;     // weight (output) columns per block
 constexpr int TC_STAGES = 4;   // cp.async ring depth over D
@@ -777,6 +806,251 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* counts,
   return launch_wgmma_cl<1>(mx, mw, mo, counts, E, C, D, F, stream);
 }
 
+// ---- bf16, C <= 16: wgmma with the operands swapped, split over D ----
+
+constexpr int SW_BN = 128;      // weight (output) columns a tile: 2 x 64
+constexpr int SW_BK = 64;       // depth a stage: one 128-byte swizzle row
+constexpr int SW_STAGES = 4;    // TMA ring depth: two blocks an SM
+constexpr int SW_THREADS = 288; // consumer warpgroups 0 and 1, producer warp
+constexpr int SW_BOX = 64;      // columns of a w box (128 bytes)
+constexpr int SW_MAX_SPLITS = 8;  // blocks along D: a portable cluster
+
+template <int BC>
+struct SwLayout {  // byte offsets in the 1024-byte aligned dynamic smem
+  static constexpr int BOX_BYTES = SW_BOX * SW_BK * 2;  // a 64 x 64 box
+  static constexpr int W_BYTES = SW_BN / SW_BOX * BOX_BYTES;
+  static constexpr int X_BYTES = BC * SW_BK * 2;        // 1 or 2 KB
+  static constexpr int RS = BC + 2;  // floats a received partial column
+  static constexpr int W0 = 0;
+  static constexpr int X0 = W0 + SW_STAGES * W_BYTES;
+  static constexpr int R0 = X0 + SW_STAGES * X_BYTES;
+  static constexpr int BAR0 = R0 + SW_BN * RS * 4;
+  static constexpr int BYTES = BAR0 + (2 * SW_STAGES + 1) * 8;
+  static constexpr int SMEM = BYTES + 1024;             // + the alignment
+  static_assert(BC == 8 || BC == 16, "a wgmma N of 8 or 16 token rows");
+  static_assert(X_BYTES % 1024 == 0, "x tiles start on 1024-byte atoms");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// D tiles [lo, hi) of rank ``rank`` of ``splits`` over ``nk`` tiles
+// (kernels/moe_gmm/tiling.py split_bounds cuts D the same way)
+__device__ __forceinline__ int split_lo(int rank, int splits, int nk) {
+  return rank * nk / splits;
+}
+
+// out[e] rows [0, BC) (those below C) x columns [n0, n0 + 128) a cluster
+// of ``splits`` blocks, block ``rank`` summing D tiles split_lo(rank) ..
+// split_lo(rank + 1) of the product out^T = w^T x^T: warpgroup wg owns
+// w^T rows (out columns) n0 + 64 wg .. + 64 as wgmma's A operand, read
+// MN-major from the w box in place, and x^T (BC token rows, zeros past C)
+// as its K-major B operand. Rank r sums columns [r sw, (r + 1) sw) of the
+// tile, sw = 128 / splits: each block sends each peer its f32 partial of
+// the peer's columns (st.async into the peer's shared memory, completing
+// on the peer's receive barrier) and keeps its own; once its barrier has
+// every peer's bytes, a rank adds the partials in rank order and stores
+// them rounded to bf16.
+template <int BC>
+__global__ void __launch_bounds__(SW_THREADS, 1)
+gmm_swap_wgmma(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w,
+               const int* __restrict__ counts,
+               __nv_bfloat16* __restrict__ out, int C, int D, int F,
+               int splits) {
+  using L = SwLayout<BC>;
+  extern __shared__ __align__(1024) unsigned char smem_sw[];
+  unsigned char* smem =
+      smem_sw + ((1024 - (sm90::smem_u32(smem_sw) & 1023)) & 1023);
+  // recv[(p sw + c) RS + r]: rank p's partial of this rank's column c,
+  // token row r
+  float* recv = reinterpret_cast<float*>(smem + L::R0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR0);
+  uint64_t* empty = full + SW_STAGES;
+  uint64_t* received = empty + SW_STAGES;
+
+  // warp-uniform to the compiler (blockIdx, arguments, or broadcast from
+  // lane 0), so that the branches around the wgmma are too
+  const int rank = blockIdx.x % splits;  // = %cluster_ctarank
+  const int n0 = blockIdx.x / splits * SW_BN;
+  const int e = blockIdx.y;
+  const int nk = (D + SW_BK - 1) / SW_BK;
+  const int k_lo = split_lo(rank, splits, nk);
+  const int k_hi = split_lo(rank + 1, splits, nk);
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int count =
+      __shfl_sync(0xffffffffu, max(0, min(counts[e], C)), 0);
+  const int sw = SW_BN / splits;      // columns this rank sums and stores
+  const int c0 = n0 + rank * sw;      // the first of them
+  const int per_row = sw / 8;         // 8-column chunks of a row
+  const int rows = min(BC, C);
+  __nv_bfloat16* op = out + (size_t)e * C * F;
+
+  if (count == 0) {  // the same in every block of the cluster: zeros, no
+                     // loads, nothing sent
+    for (int i = threadIdx.x; i < rows * per_row; i += SW_THREADS) {
+      const int r = i / per_row, col = c0 + i % per_row * 8;
+      if (col < F)
+        *reinterpret_cast<uint4*>(op + (size_t)r * F + col) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SW_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);   // the producer's expect_tx
+      sm90::mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    sm90::mbar_init(received, 1);     // this thread's expect_tx
+    sm90::mbar_arrive_expect_tx(received, (splits - 1) * sw * BC * 4);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  // the peers may send once every block's receive barrier is set up: the
+  // wait comes after the products
+  if (splits > 1) sm90::cluster_arrive_relaxed();
+
+  if (wg == 2) {  // ---- producer: one thread issues every load ----
+    if (threadIdx.x == 256) {
+      sm90::prefetch_tensor_map(&map_x);
+      sm90::prefetch_tensor_map(&map_w);
+      // boxes of w past F are not loaded (their columns are not stored)
+      const int boxes = min(SW_BN / SW_BOX, (F - n0 + SW_BOX - 1) / SW_BOX);
+      int stage = 0;
+      uint32_t phase = 1;  // the ring starts empty: the first waits pass
+      for (int kt = k_lo; kt < k_hi; ++kt) {
+        sm90::mbar_wait(&empty[stage], phase);
+        sm90::mbar_arrive_expect_tx(&full[stage],
+                                    L::X_BYTES + boxes * L::BOX_BYTES);
+        sm90::tma_load_3d(smem + L::X0 + stage * L::X_BYTES, &map_x,
+                          &full[stage], kt * SW_BK, 0, e);
+        for (int b = 0; b < boxes; ++b)
+          sm90::tma_load_3d(
+              smem + L::W0 + stage * L::W_BYTES + b * L::BOX_BYTES, &map_w,
+              &full[stage], n0 + b * SW_BOX, kt * SW_BK, e);
+        if (++stage == SW_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    if (splits > 1) sm90::cluster_wait();
+  } else {  // ---- consumers: warpgroups 0 and 1, 64 columns each ----
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const bool warp_leader = lane == 0;
+    float acc[BC / 2];
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    sm90::fence_operands(acc);
+    for (int kt = k_lo, prev = 0; kt < k_hi; ++kt) {
+      sm90::mbar_wait(&full[stage], phase);
+      // A: the w box, MN-major (8 k rows of 64 columns an atom, k groups
+      // 1024 B apart; +2048 B a k16); B: x, K-major (+32 B a k16)
+      const uint64_t da = sm90::desc_sw128(
+          sm90::smem_u32(smem + L::W0 + stage * L::W_BYTES +
+                         wg * L::BOX_BYTES),
+          L::BOX_BYTES, 1024);
+      const uint64_t db = sm90::desc_sw128(
+          sm90::smem_u32(smem + L::X0 + stage * L::X_BYTES), 16, 1024);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SW_BK / 16; ++kk) {
+        if constexpr (BC == 8)
+          sm90::wgmma_m64n8k16<1, 0>(acc, da + 128 * kk, db + 2 * kk);
+        else
+          sm90::wgmma_m64n16k16<1, 0>(acc, da + 128 * kk, db + 2 * kk);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous stage's products are done
+      sm90::mbar_arrive(&empty[prev], warp_leader && kt > k_lo);
+      prev = stage;
+      if (++stage == SW_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+    if (splits > 1) sm90::cluster_wait();
+    // acc[4j + 2h + i]: out^T row (tile column) 64 wg + 16 warp + lane / 4
+    // + 8 h, column (token row) 8 j + 2 (lane % 4) + i: token rows in
+    // pairs, 8 bytes, to slot ``rank`` of the column's owner
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = wg * 64 + 16 * warp + lane / 4 + 8 * h;
+      const int owner = col / sw;
+      float* dst = recv + (rank * sw + col % sw) * L::RS + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j) {
+        const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+        if (owner == rank)
+          *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(a, b);
+        else
+          sm90::st_async_f32x2(sm90::cluster_map(dst + 8 * j, owner), a, b,
+                               sm90::cluster_map(received, owner));
+      }
+    }
+  }
+
+  __syncthreads();  // this block's own partial is in recv
+  if (splits > 1) sm90::mbar_wait_cluster(received, 0);  // and the peers'
+  for (int i = threadIdx.x; i < rows * per_row; i += SW_THREADS) {
+    const int r = i / per_row, ch = i % per_row * 8, col = c0 + ch;
+    if (col >= F) continue;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < count) {  // the ranks' partials, added in rank order
+      float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int p = 0; p < splits; ++p) {
+        const float* src = recv + (p * sw + ch) * L::RS + r;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s[k] += src[k * L::RS];
+      }
+      v = make_uint4(tc::pack_bf16(s[0], s[1]), tc::pack_bf16(s[2], s[3]),
+                     tc::pack_bf16(s[4], s[5]), tc::pack_bf16(s[6], s[7]));
+    }
+    *reinterpret_cast<uint4*>(op + (size_t)r * F + col) = v;
+  }
+}
+
+template <int BC>
+cudaError_t launch_swap(const void* x, const void* w, const int* counts,
+                        void* out, int E, int C, int D, int F, int splits,
+                        cudaStream_t stream) {
+  using L = SwLayout<BC>;
+  const uint64_t e = E, c = C, d = D, f = F;
+  CUtensorMap mx, mw;
+  cudaError_t err = sm90::tensor_map_bf16<3>(
+      &mx, x, {d, c, e}, {d * 2, c * d * 2}, {SW_BK, BC, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map_bf16<3>(&mw, w, {f, d, e}, {f * 2, d * f * 2},
+                                   {SW_BOX, SW_BK, 1});
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gmm_swap_wgmma<BC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((F + SW_BN - 1) / SW_BN) * splits;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)E);
+  cfg.blockDim = dim3(SW_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  void* args[] = {&mx, &mw, &counts, &o, &C, &D, &F, &splits};
+  err = cudaLaunchKernelExC(&cfg, (const void*)gmm_swap_wgmma<BC>, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // the paths, as kernels/moe_gmm/ops.py numbers them
 enum Path { FMA = 0, SWAP = 1, WGMMA = 2, FILL = 3 };
 
@@ -788,33 +1062,39 @@ bool aligned16(const void* p) {
 
 // x: (E, C, D); w: (E, D, F); counts: (E,) int32; out: (E, C, F); x, w and
 // out contiguous, float32 for path FMA and bfloat16 for the others (the
-// caller's choice: kernels/moe_gmm/ops.py gmm_path). Launches on
-// ``stream``, allocates nothing, and returns the cudaError_t of the launch
-// (0 on success); a path that cannot take the shape refuses it
-// (cudaErrorInvalidValue) and launches nothing.
+// caller's choice: kernels/moe_gmm/ops.py gmm_path); ``splits``: the SWAP
+// path's blocks along D (1, 2, 4 or 8: ops.py gmm_splits), 1 on the
+// others. Launches on ``stream``, allocates nothing, and returns the
+// cudaError_t of the launch (0 on success); a path that cannot take the
+// shape refuses it (cudaErrorInvalidValue) and launches nothing.
 extern "C" int repro_moe_gmm(const void* x, const void* w, const void* counts,
-                             void* out, int path, int E, int C, int D, int F,
-                             void* stream) {
+                             void* out, int path, int splits, int E, int C,
+                             int D, int F, void* stream) {
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > SW_MAX_SPLITS || (splits & (splits - 1)) ||
+      (splits != 1 && path != SWAP))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* cnt = static_cast<const int*>(counts);
+  const bool tma = D % 8 == 0 && F % 8 == 0 && aligned16(x) &&
+                   aligned16(w) && aligned16(out);
   switch (path) {
     case FMA:
       if ((C + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
       return (int)dispatch_c<float>(x, w, cnt, out, E, C, D, F, st);
     case SWAP:
-      if (C > 16) return (int)cudaErrorInvalidValue;
+      if (C > 16 || !tma) return (int)cudaErrorInvalidValue;
+      if (C <= 8)
+        return (int)launch_swap<8>(x, w, cnt, out, E, C, D, F, splits, st);
+      return (int)launch_swap<16>(x, w, cnt, out, E, C, D, F, splits, st);
+    case FILL:
+      if ((C + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
       if (C <= 8)
         return (int)launch_tc<8, 64>(x, w, cnt, out, E, C, D, F, st);
       return (int)launch_tc<16, 64>(x, w, cnt, out, E, C, D, F, st);
-    case FILL:
-      if (C <= 16 || (C + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
-      return (int)launch_tc<16, 64>(x, w, cnt, out, E, C, D, F, st);
     case WGMMA:
-      if (C <= 16 || D % 8 || F % 8 || !aligned16(x) || !aligned16(w) ||
-          !aligned16(out))
-        return (int)cudaErrorInvalidValue;
+      if (C <= 16 || !tma) return (int)cudaErrorInvalidValue;
       return (int)launch_wgmma(x, w, cnt, out, E, C, D, F, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -828,12 +1108,28 @@ extern "C" int repro_moe_gmm_smem(int path, int C) {
     case FMA:
       return 0;
     case SWAP:
-      return C > 16 ? -1 : C <= 8 ? (int)tc_smem_bytes<8, 64>()
-                                  : (int)tc_smem_bytes<16, 64>();
+      return C > 16 ? -1 : C <= 8 ? SwLayout<8>::SMEM : SwLayout<16>::SMEM;
     case FILL:
-      return C <= 16 ? -1 : (int)tc_smem_bytes<16, 64>();
+      return C <= 8 ? (int)tc_smem_bytes<8, 64>()
+                    : (int)tc_smem_bytes<16, 64>();
     case WGMMA:
       return C <= 16 ? -1 : WgLayout<WG_BN>::SMEM;
+  }
+  return -1;
+}
+
+// The swap path's tiling, which kernels/moe_gmm/tiling.py repeats for the
+// wrapper and the plain version (ops.build checks the two agree): 0 ->
+// output columns a tile, 1 -> D a stage, 2 -> the largest cluster; -1
+// otherwise.
+extern "C" int repro_moe_gmm_swap_tiling(int which) {
+  switch (which) {
+    case 0:
+      return SW_BN;
+    case 1:
+      return SW_BK;
+    case 2:
+      return SW_MAX_SPLITS;
   }
   return -1;
 }

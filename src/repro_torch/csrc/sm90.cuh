@@ -8,7 +8,7 @@
 //           on an mbarrier, tensor stores from shared memory in bulk groups;
 //   mbarrier: init, arrive, arrive.expect_tx, a parity wait;
 //   wgmma:  shared-memory descriptors of 128-byte-swizzled tiles (K-major
-//           and MN-major), m64n{64,128,256}k16 bf16 products with f32
+//           and MN-major), m64n{8,16,64,128,256}k16 bf16 products with f32
 //           accumulators, A and B in shared memory or A in registers (the
 //           m16n8k16 A fragment of each warp's 16 rows), m64n64k8 tf32
 //           products (K-major A and B in shared memory: tf32 has no
@@ -16,7 +16,9 @@
 //           commit_group / wait_group;
 //   clusters: the block's rank, a cluster-wide barrier, TMA loads
 //           multicast to several blocks' shared memory, arrivals on a
-//           peer block's mbarrier;
+//           peer block's mbarrier, a cluster barrier in two halves,
+//           stores into a peer block's shared memory that complete on its
+//           mbarrier (distributed shared memory);
 //   setmaxnreg, named barriers, the async-proxy fence;
 //   programmatic dependent launch: a grid's early start and its wait.
 //
@@ -161,6 +163,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "{\n.reg .pred p;\n"
       "WAIT:\n"
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// mbar_wait for a phase that other blocks of the cluster complete
+// (st_async_f32x2): their writes are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
       "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
@@ -325,6 +341,39 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
       : "memory");
 }
 
+// the address of ``p`` (this block's shared memory) in block ``cta`` of the
+// cluster
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(cta));
+  return r;
+}
+
+// a cluster barrier in two halves: every thread of every block arrives
+// (relaxed: after fence_barrier_init it publishes initialised barriers),
+// and later waits until all have arrived
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// (a, b) -> 8 bytes at ``addr`` of a cluster block's shared memory
+// (cluster_map), completing 8 bytes of the mbarrier at ``bar`` (in that
+// block, cluster_map) when they have landed
+__device__ __forceinline__ void st_async_f32x2(uint32_t addr, float a,
+                                               float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
 // ---- warp specialisation ----
 
 template <int N>
@@ -375,6 +424,34 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 8, f32, in registers) += A (64 x 16) B (16 x 8), both read from
+// shared memory through descriptors; TA / TB: 0 = K-major, 1 = MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 16, f32, in registers) += A (64 x 16) B (16 x 16), both read
+// from shared memory through descriptors; TA / TB: 0 = K-major, 1 =
+// MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // d (64 x 64, f32, in registers) (+)= A (64 x 16) B (16 x 64), both read

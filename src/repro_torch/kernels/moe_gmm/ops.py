@@ -6,27 +6,31 @@ and launches on PyTorch's current stream. A CPU tensor goes to the plain
 version (``ref.gmm_reference``); a CUDA tensor goes to the kernel, or the
 call raises. The kernel is built at its first launch
 (``repro_torch.kernels.build``). ``gmm_path`` picks the kernel's path
-from the call's dtype, shape and alignment alone; no path falls back to
-another.
+from the call's dtype, shape and alignment alone, and ``gmm_splits`` the
+swap path's split over D from its shape and the card's SM count; no path
+falls back to another.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.moe_gmm.ref import gmm_reference
+from repro_torch.kernels.moe_gmm.tiling import (MAX_SPLITS, SWAP_COLS,
+                                               SWAP_DEPTH)
 from repro_torch.roofline.work import charged, gmm_work
 
 SOURCES = ("moe_gmm.cu",)
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's paths, numbered as csrc/moe_gmm.cu's entry point takes them:
 # "fma" f32 (full-f32 products for the oracles), "swap" bf16 C <= 16
-# (mma.sync, operands swapped), "wgmma" bf16 C > 16 through TMA, "fill"
-# bf16 C > 16 where TMA cannot address the tensors (the swap kernel's
-# 16-row tiles filled element by element)
+# through TMA (wgmma with the operands swapped, split over D), "wgmma"
+# bf16 C > 16 through TMA, "fill" bf16 where TMA cannot address the
+# tensors (mma.sync, 8- or 16-row tiles filled element by element)
 PATHS = ("fma", "swap", "wgmma", "fill")
 
 # kernel launches since the last reset (plain-version calls do not count),
@@ -46,19 +50,44 @@ def reset_launches() -> None:
 
 
 def gmm_path(dtype, C: int, D: int, F: int, aligned: bool) -> str:
-    """The kernel path of a call: f32 -> "fma"; bf16 with C <= 16 ->
-    "swap"; bf16 with C > 16 -> "wgmma" where TMA can address x, w and
-    out (D and F multiples of 8: 16-byte row strides; ``aligned``: every
-    base 16-byte aligned), else "fill"."""
+    """The kernel path of a call: f32 -> "fma"; bf16 where TMA can
+    address x, w and out (D and F multiples of 8: 16-byte row strides;
+    ``aligned``: every base 16-byte aligned) -> "swap" for C <= 16,
+    "wgmma" above; other bf16 calls -> "fill"."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:
         raise TypeError(f"moe_gmm has no path for {dtype}")
-    if C <= 16:
-        return "swap"
-    if aligned and D % 8 == 0 and F % 8 == 0:
-        return "wgmma"
-    return "fill"
+    if not (aligned and D % 8 == 0 and F % 8 == 0):
+        return "fill"
+    return "swap" if C <= 16 else "wgmma"
+
+
+def gmm_splits(E: int, C: int, D: int, F: int, sms: int) -> int:
+    """Blocks (a cluster) that split the D sum of each (expert, 128-column
+    tile) on the swap path: the largest of 1, 2, 4, 8 that keeps every
+    block on an SM of its own (E x tiles x splits <= ``sms``) and at least
+    one D tile (64) a block; 1 for C > 16 (the other paths do not split)."""
+    if C > 16:
+        return 1
+    blocks = E * -(-F // SWAP_COLS)
+    splits = 1
+    while (splits < MAX_SPLITS and 2 * splits * blocks <= sms
+           and 2 * splits * SWAP_DEPTH <= D):
+        splits *= 2
+    return splits
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device) -> int:
+    """The card's SM count, read once a device."""
+    device = torch.device(device)
+    return _sms(torch.cuda.current_device() if device.index is None
+                else device.index)
 
 
 def build():
@@ -69,11 +98,19 @@ def build():
             from repro_torch.kernels.build import build as nvcc_build
             built = nvcc_build("moe_gmm", SOURCES)
             fn = built.lib.repro_moe_gmm
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             built.lib.repro_moe_gmm_smem.argtypes = [ctypes.c_int] * 2
             built.lib.repro_moe_gmm_smem.restype = ctypes.c_int
+            tiling = built.lib.repro_moe_gmm_swap_tiling
+            tiling.argtypes, tiling.restype = [ctypes.c_int], ctypes.c_int
+            got = tuple(tiling(i) for i in range(3))
+            if got != (SWAP_COLS, SWAP_DEPTH, MAX_SPLITS):
+                raise RuntimeError(
+                    f"moe_gmm.cu tiles the swap path as {got} (columns, "
+                    f"depth, cluster), tiling.py as "
+                    f"{(SWAP_COLS, SWAP_DEPTH, MAX_SPLITS)}")
             _built = built
     return _built
 
@@ -130,11 +167,13 @@ def grouped_matmul(x, w, counts):
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     path = gmm_path(x.dtype, C, D, F, all(
         t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    splits = gmm_splits(E, C, D, F, _sm_count(x.device)) \
+        if path == "swap" else 1
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
-                                out.data_ptr(), PATHS.index(path), E, C, D, F,
-                                stream)
+                                out.data_ptr(), PATHS.index(path), splits, E,
+                                C, D, F, stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed ({path} path): "
                            f"cudaError {err}")

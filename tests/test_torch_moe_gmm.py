@@ -4,23 +4,33 @@ oracle.
 On the CPU the port's wrapper takes the plain version
 (``repro_torch.kernels.moe_gmm.ref``), which is held against the Pallas
 kernel in interpret mode and against ``gmm_reference`` on the shapes of
-``tests/test_kernels.py``, with random counts and with counts of 0 and C.
-The CUDA kernel is held against the plain version on the card (``gpu``
-marker), ragged shapes and the edges of its tensor-core paths (C of 1, 8,
-9 and 160; D and F not multiples of 8) included; the ``wgmma`` path (bf16,
-C > 16) on its own edges at ``chip_smoke.py``'s ``GMM_TOL``. The wrapper's
-choice of path (``ops.gmm_path``) is a pure function, tested here.
+``tests/test_kernels.py``, with random counts and with counts of 0 and C;
+so is the plain version of the swap path's split over D
+(``gmm_split_reference``) at 1, 2, 4 and 8 blocks, at D of 520 and 2048
+too, where every block has a partial to add. The CUDA kernel is held
+against the plain version on the card (``gpu`` marker), ragged shapes and
+the edges of its tensor-core paths (C of 1, 8, 9 and 160; D and F not
+multiples of 8, the fill path's 8- and 16-row tiles) included, each on the
+path ``gmm_path`` picks; the ``wgmma`` path (bf16, C > 16) and the
+``swap`` path (bf16, C <= 16) on their own edges at ``chip_smoke.py``'s
+``GMM_TOL``, the swap path also within one bf16 ulp of the split's plain
+version. The wrapper's choice of path (``ops.gmm_path``) and of the swap
+path's split (``ops.gmm_splits``) are pure functions, tested here.
 
 Tolerances are the repo's own: 1e-4 in f32, 1e-1 in bf16 (``GMM_TOL``:
 3e-2 in bf16 for the wgmma edges, on weights at std D^-1/2).
 """
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.moe_gmm import ops  # noqa: E402
-from repro_torch.kernels.moe_gmm.ref import gmm_reference  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import (gmm_reference,  # noqa: E402
+                                             gmm_split_reference)
+from repro_torch.kernels.moe_gmm.tiling import split_bounds  # noqa: E402
 
 CASES = [  # E, C, D, F, dtype (tests/test_kernels.py)
     (4, 32, 16, 24, "float32"),
@@ -34,6 +44,8 @@ RAGGED = [  # no dimension a multiple of the kernel's tiles or 16-byte packs
 EDGES = [  # the bf16 tensor-core paths' edges (C <= 16: the swapped tile)
     (4, 1, 64, 128, "bfloat16"),      # C = 1
     (3, 8, 72, 136, "bfloat16"),      # C = 8, decode's tile; F past a block
+    (4, 1, 36, 64, "bfloat16"),       # the fill path's 8-row tile: D % 8
+    (3, 8, 40, 100, "bfloat16"),      # ... at C = 8; F % 8 != 0
     (3, 9, 40, 100, "bfloat16"),      # C = 9: a 16-row tile; F % 8 != 0
     (2, 160, 96, 264, "bfloat16"),    # C = 160: three 64-row tiles
     (3, 21, 37, 45, "bfloat16"),      # D and F not multiples of 8
@@ -61,7 +73,34 @@ WGMMA_EDGES = [  # E, C, D, F
     (4, 2560, 1024, 2048),
 ]
 WGMMA_COUNTS = ("random", "zero", "full", "one")
+# the swap path (bf16, C <= 16, D and F multiples of 8): C of 1, 7, 8, 9
+# and 16; E of 1, 4 and 64; D of 64, 72 and 2048; F of 64, 136, 1024 and
+# 2048; olmoe-1b-7b's decode products on one card and under EP 16 (4
+# experts a device); on 132 SMs the split over D is 1 (64 experts), 2 (EP
+# down), 4 (EP gate/up) and 8 (one expert, 2 tiles)
+SWAP_EDGES = [  # E, C, D, F
+    (1, 1, 64, 64),
+    (4, 7, 72, 136),
+    (3, 9, 64, 2048),
+    (64, 16, 72, 64),
+    (1, 16, 2048, 136),
+    (64, 8, 2048, 1024),
+    (64, 8, 1024, 2048),
+    (4, 16, 2048, 1024),
+    (4, 16, 1024, 2048),
+    (4, 8, 2048, 1024),
+]
+SWAP_COUNTS = ("random", "zero", "full", "one", "decode")
+SPLITS = (1, 2, 4, 8)
+# D of 8 tiles of 64 and more, so that every split has partials to add:
+# 520 (9 tiles: uneven at 2, 4 and 8 blocks) and 2048 (olmoe's d_model)
+SPLIT_CASES = [(E, C, D, F, dtype) for E, C, D, F in
+               ((2, 16, 520, 64), (4, 16, 2048, 256))
+               for dtype in ("bfloat16", "float32")]
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the swap path against the split's plain version on the card: at most one
+# bf16 ulp (rtol 2^-7), and 1e-4 for sums that cancel
+ULP_TOL = {"atol": 1e-4, "rtol": 2 ** -7}
 
 
 def _tol(dtype):
@@ -132,13 +171,121 @@ def test_plain_matches_reference_on_edges(E, C, D, F, dtype, counts):
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
+@functools.cache
+def _jax_out(kind, E, C, D, F, dtype, counts, seed):
+    """The Pallas kernel in interpret mode ("pallas") or the JAX oracle
+    ("oracle") on ``_inputs(seed, ...)``, computed once a case."""
+    import jax.numpy as jnp
+    from repro.kernels.moe_gmm.ops import grouped_matmul as jgmm
+    from repro.kernels.moe_gmm.ref import gmm_reference as jref
+    x, w, cnt = _inputs(seed, E, C, D, F, counts)
+    jd = getattr(jnp, dtype)
+    jx, jw, jc = jnp.asarray(x, jd), jnp.asarray(w, jd), jnp.asarray(cnt)
+    out = jgmm(jx, jw, jc, block_c=16, block_f=8, block_d=8,
+               interpret=True) if kind == "pallas" else jref(jx, jw, jc)
+    return np.asarray(out, np.float32)
+
+
+def _split_plain(x, w, cnt, dtype, splits):
+    return gmm_split_reference(
+        torch.as_tensor(x).to(TORCH_DT[dtype]),
+        torch.as_tensor(w).to(TORCH_DT[dtype]), torch.as_tensor(cnt), splits)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("counts", COUNTS)
+@pytest.mark.parametrize("E,C,D,F,dtype", CASES)
+def test_split_plain_matches_pallas_interpret(E, C, D, F, dtype, counts,
+                                              splits):
+    """The swap path's sum over D in ``splits`` f32 partials, against the
+    Pallas kernel."""
+    x, w, cnt = _inputs(0, E, C, D, F, counts)
+    out = _split_plain(x, w, cnt, dtype, splits)
+    assert out.dtype == TORCH_DT[dtype] and out.shape == (E, C, F)
+    np.testing.assert_allclose(
+        out.float().numpy(), _jax_out("pallas", E, C, D, F, dtype, counts, 0),
+        atol=_tol(dtype), rtol=_tol(dtype))
+    rows = np.arange(C)[None, :, None] >= cnt[:, None, None]
+    assert not np.any(np.where(rows, out.float().numpy(), 0.0))
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("counts", COUNTS)
+@pytest.mark.parametrize("E,C,D,F,dtype", EDGES)
+def test_split_plain_matches_reference_on_edges(E, C, D, F, dtype, counts,
+                                                splits):
+    """The same on the edges (D of 36, 37, 40, 64, 72, 96: none a multiple
+    of splits x 64 beyond 1), against the JAX oracle."""
+    x, w, cnt = _inputs(4, E, C, D, F, counts)
+    out = _split_plain(x, w, cnt, dtype, splits)
+    np.testing.assert_allclose(
+        out.float().numpy(), _jax_out("oracle", E, C, D, F, dtype, counts, 4),
+        atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("counts", COUNTS)
+@pytest.mark.parametrize("E,C,D,F,dtype", SPLIT_CASES)
+def test_split_plain_matches_reference_at_depth(E, C, D, F, dtype, counts,
+                                                splits):
+    """The same where every block has a partial to add (D of 520 and 2048),
+    against the JAX oracle."""
+    assert sum(hi > lo for lo, hi in split_bounds(D, splits)) == splits
+    x, w, cnt = _inputs(5, E, C, D, F, counts)
+    out = _split_plain(x, w, cnt, dtype, splits)
+    np.testing.assert_allclose(
+        out.float().numpy(), _jax_out("oracle", E, C, D, F, dtype, counts, 5),
+        atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("D,splits,bounds", [
+    (64, 1, [(0, 64)]),
+    (72, 2, [(0, 64), (64, 72)]),
+    (37, 4, [(0, 0), (0, 0), (0, 0), (0, 37)]),
+    (2048, 4, [(0, 512), (512, 1024), (1024, 1536), (1536, 2048)]),
+    (1024, 8, [(128 * r, 128 * (r + 1)) for r in range(8)]),
+    (200, 2, [(0, 128), (128, 200)]),
+    (520, 8, [(0, 64), (64, 128), (128, 192), (192, 256), (256, 320),
+              (320, 384), (384, 448), (448, 520)]),
+])
+def test_split_bounds_cover_d_in_rank_order(D, splits, bounds):
+    assert split_bounds(D, splits) == bounds
+
+
+@pytest.mark.parametrize("E,C,D,F,sms,splits", [
+    (4, 16, 2048, 1024, 132, 4),    # EP 16 replicated decode, gate/up
+    (4, 16, 1024, 2048, 132, 2),    # ... down
+    (4, 8, 2048, 1024, 132, 4),     # ... at cap_mult 2.0
+    (64, 8, 2048, 1024, 132, 1),    # one card's decode: 512 tiles
+    (64, 8, 1024, 2048, 132, 1),
+    (1, 16, 2048, 136, 132, 8),     # 2 tiles: never above 8
+    (1, 1, 64, 64, 132, 1),         # never more blocks than D / 64
+    (1, 1, 200, 64, 132, 2),
+    (1, 16, 256, 128, 132, 4),
+    (4, 16, 2048, 1024, 114, 2),    # fewer SMs
+    (4, 160, 2048, 1024, 132, 1),   # C > 16: not the swap path
+])
+def test_splits_fill_the_card_from_the_shape(E, C, D, F, sms, splits):
+    got = ops.gmm_splits(E, C, D, F, sms)
+    assert got == splits
+    assert got in SPLITS and got * 64 <= max(D, 64)
+    assert got == 1 or E * -(-F // ops.SWAP_COLS) * got <= sms
+
+
 @pytest.mark.parametrize("dtype,C,D,F,aligned,path", [
     (torch.float32, 8, 2048, 1024, True, "fma"),
     (torch.float32, 160, 2048, 1024, True, "fma"),
     (torch.float32, 21, 37, 45, False, "fma"),
     (torch.bfloat16, 1, 64, 128, True, "swap"),
     (torch.bfloat16, 8, 2048, 1024, True, "swap"),
-    (torch.bfloat16, 16, 37, 45, False, "swap"),
+    (torch.bfloat16, 16, 37, 45, False, "fill"),
+    (torch.bfloat16, 16, 2048, 1024, True, "swap"),
+    (torch.bfloat16, 7, 72, 136, True, "swap"),
+    (torch.bfloat16, 8, 2048, 1024, False, "fill"),
+    (torch.bfloat16, 1, 36, 64, True, "fill"),
+    (torch.bfloat16, 8, 40, 100, True, "fill"),
+    (torch.bfloat16, 9, 64, 100, True, "fill"),
+    (torch.bfloat16, 16, 64, 45, True, "fill"),
     (torch.bfloat16, 17, 64, 64, True, "wgmma"),
     (torch.bfloat16, 160, 2048, 1024, True, "wgmma"),
     (torch.bfloat16, 160, 72, 136, True, "wgmma"),
@@ -188,10 +335,12 @@ def cuda():
 def test_kernel_matches_plain_on_card(cuda, E, C, D, F, dtype, counts):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w, cnt = _inputs(2, E, C, D, F, counts)
-    before = ops.launches
+    before, paths = ops.launches, dict(ops.launches_by_path)
     out = _port(x, w, cnt, dtype, device=cuda)
     torch.cuda.synchronize()
     assert ops.launches == before + 1
+    path = ops.gmm_path(TORCH_DT[dtype], C, D, F, True)
+    assert ops.launches_by_path[path] == paths[path] + 1
     xd, wd = (torch.as_tensor(a).to(cuda, TORCH_DT[dtype]) for a in (x, w))
     ref = gmm_reference(xd, wd, torch.as_tensor(cnt).to(cuda))
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
@@ -217,7 +366,8 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
 def _card_inputs(seed, E, C, D, F, counts, device):
     """bf16 x ~ N(0, 1) and w ~ N(0, 1 / D) drawn on the card (the
     olmoe-width cases are 134 M weights), int32 counts; "one": every row
-    of one expert in use, the others empty."""
+    of one expert in use, the others empty; "decode": one row in each of
+    half the experts (at least one), as a decode step routes."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     x = torch.randn((E, C, D), generator=gen, device=device).bfloat16()
@@ -226,6 +376,10 @@ def _card_inputs(seed, E, C, D, F, counts, device):
     if counts == "random":
         cnt = torch.randint(0, C + 1, (E,), generator=gen, device=device,
                             dtype=torch.int32)
+    elif counts == "decode":
+        cnt = torch.zeros((E,), dtype=torch.int32, device=device)
+        cnt[torch.randperm(E, generator=gen, device=device)[
+            :max(1, E // 2)]] = 1
     else:
         cnt = torch.full((E,), C if counts == "full" else 0,
                          dtype=torch.int32, device=device)
@@ -260,6 +414,86 @@ def test_wgmma_path_refuses_what_tma_cannot_address(cuda):
     lib = ops.build().lib
     out = torch.empty((2, 32, 45), dtype=torch.bfloat16, device=cuda)
     err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), cnt.data_ptr(),
-                            out.data_ptr(), ops.PATHS.index("wgmma"), 2, 32,
-                            37, 45, torch.cuda.current_stream().cuda_stream)
+                            out.data_ptr(), ops.PATHS.index("wgmma"), 1, 2,
+                            32, 37, 45,
+                            torch.cuda.current_stream().cuda_stream)
     assert err != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", SWAP_COUNTS)
+@pytest.mark.parametrize("E,C,D,F", SWAP_EDGES)
+def test_swap_path_matches_plain_on_card(cuda, E, C, D, F, counts):
+    """One launch on the swap path (its split over D as ``gmm_splits``
+    picks it for this card), within GMM_TOL of the plain version and one
+    bf16 ulp of the split's plain version; rows >= counts[e] exactly zero;
+    two calls bitwise equal (the partials are summed in rank order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
+    x, w, cnt = _card_inputs(7, E, C, D, F, counts, cuda)
+    before, paths = ops.launches, dict(ops.launches_by_path)
+    out = ops.grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert ops.launches_by_path["swap"] == paths["swap"] + 1
+    splits = ops.gmm_splits(E, C, D, F, ops._sm_count(cuda))
+    torch.testing.assert_close(out.float(), gmm_reference(x, w, cnt).float(),
+                               atol=GMM_TOL[torch.bfloat16],
+                               rtol=GMM_TOL[torch.bfloat16])
+    torch.testing.assert_close(
+        out.float(), gmm_split_reference(x, w, cnt, splits).float(),
+        **ULP_TOL)
+    rows = torch.arange(C, device=cuda)[None, :, None] >= cnt[:, None, None]
+    assert not out.float().masked_select(rows).any()
+    again = ops.grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", SPLITS)
+def test_swap_path_takes_every_split_on_card(cuda, splits):
+    """The entry point at each split of one EP-shaped call (4 experts,
+    C 16, D 2048, F 256: 8 tiles): within one bf16 ulp of the split's
+    plain version, and the same bits when run twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, C, D, F = 4, 16, 2048, 256
+    x, w, cnt = _card_inputs(8, E, C, D, F, "random", cuda)
+    lib = ops.build().lib
+    outs = []
+    for _ in range(2):
+        out = torch.empty((E, C, F), dtype=torch.bfloat16, device=cuda)
+        err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), cnt.data_ptr(),
+                                out.data_ptr(), ops.PATHS.index("swap"),
+                                splits, E, C, D, F,
+                                torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        outs.append(out)
+    torch.testing.assert_close(outs[0].float(),
+                               gmm_split_reference(x, w, cnt, splits).float(),
+                               **ULP_TOL)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,D,F,splits", [
+    (2, 8, 37, 64, 1),      # D not a multiple of 8
+    (2, 16, 64, 45, 1),     # F not a multiple of 8
+    (2, 17, 64, 64, 1),     # C > 16
+    (2, 8, 2048, 64, 3),    # not a cluster of 1, 2, 4 or 8
+    (2, 8, 2048, 64, 16),
+])
+def test_swap_path_refuses_what_tma_cannot_address(cuda, E, C, D, F,
+                                                   splits):
+    """The entry point refuses the swap path (and a split it does not
+    take) instead of running another kernel; the wrapper sends such
+    shapes to the fill path."""
+    x, w, cnt = _card_inputs(9, E, C, D, F, "full", cuda)
+    lib = ops.build().lib
+    out = torch.zeros((E, C, F), dtype=torch.bfloat16, device=cuda)
+    err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), cnt.data_ptr(),
+                            out.data_ptr(), ops.PATHS.index("swap"), splits,
+                            E, C, D, F,
+                            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and not out.any()
