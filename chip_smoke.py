@@ -13,13 +13,16 @@ Drives the port in phases and exits non-zero if any fails:
                on a spill in a bf16 tensor-core kernel or in a kernel of
                either scan), and the dynamic shared memory a block of
                each path of flash and moe_gmm takes (bf16 runs on the
-               tensor cores, f32 on the FMA kernels) and a block of
-               ssd_scan's chunk-parallel scan takes; fails unless each
-               instantiation of the three wgmma paths (flash_fwd_wgmma,
-               gmm_wgmma, moe_gmm's decode path gmm_swap_wgmma) and of
-               ssd_scan's two kernels (ssd_cb, ssd_chunk: split-TF32
-               wgmma) holds HGMMA and UTMALDG in its SASS, and on a wgmma
-               ptxas serialised (C7518 in the nvcc log);
+               tensor cores, flash's f32 at D >= 64 too, in split TF32;
+               flash's f32 at D 16 / 32 and moe_gmm's f32 on the FMA
+               kernels) and a block of ssd_scan's chunk-parallel scan
+               takes; fails on a spill in flash_fwd_tf32x3 too, unless each
+               instantiation of the four wgmma paths (flash_fwd_wgmma,
+               flash_fwd_tf32x3: split-TF32 wgmma, gmm_wgmma, moe_gmm's
+               decode path gmm_swap_wgmma) and of ssd_scan's two kernels
+               (ssd_cb, ssd_chunk: split-TF32 wgmma) holds HGMMA and
+               UTMALDG in its SASS, and on a wgmma ptxas serialised (C7518
+               in the nvcc log);
   (c) kernel   holds the flash kernel against its plain PyTorch version on
                the shapes of tests/test_kernels.py and on the serve paths'
                prefill shapes (qwen2-7b: Hq 28, Hkv 4, D 128; olmoe-1b-7b:
@@ -36,11 +39,14 @@ Drives the port in phases and exits non-zero if any fails:
                1/4/7/8/16/48, rows all masked in a kv tile), f32 and bf16,
                tolerance 2e-5 (f32) / 3e-2 (bf16); fails if a call takes
                another path than ops.flash_path gives (bf16 D >= 64:
-               wgmma); times kernel, plain version and torch's
-               scaled_dot_product_attention (a yardstick the port never
-               calls) with CUDA events, beside the bound, with the kernel /
-               library ratio and the achieved TFLOP/s and TB/s, and the bf16
-               kernel and SDPA in CUDA graphs with the share of the bound;
+               wgmma; f32 D >= 64: tf32x3); times kernel, plain version
+               and torch's scaled_dot_product_attention (a yardstick the
+               port never calls; f32 with TF32 off) with CUDA events,
+               beside the bound, with the kernel / library ratio and the
+               achieved TFLOP/s and TB/s, and kernel and SDPA in CUDA
+               graphs with the share of the bound (f32: of the split-TF32
+               bound, three TF32 products at 495 TFLOP/s, and of the
+               FMA-rate bound, 67 TFLOP/s);
   (c2) kernel  holds moe_gmm against its plain version on the shapes of
                tests/test_kernels.py, two ragged ones, the edges of the
                bf16 tensor-core paths (C of 1, 8, 9 and 160, D and F not
@@ -116,7 +122,8 @@ Drives the port in phases and exits non-zero if any fails:
                kernel by more than the tolerance; times kernel, plain
                version and FlexAttention with the cap as its score_mod
                (torch.compile'd; the library time, never called by the
-               port) beside the bound;
+               port) beside the bound; the f32 cases also kernel and
+               FlexAttention in CUDA graphs beside both f32 bounds;
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
@@ -356,7 +363,8 @@ Drives the port in phases and exits non-zero if any fails:
                split; each rank's time (CUDA events, mean of 20 calls), its
                bound (flash_work with the offset) and SDPA over the first
                q_offset + S / n keys with the bottom-right causal mask, and
-               the slowest rank against the unsplit call;
+               the slowest rank against the unsplit call; f32 ranks also
+               kernel and SDPA in CUDA graphs beside both f32 bounds;
   (t) ep       moe_gmm at olmoe-1b-7b's expert-parallel shapes under EP 16
                (4 experts a device): the all-to-all receive buffer of a
                1024-token prefill rank (4, 16 x 160, 2048) and the
@@ -400,6 +408,10 @@ Drives the port in phases and exits non-zero if any fails:
 
 (d) and (d2) build on launch.mesh.make_local_mesh(1, 1): the mesh code
 with every parallel path on its one-device branch.
+
+Every f32 phase ((e)-(e6), (m2), (n2), (x), (v)) prints flash's launches
+by path and fails unless each is on tf32x3 (every shipped config's head
+dim is 64 or more).
 
 Each serving and training phase sets the kernels' launch counts to 0
 just before it drives the path and reads them just after; ssd_scan must
@@ -500,6 +512,10 @@ import torch_fig1_overlap as fig1_trace  # noqa: E402
 PEAK_OPS = {dt: RR.PEAK_FLOPS[str(dt).removeprefix("torch.")]
             for dt in (torch.bfloat16, torch.float32)}
 HBM_BYTES_PER_S = RR.HBM_BW
+# f32 products at f32's accuracy on the tensor cores: three TF32 products
+# (split TF32) at the card's dense TF32 rate
+TF32_OPS_PER_S = 495e12
+SPLIT_TF32 = 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -797,15 +813,32 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound(case, q_offset: int = 0) -> tuple[float, str]:
+def bound(case, q_offset: int = 0, fma: bool = False) -> tuple[float, str]:
     """Least time the card could take: the larger of the operations over
     the peak rate of the input type and the bytes (each input read once,
-    the output written once) over the memory rate."""
+    the output written once) over the memory rate. f32 products are taken
+    at the split-TF32 rate (three TF32 products at 495 TFLOP/s), as the
+    tf32x3 path takes them; ``fma``: at the f32 FMA rate (67 TFLOP/s)."""
     ops, nbytes = flash_work(case, q_offset)
     dt = case[-1]
-    t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
+    rate = PEAK_OPS[dt]
+    if dt == torch.float32 and not fma:
+        rate = TF32_OPS_PER_S / SPLIT_TF32
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def f32_bounds(row: dict, case, q_offset: int = 0) -> str:
+    """An f32 row's graph time against both f32 bounds: adds fma_bound_ms,
+    share (of the split-TF32 bound, bound_ms) and fma_share; returns the
+    text printed beside the row."""
+    fma_ms, _ = bound(case, q_offset, fma=True)
+    row.update(fma_bound_ms=fma_ms, share=row["bound_ms"] / row["graph_ms"],
+               fma_share=fma_ms / row["graph_ms"])
+    return (f"split-TF32 bound {row['bound_ms']:.4f} ms "
+            f"({100 * row['share']:.1f}%), FMA-rate bound {fma_ms:.4f} ms "
+            f"({100 * row['fma_share']:.1f}%)")
 
 
 def case_name(case) -> str:
@@ -832,9 +865,21 @@ def check_flash_paths(what: str, total: int, smi: str) -> dict:
     paths = dict(fa.launches_by_path)
     print(f"[{what}] flash_attention launches by path {paths} (total "
           f"{total}) [{smi}]")
-    if paths != {"fma": 0, "tc": 0, "wgmma": total}:
+    if paths != {"fma": 0, "tc": 0, "wgmma": total, "tf32x3": 0}:
         fail(f"{what}: flash_attention took {paths}; all {total} bf16 "
              f"launches must take wgmma")
+    return paths
+
+
+def check_f32_flash_paths(what: str, smi: str) -> dict:
+    """Flash's launches by path since the last reset, after an f32 run:
+    every one must have taken the tf32x3 path (no shipped config has a
+    head dim below 64)."""
+    paths = dict(fa.launches_by_path)
+    print(f"[{what}] flash_attention launches by path {paths} [{smi}]")
+    if any(n for p, n in paths.items() if p != "tf32x3"):
+        fail(f"{what}: flash_attention took {paths}; every f32 launch at "
+             f"D >= 64 must take tf32x3")
     return paths
 
 
@@ -881,17 +926,16 @@ def phase_kernel(dev, smi: str) -> list[dict]:
             row.update(ratio=row["ms"] / row["library_ms"],
                        tflops=ops / row["ms"] / 1e9,
                        tbps=nbytes / row["ms"] / 1e9)
-            graph = ""
-            if dt == torch.bfloat16:   # device time: a CUDA graph each
-                row.update(graph_ms=graph_ms(call),
-                           library_graph_ms=graph_ms(lib))
-                row.update(share=bound_ms / row["graph_ms"],
-                           graph_ratio=row["graph_ms"] /
-                           row["library_graph_ms"])
-                graph = (f" (graph {row['graph_ms']:.4f} ms against sdpa's "
-                         f"{row['library_graph_ms']:.4f}: "
-                         f"{row['graph_ratio']:.2f}x, "
-                         f"{100 * row['share']:.1f}% of the bound)")
+            # device time: kernel and SDPA in a CUDA graph each
+            row.update(graph_ms=graph_ms(call), library_graph_ms=graph_ms(lib))
+            row.update(share=bound_ms / row["graph_ms"],
+                       graph_ratio=row["graph_ms"] / row["library_graph_ms"])
+            shares = f"{100 * row['share']:.1f}% of the bound"
+            if dt == torch.float32:
+                shares = f32_bounds(row, case)
+            graph = (f" (graph {row['graph_ms']:.4f} ms against sdpa's "
+                     f"{row['library_graph_ms']:.4f}: "
+                     f"{row['graph_ratio']:.2f}x, {shares})")
             print(f"[kernel] {row['case']}: {path} path, kernel "
                   f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
                   f"{row['library_ms']:.4f} ms, kernel/sdpa "
@@ -1021,20 +1065,33 @@ def phase_softcap(dev, smi: str) -> list[dict]:
         flex, how = flex_softcap(q, k, v, cap, **kw)
         lib_err = (flex().transpose(1, 2).float() - ref).abs().max().item()
         bound_ms, bound_by = bound(case, off)
+        call = lambda: fa.flash_attention(  # noqa: E731
+            q, k, v, softcap=cap, **kw)
         row = {"case": name, "softcap": cap, "q_offset": off,
                "max_abs_err": err, "tol": tol, "ok": True,
-               "mis_cap_margin": margin,
-               "ms": time_ms(lambda: fa.flash_attention(
-                   q, k, v, softcap=cap, **kw)),
+               "mis_cap_margin": margin, "ms": time_ms(call),
                "plain_ms": time_ms(lambda: naive_attention(
                    q, k, v, softcap=cap, **kw)),
                "library_ms": time_ms(flex), "library": f"flex_attention {how}",
                "library_max_abs_err": lib_err, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        graph = ""
+        if not bf16:   # device time: kernel and FlexAttention in graphs
+            row["graph_ms"] = graph_ms(call)
+            try:
+                row["library_graph_ms"] = graph_ms(flex)
+                lib_graph = f"{row['library_graph_ms']:.4f} ms"
+            except Exception as e:   # noqa: BLE001 (reported in the row)
+                row["library_graph_ms"] = None
+                lib_graph = f"not captured ({type(e).__name__}: {e})"[:160]
+            graph = (f", graph: kernel {row['graph_ms']:.4f} ms, "
+                     f"flex_attention {lib_graph}, "
+                     f"{f32_bounds(row, case, off)}")
         print(f"[softcap] {name}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, flex_attention ({how}) "
               f"{row['library_ms']:.4f} ms (max_abs_err {lib_err:.3g}), "
-              f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g}, "
+              f"bound {bound_ms:.4f} ms ({bound_by}){graph}, max_abs_err "
+              f"{err:.3g}, "
               f"margin over TOL of the mis-capped versions " + ", ".join(
                   f"{w} {m:.3g}" for w, m in margin.items()) + f" [{smi}]")
         rows.append(row)
@@ -1198,26 +1255,34 @@ def phase_cp(dev, smi: str) -> dict:
                     fail(f"(s) {name} rank {r}: max_abs_err {err} > {tol}")
                 case = (1, s_loc, S, Hq, Hkv, D, True, window, dt)
                 ops, nbytes = flash_work(case, off)
-                t_ops = ops / PEAK_OPS[dt]
+                t_ops = ops / (PEAK_OPS[dt] if dt == torch.bfloat16 else
+                               TF32_OPS_PER_S / SPLIT_TF32)
                 t_bytes = nbytes / HBM_BYTES_PER_S
                 qh = parts[r].transpose(1, 2).contiguous()
                 kh = k[:, :off + s_loc].transpose(1, 2).contiguous()
                 vh = v[:, :off + s_loc].transpose(1, 2).contiguous()
                 mask = cp_mask(s_loc, off + s_loc, off, window, dev)
+                call = lambda: fa.flash_attention(  # noqa: E731
+                    parts[r], k, v, causal=True, window=window, q_offset=off)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qh, kh, vh, attn_mask=mask, enable_gqa=True)
                 ranks.append({
                     "rank": r, "q_offset": off, "max_abs_err": err,
-                    "ms": time_ms(lambda: fa.flash_attention(
-                        parts[r], k, v, causal=True, window=window,
-                        q_offset=off)),
+                    "ms": time_ms(call),
                     "plain_ms": time_ms(lambda: naive_attention(
                         parts[r], k, v, causal=True, window=window,
                         q_offset=off), iters=3, warmup=1),
-                    "library_ms": time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, attn_mask=mask, enable_gqa=True)),
+                    "library_ms": time_ms(lib),
                     "bound_ms": max(t_ops, t_bytes) * 1e3,
                     "bound_by": "operations" if t_ops >= t_bytes
                     else "bytes"})
+                if dt == torch.float32:   # device time in CUDA graphs
+                    ranks[-1].update(graph_ms=graph_ms(call),
+                                     library_graph_ms=graph_ms(lib))
+                    ranks[-1]["graph"] = (
+                        f", graph: kernel {ranks[-1]['graph_ms']:.4f} ms, "
+                        f"sdpa {ranks[-1]['library_graph_ms']:.4f} ms, "
+                        f"{f32_bounds(ranks[-1], case, off)}")
             cat = torch.cat(outs, dim=1)
             err_cat = (cat.float() - whole.float()).abs().max().item()
             if not torch.allclose(cat.float(), whole.float(), atol=tol,
@@ -1229,8 +1294,9 @@ def phase_cp(dev, smi: str) -> dict:
                 print(f"[cp] {name} rank {x['rank']} q_offset "
                       f"{x['q_offset']}: kernel {x['ms']:.4f} ms, sdpa "
                       f"{x['library_ms']:.4f} ms, plain {x['plain_ms']:.4f} "
-                      f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
-                      f"max_abs_err {x['max_abs_err']:.3g}")
+                      f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']})"
+                      f"{x.get('graph', '')}, max_abs_err "
+                      f"{x['max_abs_err']:.3g}")
             print(f"[cp] {name}: slowest rank {slow['rank']} "
                   f"{slow['ms']:.4f} ms against the unsplit call "
                   f"{whole_ms:.4f} ms ({slow['ms'] / whole_ms:.3f}x), "
@@ -1406,6 +1472,7 @@ def phase_mesh(dev, smi: str) -> dict:
             want_l = {k: expect.get(k, 0) for k in KERNELS}
             if got != want_l:
                 fail(f"(v) {arch}: launches {got}, expected {want_l}")
+            check_f32_flash_paths(f"(v) {arch} on the mesh", smi)
             for k in KERNELS:
                 out["launches"][k] += got[k]
             if not isinstance(logits, DTensor):
@@ -1495,12 +1562,6 @@ def ssd_inputs(B, S, H, P, N, dt, gen, dev, strong: bool = False):
     A = -torch.exp(torch.rand((H,), generator=gen, device=dev)
                    * float(np.log(16.0)))
     return x, dtv, Bm, Cm, A
-
-
-# f32 products at f32's accuracy on the tensor cores: three TF32 products
-# (split TF32) at the card's dense TF32 rate
-TF32_OPS_PER_S = 495e12
-SPLIT_TF32 = 3
 
 
 def ssd_bound(B, S, H, P, N, chunk, dt,
@@ -1987,8 +2048,10 @@ def phase_oracle(dev, api16, params16, n_layers: int = 0,
     batch-1 prefill + decode rollout (see the module docstring). The f32
     copy keeps the first ``n_layers`` layers of the bf16 weights where it
     is given (granite-20b's would not fit in f32); ``plain_path`` adds
-    ``check_plain_path``, which MoE always runs."""
+    ``check_plain_path``, which MoE always runs. Every flash launch of the
+    phase must take the tf32x3 path."""
     moe = api16.cfg.family == "moe"
+    reset_launches()
     cfg = dataclasses.replace(api16.cfg, dtype="float32")
     first = slice(None)
     if n_layers:
@@ -2022,6 +2085,7 @@ def phase_oracle(dev, api16, params16, n_layers: int = 0,
           f"both requests")
     errs = check_plain_path(api, params, dev, 128) \
         if moe or plain_path else {}
+    check_f32_flash_paths(f"{cfg.name} f32 oracle", nvidia_smi())
     del params
     return errs
 
@@ -2061,6 +2125,7 @@ def phase_softcap_model(dev, smi: str) -> dict:
     if launches != expect:
         fail(f"(x) softcapped {cfg.name}: launches {launches}, expected "
              f"{expect}")
+    flash_paths = check_f32_flash_paths(f"(x) softcapped {cfg.name}", smi)
     plain_api = build_model(dataclasses.replace(cfg, logit_softcap=0.0),
                             parallel, dev)
     uncapped, _ = plain_api.prefill_fn(params, batch)
@@ -2073,7 +2138,8 @@ def phase_softcap_model(dev, smi: str) -> dict:
           + f" (tolerance {PLAIN_PATH_TOL}); launches {launches}; the cap "
           f"moves the prefill logits by {moved:.3g} [{smi}]")
     del params
-    return {"errs": errs, "launches": launches, "cap_moves_logits_by": moved}
+    return {"errs": errs, "launches": launches, "cap_moves_logits_by": moved,
+            "flash_paths": flash_paths}
 
 
 def phase_bench_run(smi: str) -> dict:
@@ -2331,6 +2397,8 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int,
     if read_launches() != expect:
         fail(f"{cfg.name}: f32 prefills launched {read_launches()}, "
              f"expected {expect}")
+    flash_paths = check_f32_flash_paths(f"{cfg.name} f32 oracle",
+                                        nvidia_smi())
     want = through_plain(run)
     check("prefill logits", got[0], want[0])
     check("decode logits", got[2], want[2])
@@ -2377,9 +2445,11 @@ def phase_gang_oracle(dev, api16, params16, max_seq: int,
           f"on all {len(prompts)} sequences; they equal a re-prefill rollout "
           f"for the first {reprefill} of {GANG_ORACLE_NEW} tokens "
           f"(reported, not checked)")
+    check_f32_flash_paths(f"{cfg.name} f32 oracle, the whole phase",
+                          nvidia_smi())
     del params
     return {"plain_path_err": errs, "reprefill_prefix": reprefill,
-            **extra_checks}
+            "f32_flash_paths": flash_paths, **extra_checks}
 
 
 def check_stub_family(api, params, batches, logits, max_seq: int) -> dict:
@@ -3376,7 +3446,7 @@ def main() -> int:
                   f"{k['static_smem']} B static shared memory, spills "
                   f"{k['spill_stores']} B stored / {k['spill_loads']} B "
                   f"loaded")
-            if (re.search(r"_(tc|wgmma)[<I]", k["kernel"]) or
+            if (re.search(r"_(tc|wgmma|tf32x3)[<I]", k["kernel"]) or
                     name in ("ssd_scan", "rglru_scan")) and \
                     k["spill_stores"] + k["spill_loads"]:
                 fail(f"kernel {k['kernel']} spills registers")
@@ -3388,6 +3458,17 @@ def main() -> int:
     # a cap
     build_report["flash_wgmma_sass"] = check_hopper(
         builds["flash_attention"], "flash_fwd_wgmma", 6)
+    # flash's f32 path at D >= 64 (split TF32): D 64, 128, 256, each with
+    # and without a cap
+    for k in build_report["flash_attention"]:
+        if k["kernel"].startswith("flash_fwd_tf32x3"):
+            d = int(re.search(r"<(\d+)", k["kernel"]).group(1))
+            print(f"[build] flash_attention {k['kernel']}: {k['registers']} "
+                  f"registers, {fa.smem_bytes('tf32x3', d)} B dynamic shared "
+                  f"memory, spills {k['spill_stores']} / {k['spill_loads']} "
+                  f"B")
+    build_report["flash_tf32x3_sass"] = check_hopper(
+        builds["flash_attention"], "flash_fwd_tf32x3", 6)
     print("[build] dynamic shared memory a block, moe_gmm: " + ", ".join(
         f"{p} C={c} {gmm.smem_bytes(p, c)} B" for p, c in (
             ("fma", 160), ("swap", 8), ("swap", 16), ("fill", 8),

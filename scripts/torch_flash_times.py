@@ -10,16 +10,19 @@ events (``chip_smoke.py``'s ``ms``: a call that short is timed by its
 wrapper's host dispatch), and the same 20 calls captured in a CUDA graph
 and replayed (device time only); beside them, the largest absolute
 difference from the plain version (``ref.naive_attention``), the kernel
-path the call took (where the checkout counts launches by path), and for
-each bf16 case of (c) SDPA (``scaled_dot_product_attention`` with the
-same mask and ``enable_gqa``) in a CUDA graph too, the kernel / SDPA
-ratio of the two graph times and the share of the bound
-(``roofline.work.flash_work`` over the H100's peaks) that the kernel's
-graph time reaches. The shapes are (c)'s timed cases (``TIMED``), (c5)'s
+path the call took (where the checkout counts launches by path), the
+share of the bound (``roofline.work.flash_work`` over the H100's peaks:
+bf16 at 989 TFLOP/s; f32 at the split-TF32 rate, three TF32 products at
+495 TFLOP/s, and at the FMA rate, 67 TFLOP/s) that the graph time
+reaches, and for each case of (c) and each rank of (s) SDPA
+(``scaled_dot_product_attention`` with the same mask and ``enable_gqa``;
+f32 with TF32 off) in a CUDA graph too and the kernel / SDPA ratio of the
+two graph times. The shapes are (c)'s timed cases (``TIMED``), (c5)'s
 softcap cases (``SOFTCAP_CASES``, each also without its cap, for the
-cap's cost) and (s)'s splits (``CP_CASES``), all from ``scripts/torch_flash_cases.py``,
-which ``chip_smoke.py`` imports too: for a split, rank r's S / n query
-rows against the full K/V at ``q_offset`` r S / n, and the unsplit call.
+cap's cost) and (s)'s splits (``CP_CASES``), all from
+``scripts/torch_flash_cases.py``, which ``chip_smoke.py`` imports too:
+for a split, rank r's S / n query rows against the full K/V at
+``q_offset`` r S / n, and the unsplit call.
 A checkout whose kernel takes no ``softcap`` skips (c5)'s cases, one
 whose kernel takes no ``q_offset`` (s)'s too. ``--ptxas`` first prints
 each kernel's registers and spills from the build's ptxas report and the
@@ -94,14 +97,17 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def sdpa_call(q, k, v, causal: bool, window: int):
+def sdpa_call(q, k, v, causal: bool, window: int, q_offset: int = 0):
     """SDPA on the same inputs and mask, heads first (views: no copy in
-    the timed call)."""
+    the timed call); with a q_offset over the first q_offset + Sq keys,
+    the bottom-right causal mask."""
+    if q_offset:
+        k, v = k[:, :q_offset + q.shape[1]], v[:, :q_offset + q.shape[1]]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    if window:
-        i = torch.arange(q.shape[1], device=q.device)
+    if window or q_offset:
+        i = q_offset + torch.arange(q.shape[1], device=q.device)
         j = torch.arange(k.shape[1], device=q.device)
-        mask = (j[None] > i[:, None] - window) & \
+        mask = (j[None] > i[:, None] - window if window else True) & \
             ((j[None] <= i[:, None]) if causal else True)
         return lambda: F.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vh, attn_mask=mask, enable_gqa=True)
@@ -109,12 +115,31 @@ def sdpa_call(q, k, v, causal: bool, window: int):
         qh, kh, vh, is_causal=causal, enable_gqa=True)
 
 
-def bound_ms(case) -> float:
+# f32 products at f32's accuracy on the tensor cores: three TF32 products
+# (split TF32) at the card's dense TF32 rate
+SPLIT_TF32_OPS_PER_S = 495e12 / 3
+
+
+def bound_ms(case, q_offset: int = 0, fma: bool = False) -> float:
     """The least time for the case: operations over the peak rate of its
-    type against bytes over the memory rate."""
-    ops, nbytes = flash_work(case)
-    return max(ops / RR.PEAK_FLOPS[str(case[-1]).removeprefix("torch.")],
-               nbytes / RR.HBM_BW) * 1e3
+    type against bytes over the memory rate. f32 at the split-TF32 rate,
+    or with ``fma`` at the FMA rate (the bound of the FMA kernel)."""
+    ops, nbytes = flash_work(case, q_offset)
+    rate = RR.PEAK_FLOPS[str(case[-1]).removeprefix("torch.")]
+    if case[-1] == torch.float32 and not fma:
+        rate = SPLIT_TF32_OPS_PER_S
+    return max(ops / rate, nbytes / RR.HBM_BW) * 1e3
+
+
+def bound_text(case, g_ms: float, q_offset: int = 0) -> str:
+    """The bound (f32: both) and the share of it a graph time reaches."""
+    b_ms = bound_ms(case, q_offset)
+    text = f"bound {b_ms:.4f} ms, {100 * b_ms / g_ms:.1f}% of it"
+    if case[-1] == torch.float32:
+        f_ms = bound_ms(case, q_offset, fma=True)
+        text = (f"split-TF32 {text}; FMA-rate bound {f_ms:.4f} ms, "
+                f"{100 * f_ms / g_ms:.1f}% of it")
+    return text
 
 
 def traced_path(call) -> str:
@@ -138,6 +163,7 @@ def main() -> int:
         print("torch_flash_times: needs an NVIDIA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # SDPA's f32 in f32
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -166,13 +192,9 @@ def main() -> int:
         err = (call().float() - naive_attention(
             q, k, v, causal=causal, window=window).float()).abs().max()
         g_ms = graph_ms(call)
-        lib = ""
-        if dt == torch.bfloat16:
-            lib_ms = graph_ms(sdpa_call(q, k, v, causal, window))
-            b_ms = bound_ms(case)
-            lib = (f", SDPA graph {lib_ms:.4f} ms, kernel / SDPA "
-                   f"{g_ms / lib_ms:.3f}, bound {b_ms:.4f} ms, "
-                   f"{100 * b_ms / g_ms:.1f}% of it")
+        lib_ms = graph_ms(sdpa_call(q, k, v, causal, window))
+        lib = (f", SDPA graph {lib_ms:.4f} ms, kernel / SDPA "
+               f"{g_ms / lib_ms:.3f}, {bound_text(case, g_ms)}")
         print(f"[{args.tag}] {label(case)} {DT_NAME[dt]}: path "
               f"{traced_path(call)}, max_abs_err {float(err):.6g}, calls "
               f"back to back {eager_ms(call):.4f} ms, CUDA graph "
@@ -188,10 +210,12 @@ def main() -> int:
             err = (call().float() - naive_attention(
                 q, k, v, causal=causal, window=window, q_offset=off,
                 softcap=c).float()).abs().max()
+            g_ms = graph_ms(call)
             print(f"[{args.tag}] softcap {c} {label(case)} q_offset {off} "
                   f"{DT_NAME[dt]}: max_abs_err {float(err):.6g}, calls back "
                   f"to back {eager_ms(call):.4f} ms, CUDA graph "
-                  f"{graph_ms(call):.4f} ms [{smi}]", flush=True)
+                  f"{g_ms:.4f} ms, {bound_text(case, g_ms, off)} [{smi}]",
+                  flush=True)
     if "q_offset" not in params:
         return 0
     for dt, name in DT_NAME.items():
@@ -204,9 +228,14 @@ def main() -> int:
                 call = lambda: fa.flash_attention(  # noqa: E731
                     part, k, v, causal=True, window=window, q_offset=off)
                 what = "unsplit" if r is None else f"rank {r} of {n}"
+                g_ms = graph_ms(call)
+                lib_ms = graph_ms(sdpa_call(part, k, v, True, window, off))
+                case = (1, part.shape[1], S, Hq, Hkv, D, True, window, dt)
                 print(f"[{args.tag}] cp {arch} S={S} {what} {name}: calls "
                       f"back to back {eager_ms(call):.4f} ms, CUDA graph "
-                      f"{graph_ms(call):.4f} ms [{smi}]", flush=True)
+                      f"{g_ms:.4f} ms, SDPA graph {lib_ms:.4f} ms, kernel / "
+                      f"SDPA {g_ms / lib_ms:.3f}, "
+                      f"{bound_text(case, g_ms, off)} [{smi}]", flush=True)
     return 0
 
 

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Tile sweep of the port's tensor-core kernels on one NVIDIA card.
 
-    python3 scripts/torch_tile_sweep.py [--kernels flash moe_gmm swap ssd]
+    python3 scripts/torch_tile_sweep.py [--kernels flash tf32x3 moe_gmm swap
+                                         ssd]
 
 Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
 ``flash_fwd_wgmma`` path, bf16 at D >= 64: q rows a block at D <= 128
 ``FW_ROWS``, kv rows a tile at D 64 and 128 ``FW_BK_D64`` /
-``FW_BK_D128``, ring stages at D <= 128 ``FW_STAGES``) and of
+``FW_BK_D128``, ring stages at D <= 128 ``FW_STAGES``; its
+``flash_fwd_tf32x3`` path, f32 at D >= 64: the K and V ring stages at
+each head dim, ``FT_KST_D*`` / ``FT_VST_D*``, whose 32 KB each share
+224 KB with Q's planes, on the same shapes in f32) and of
 ``moe_gmm.cu`` (its ``gmm_wgmma`` prefill path: output columns a tile
 ``WG_BN``, TMA ring stages ``WG_STAGES``, 64-column boxes a warpgroup
 stages a store ``WG_OBOXES``, and the grid walk: one persistent block an
@@ -55,6 +59,7 @@ OUT = ROOT / "build" / "tile_sweep"
 WGMMA = PATHS.index("wgmma")
 SWAP = PATHS.index("swap")
 FLASH_WGMMA = fa.PATHS.index("wgmma")
+FLASH_TF32X3 = fa.PATHS.index("tf32x3")
 # flash's wgmma path: (FW_ROWS, FW_BK_D64, FW_BK_D128, FW_STAGES); the
 # first is the source's own. At 64 rows, a 128-row kv tile or 3 stages at
 # D 128 do not leave two blocks an SM (the layout's assertion fails)
@@ -72,6 +77,11 @@ FLASH_SHAPES = [(128, 1024, 1024, 28, 4, True, 0),
                 (64, 1500, 1500, 8, 8, False, 0),
                 (64, 300, 1500, 8, 8, False, 0),
                 (128, 200, 200, 28, 4, True, 0)]
+# flash's tf32x3 path: (K, V) ring stages at D 64, 128 and 256; the first
+# is the source's own. Q's planes take 32 / 64 / 128 KB, a stage 32 KB, and
+# the layout's assertion fails past 224 KB: 6 / 5 / 3 stages
+TF32X3 = [((4, 2), (1, 4), (1, 2)), ((3, 3), (2, 3), (2, 1)),
+          ((2, 4), (3, 2), (1, 1)), ((2, 2), (2, 2), (1, 1))]
 # moe_gmm's wgmma path: (WG_BN, WG_STAGES, WG_OBOXES, WG_PERSISTENT); the
 # first is the source's own
 GMM = [(256, 4, 2, True), (256, 3, 2, True), (256, 4, 1, True),
@@ -124,6 +134,17 @@ def flash_source(var) -> str:
         text, n = re.subn(rf"constexpr int {name} = \w+;",
                           f"constexpr int {name} = {value};", text)
         assert n == 1, name
+    return text
+
+
+def tf32x3_source(var) -> str:
+    text = (CSRC / "flash_attention.cu").read_text()
+    for d, (kst, vst) in zip((64, 128, 256), var):
+        text, n = re.subn(rf"constexpr int FT_KST_D{d} = \w+, "
+                          rf"FT_VST_D{d} = \w+;",
+                          f"constexpr int FT_KST_D{d} = {kst}, "
+                          f"FT_VST_D{d} = {vst};", text)
+        assert n == 1, d
     return text
 
 
@@ -203,7 +224,7 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", nargs="+", default=["flash", "moe_gmm"],
-                    choices=["flash", "moe_gmm", "swap", "ssd"])
+                    choices=["flash", "tf32x3", "moe_gmm", "swap", "ssd"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_tile_sweep: needs an NVIDIA card", file=sys.stderr)
@@ -213,6 +234,11 @@ def main() -> int:
         jobs += [(f"flash_rows{v[0]}_bk{v[1]}x{v[2]}_stages{v[3]}",
                   "flash_attention.cu", flash_source(v),
                   r"flash_fwd_wgmma<\d+, false>") for v in FLASH]
+    if "tf32x3" in args.kernels:
+        jobs += [("tf32x3_" + "_".join(f"d{d}k{k}v{v}" for d, (k, v) in
+                                       zip((64, 128, 256), var)),
+                  "flash_attention.cu", tf32x3_source(var),
+                  r"flash_fwd_tf32x3<\d+, false>") for var in TF32X3]
     if "moe_gmm" in args.kernels:
         jobs += [(f"gmm_bn{v[0]}_stages{v[1]}_oboxes{v[2]}_"
                   f"{'persistent' if v[3] else 'plain'}", "moe_gmm.cu",
@@ -232,41 +258,50 @@ def main() -> int:
     gen.manual_seed(0)
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {cs.nvidia_smi()}")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    cases = []
-    for shape in FLASH_SHAPES if "flash" in args.kernels else ():
-        d, Sq, Sk, Hq, Hkv, causal, window = shape
-        q = torch.randn((1, Sq, Hq, d), generator=gen, device=dev).bfloat16()
-        k, v = (torch.randn((1, Sk, Hkv, d), generator=gen, device=dev)
-                .bfloat16() for _ in range(2))
-        ref = naive_attention(q, k, v, causal=causal, window=window)
-        lib = sdpa_call(q, k, v, causal, window)
-        cases.append((shape, q, k, v, ref, graph_ms(lib)))
-        b_ms = flash_bound((1, Sq, Sk, Hq, Hkv, d, causal, window,
-                            torch.bfloat16))
-        print(f"[flash] D={d} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} "
-              f"{'causal' if causal else 'full'} window={window}: sdpa "
-              f"{cases[-1][-1]:.4f} ms, bound {b_ms:.4f} ms")
-    for name, (lib, info) in built.items():
-        if not name.startswith("flash_"):
+    # flash's wgmma path in bf16 and its tf32x3 path in f32, on the same
+    # shapes
+    for tag, dt, path in (("flash", torch.bfloat16, FLASH_WGMMA),
+                          ("tf32x3", torch.float32, FLASH_TF32X3)):
+        if tag not in args.kernels:
             continue
-        if lib is None:
-            print(f"[flash] {name}: build failed: {info}")
-            continue
-        fn = ctypes.CDLL(str(lib)).repro_flash_attention_fwd_bshd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
-            [ctypes.c_float] * 2 + [ctypes.c_void_p]
-        row = []
-        for (d, Sq, Sk, Hq, Hkv, causal, window), q, k, v, ref, _ in cases:
-            o = torch.empty_like(q)
-            call = lambda: fn(  # noqa: E731
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                FLASH_WGMMA, 1, Hq, Hkv, Sq, Sk, d, int(causal), window, 0,
-                d ** -0.5, 0.0, stream())
-            rc = call()
-            torch.cuda.synchronize()
-            err = (o.float() - ref.float()).abs().max().item()
-            row.append(f"{graph_ms(call):.4f} ms (err {err:.3g}, rc {rc})")
-        print(f"[flash] {name}: {info}: " + "; ".join(row))
+        cases = []
+        for shape in FLASH_SHAPES:
+            d, Sq, Sk, Hq, Hkv, causal, window = shape
+            q = torch.randn((1, Sq, Hq, d), generator=gen, device=dev).to(dt)
+            k, v = (torch.randn((1, Sk, Hkv, d), generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            ref = naive_attention(q, k, v, causal=causal, window=window)
+            lib = sdpa_call(q, k, v, causal, window)
+            cases.append((shape, q, k, v, ref, graph_ms(lib)))
+            b_ms = flash_bound((1, Sq, Sk, Hq, Hkv, d, causal, window, dt))
+            print(f"[{tag}] D={d} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} "
+                  f"{'causal' if causal else 'full'} window={window} "
+                  f"{cs.DT_NAME[dt]}: sdpa {cases[-1][-1]:.4f} ms, "
+                  f"{'split-TF32 ' if dt == torch.float32 else ''}bound "
+                  f"{b_ms:.4f} ms")
+        for name, (lib, info) in built.items():
+            if not name.startswith(f"{tag}_"):
+                continue
+            if lib is None:
+                print(f"[{tag}] {name}: build failed: {info}")
+                continue
+            fn = ctypes.CDLL(str(lib)).repro_flash_attention_fwd_bshd
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+                [ctypes.c_float] * 2 + [ctypes.c_void_p]
+            row = []
+            for (d, Sq, Sk, Hq, Hkv, causal, window), q, k, v, ref, _ in \
+                    cases:
+                o = torch.empty_like(q)
+                call = lambda: fn(  # noqa: E731
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    path, 1, Hq, Hkv, Sq, Sk, d, int(causal), window, 0,
+                    d ** -0.5, 0.0, stream())
+                rc = call()
+                torch.cuda.synchronize()
+                err = (o.float() - ref.float()).abs().max().item()
+                row.append(f"{graph_ms(call):.4f} ms (err {err:.3g}, rc "
+                           f"{rc})")
+            print(f"[{tag}] {name}: {info}: " + "; ".join(row))
     cases = []
     for label, E, C, D, Fd, kind in GMM_SHAPES if "moe_gmm" in \
             args.kernels else ():

@@ -17,15 +17,16 @@
 // layers.attention softcap) replaces each scaled score s by c*tanh(s/c)
 // before the mask and the softmax, as JAX's masked_attention and
 // flash_attention_jnp do; c = 0 leaves the scores as they are. The cap is
-// a template switch (CAP) of both kernels, so the uncapped instantiations
+// a template switch (CAP) of every kernel, so the uncapped instantiations
 // compile to the code they had without it.
 //
 // What bounds it on this card: at prefill lengths the work is
 // 4*Hq*D*(unmasked q-k pairs) operations over (|q|+|k|+|v|+|o|) bytes,
 // which at S >= ~200, D = 128 is far above the H100's ~295 bf16
-// operations per byte, so the bound is the tensor-core rate.
+// operations per byte, so the bound is the tensor-core rate (in f32 the
+// split-TF32 rate: three TF32 products at 495 TFLOP/s).
 //
-// Three paths, picked by the caller (kernels/flash_attention/ops.py
+// Four paths, picked by the caller (kernels/flash_attention/ops.py
 // flash_path) from the dtype and the head dim; none falls back to another.
 //
 // bf16, D in {64, 128, 256} (every shipped config): flash_fwd_wgmma,
@@ -84,15 +85,38 @@
 // (B, S, H, D) tensors are read and written in place
 // (repro_flash_attention_fwd_bshd): no transposed copies around the call.
 //
-// f32: flash_fwd, the FMA kernel of the first port, kept for the f32
-// oracle phases (their 2e-5 tolerance needs full-f32 products; tensor
-// cores would mean TF32). Tiles are staged in shared memory with padded
-// rows, each thread keeps a score tile and an output tile in registers,
-// K and V share one buffer, whole masked tiles are skipped. Its tiles
-// (struct Tiles): D <= 128 64 x 64, 128 threads, two blocks per SM; D =
-// 256 32 x 32, each thread a 2 x 4 score tile and an 8 x 8 output tile,
-// three blocks per SM. Its softcap is c*tanhf(s/c) on each score of
-// the tile (the accurate tanhf: the f32 oracles hold it to 2e-5).
+// f32, D in {64, 128, 256} (every shipped config's f32 calls):
+// flash_fwd_tf32x3, both products on wgmma in split TF32, fed by TMA.
+// wgmma's tf32 form drops an f32's low 13 mantissa bits (about three
+// digits), so each operand is split a = hi + lo, hi = tf32(a), lo =
+// tf32(a - hi) (cvt.rna), and a b is taken as hi hi + hi lo + lo hi in the
+// f32 accumulators: within about 2^-21 of |a b|, far inside f32's 2e-5
+// tolerance (ssd_scan.cu's products do the same). A block is 64 q rows of
+// one (batch, head): one consumer warpgroup (S = Q K^T from Q's and K's
+// hi and lo planes in shared memory, the online softmax on the fragments
+// as the wgmma path's with the scale folded into ex2.approx, P split in
+// registers into the A fragments of O += P V) beside one splitter
+// warpgroup, which turns each raw tile TMA lands into its hi and lo
+// planes: Q and K in place (hi over the raw tile, lo beside it), V
+// transposed (tf32 wgmma takes K-major operands only, and P V's depth is
+// the keys), read whole into registers before its stage is overwritten.
+// K and V tiles of 4096 values (64 kv rows at D 64, 32 at 128, 16 at
+// 256) stream through rings of 32 KB stages (hi + lo); the consumer
+// refills a stage itself, one predicated TMA issue as soon as it is done
+// with it, so no thread waits on another to issue a load. Q's planes and
+// the stages fill 224 KB: one block an SM. The m16n8 accumulator holds
+// keys 2t and 2t + 1 of each k8 slice where the tf32 A fragment reads
+// keys t and t + 4, so V^T's columns are written in that order and P
+// needs no shuffle. The softcap is the accurate tanhf (tanh.approx's
+// 2^-11 is far over 2e-5). The output is staged in Q's hi plane and
+// written by a TMA store; both layouts are read and written in place.
+//
+// f32, D in {16, 32} (test shapes only): flash_fwd, the FMA kernel of the
+// first port, on the (B*H, S, D) layout. Tiles of 64 x 64 are staged in
+// shared memory with padded rows, each thread keeps a score tile and an
+// output tile in registers, K and V share one buffer, whole masked tiles
+// are skipped; 128 threads, two blocks per SM. Its softcap is
+// c*tanhf(s/c) on each score of the tile (the accurate tanhf).
 //
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (repro_torch/kernels/flash_attention/ops.py).
@@ -106,7 +130,7 @@
 
 namespace {
 
-// ---- f32: FMA kernel (only float instantiates it) ----
+// ---- f32, D in {16, 32}: FMA kernel (only float instantiates it) ----
 
 // BQ q rows per block, BK kv rows per tile, NT threads; a thread owns
 // BQ / (NT / SC_T) score rows x BK / SC_T columns (SC_T threads across a
@@ -116,11 +140,6 @@ template <int D>
 struct Tiles {
   static constexpr int BQ = 64, BK = 64, NT = 128, SC_T = 8, OC_T = 16,
                        MINB = 2;
-};
-template <>
-struct Tiles<256> {
-  static constexpr int BQ = 32, BK = 32, NT = 128, SC_T = 8, OC_T = 32,
-                       MINB = 3;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -150,7 +169,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   using Tl = Tiles<D>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, NT = Tl::NT;
   static_assert(BQ == BK, "Q and KV tiles share the loader");
-  static_assert(D % 16 == 0 && (D <= 128 || D == 256), "head_dim");
+  static_assert(D == 16 || D == 32, "head_dim");
   constexpr int DP = D + 1;   // padded row stride of the Q and KV tiles
   constexpr int SP = BK + 1;  // padded row stride of the score tile
   constexpr int SR = BQ / (NT / Tl::SC_T);  // score rows per thread
@@ -338,9 +357,6 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
     case 32: return launch<T, 32>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
-    case 256: return launch<T, 256>(q, k, v, o, bhq, group, sq, sk, causal, window, q_offset, scale, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1085,14 +1101,519 @@ cudaError_t dispatch_wgmma(int d, const void* q, const void* k,
   }
 }
 
+// ---- f32, D >= 64: split TF32 on wgmma, fed by TMA ----
+
+// Every K or V tile is 4096 f32 values (16 KB), so its kv rows are 4096 /
+// D: 64 at D = 64, 32 at D = 128, 16 at D = 256. Ring stages of K and of V
+// a head dim: Q's two planes and the KST + VST stages of 32 KB fill 224 KB
+// (one block an SM). From scripts/torch_tile_sweep.py --kernels tf32x3:
+// at D 64 and 128 every split measured within 3% of the others; at D 256
+// one V stage costs 16-18% (V's refill is asked for only after P V).
+constexpr int FT_KST_D64 = 4, FT_VST_D64 = 2;
+constexpr int FT_KST_D128 = 1, FT_VST_D128 = 4;
+constexpr int FT_KST_D256 = 1, FT_VST_D256 = 2;
+
+// One consumer warpgroup of 64 q rows and one splitter warpgroup; byte
+// offsets in the 1024-byte aligned dynamic shared memory. Tiles are
+// K-major f32 in panels of 32 values (128-byte rows, 128-byte swizzle).
+template <int D>
+struct FtLayout {
+  static constexpr int BQ = 64;
+  static constexpr int BK = 4096 / D;              // kv rows a tile
+  static constexpr int NB = D / 32;                // TMA boxes across D
+  static constexpr int KST = D == 64 ? FT_KST_D64
+                             : D == 128 ? FT_KST_D128 : FT_KST_D256;
+  static constexpr int VST = D == 64 ? FT_VST_D64
+                             : D == 128 ? FT_VST_D128 : FT_VST_D256;
+  static constexpr int Q_BOX = BQ * 128;           // a Q box: 64 rows
+  static constexpr int KV_BOX = BK * 128;          // a K or V box: BK rows
+  static constexpr int PLANE = 16384;              // a K or V tile
+  static constexpr int STAGE = 2 * PLANE;          // its hi and lo
+  static constexpr int VT_PANEL = D * 128;         // a panel of V^T: D rows
+  static constexpr int Q0 = 0;                     // Q hi (raw Q lands here)
+  static constexpr int QL = Q0 + NB * Q_BOX;       // Q lo
+  static constexpr int K0 = QL + NB * Q_BOX;
+  static constexpr int V0 = K0 + KST * STAGE;
+  static constexpr int BAR0 = V0 + VST * STAGE;
+  static constexpr int BYTES = BAR0 + (2 + 2 * KST + 2 * VST) * 8;
+  static constexpr int SMEM = BYTES + 1024;        // + the alignment
+  static constexpr int THREADS = 256;
+  static_assert((D == 64 || D == 128 || D == 256) && NB * KV_BOX == PLANE,
+                "head_dim");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// 64 x BK scores over one k8 slice of D; both K-major in shared memory
+template <int BK>
+__device__ __forceinline__ void ft_qk(float (&s)[BK / 2], uint64_t da,
+                                      uint64_t db, bool accumulate) {
+  if constexpr (BK == 64)
+    sm90::wgmma_m64n64k8_tf32(s, da, db, accumulate);
+  else if constexpr (BK == 32)
+    sm90::wgmma_m64n32k8_tf32(s, da, db, accumulate);
+  else
+    sm90::wgmma_m64n16k8_tf32(s, da, db, accumulate);
+}
+
+// O (64 x D) += P (one k8 slice, registers) V^T's slice (K-major)
+template <int D>
+__device__ __forceinline__ void ft_pv(float (&o)[D / 2], const float (&p)[4],
+                                      uint64_t db) {
+  if constexpr (D == 64)
+    sm90::wgmma_m64n64k8_tf32_rs(o, p, db);
+  else if constexpr (D == 128)
+    sm90::wgmma_m64n128k8_tf32_rs(o, p, db);
+  else
+    sm90::wgmma_m64n256k8_tf32_rs(o, p, db);
+}
+
+// the descriptor of a tile at shared address ``saddr``, opaque to the
+// compiler: a slice's descriptor is this one plus its byte offset / 16
+// (the start address field, 14 bits of addr / 16, cannot carry below 256
+// KB), added where it is used. Left visible, every slice's descriptor of
+// Q and K is hoisted out of the kv loop into two registers each (at D 256,
+// 192 registers: spills).
+__device__ __forceinline__ uint64_t ft_desc(uint32_t saddr) {
+  uint64_t d = sm90::desc_sw128(saddr, 16, 1024);
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// hi = tf32(a) (cvt.rna), lo = tf32(a - hi), four at a time
+__device__ __forceinline__ void ft_split(float4 a, float4& hi, float4& lo) {
+  hi = make_float4(sm90::to_tf32(a.x), sm90::to_tf32(a.y),
+                   sm90::to_tf32(a.z), sm90::to_tf32(a.w));
+  lo = make_float4(sm90::to_tf32(a.x - hi.x), sm90::to_tf32(a.y - hi.y),
+                   sm90::to_tf32(a.z - hi.z), sm90::to_tf32(a.w - hi.w));
+}
+
+// ``n16`` 16-byte chunks of a raw tile at ``raw`` split in place into hi,
+// lo at the same offsets from ``lo``: chunk tid, tid + 128, ...
+__device__ __forceinline__ void ft_split_plane(unsigned char* raw,
+                                               unsigned char* lo, int n16,
+                                               int tid) {
+  for (int c = tid; c < n16; c += 128) {
+    float4 h, l;
+    ft_split(*reinterpret_cast<const float4*>(raw + 16 * c), h, l);
+    *reinterpret_cast<float4*>(raw + 16 * c) = h;
+    *reinterpret_cast<float4*>(lo + 16 * c) = l;
+  }
+}
+
+// One block: q rows [q0, q0 + 64) of one (batch, q head) against the kv
+// tiles [t_first, t_first + n) any of them can see. scale_log2, c_in,
+// c_out as flash_fwd_tc's; the cap is the accurate tanhf.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(FtLayout<D>::THREADS, 1)
+flash_fwd_tf32x3(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_o, int hq,
+                 int group, int Sq, int Sk, int causal, int window,
+                 int q_offset, float scale_log2, float c_in, float c_out) {
+  using L = FtLayout<D>;
+  constexpr int BK = L::BK, NB = L::NB, KST = L::KST, VST = L::VST;
+  constexpr int NS = BK / 8;  // k8 slices of a kv tile (n8 groups of S)
+  extern __shared__ __align__(1024) unsigned char smem_ft[];
+  unsigned char* smem =
+      smem_ft + ((1024 - (sm90::smem_u32(smem_ft) & 1023)) & 1023);
+  uint64_t* q_raw = reinterpret_cast<uint64_t*>(smem + L::BAR0);
+  uint64_t* q_full = q_raw + 1;
+  uint64_t* k_raw = q_full + 1;   // TMA has landed a raw tile
+  uint64_t* k_full = k_raw + KST; // the splitters have split it
+  uint64_t* v_raw = k_full + KST;
+  uint64_t* v_full = v_raw + VST;
+
+  // grid (b * hq, q tiles), q tiles from the last: the longest causal
+  // rows start first. Everything up to the role split is uniform.
+  const int b = blockIdx.x / hq, h = blockIdx.x % hq, hk = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;
+  const int k_end = causal ? min(Sk, q_offset + q0 + L::BQ) : Sk;
+  const int k_first = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+  const int t_first = k_first / BK;
+  const int n = max(0, (k_end + BK - 1) / BK - t_first);  // tiles to visit
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+
+  // the i-th raw K (V) tile into stage i % KST (i % VST), if ``pred``
+  auto load_k = [&](int i, bool pred) {
+    const int st = i % KST;
+    sm90::mbar_arrive_expect_tx(&k_raw[st], L::PLANE, pred);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      sm90::tma_load_4d(smem + L::K0 + st * L::STAGE + x * L::KV_BOX, &map_k,
+                        &k_raw[st], 32 * x, hk, (t_first + i) * BK, b, pred);
+  };
+  auto load_v = [&](int i, bool pred) {
+    const int st = i % VST;
+    sm90::mbar_arrive_expect_tx(&v_raw[st], L::PLANE, pred);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      sm90::tma_load_4d(smem + L::V0 + st * L::STAGE + x * L::KV_BOX, &map_v,
+                        &v_raw[st], 32 * x, hk, (t_first + i) * BK, b, pred);
+  };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_raw, 1);
+    sm90::mbar_init(q_full, 128);          // every splitter thread
+    for (int i = 0; i < KST; ++i) {
+      sm90::mbar_init(&k_raw[i], 1);       // one expect_tx
+      sm90::mbar_init(&k_full[i], 128);
+    }
+    for (int i = 0; i < VST; ++i) {
+      sm90::mbar_init(&v_raw[i], 1);
+      sm90::mbar_init(&v_full[i], 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 1) {  // ---- splitters: each raw tile into hi and lo ----
+    if (tid == 0) {  // Q and the first tile of each stage
+      sm90::prefetch_tensor_map(&map_q);
+      sm90::prefetch_tensor_map(&map_k);
+      sm90::prefetch_tensor_map(&map_v);
+      sm90::mbar_arrive_expect_tx(q_raw, NB * L::Q_BOX);
+      for (int x = 0; x < NB; ++x)
+        sm90::tma_load_4d(smem + L::Q0 + x * L::Q_BOX, &map_q, q_raw, 32 * x,
+                          h, q0, b);
+      for (int i = 0; i < KST && i < n; ++i) load_k(i, true);
+      for (int i = 0; i < VST && i < n; ++i) load_v(i, true);
+    }
+    sm90::mbar_wait(q_raw, 0);
+    ft_split_plane(smem + L::Q0, smem + L::QL, NB * L::Q_BOX / 16, tid);
+    sm90::fence_async_shared();
+    sm90::mbar_arrive(q_full);
+
+    // V^T's transpose: this thread's two 4 x 4 blocks of the tile, block
+    // (kq, dq) the keys of quad kq (below) x D values 4 dq .. 4 dq + 3. A
+    // quarter warp's 8 blocks lie so that its 16-byte reads of the raw tile
+    // and its writes of V^T each touch 8 distinct bank groups.
+    constexpr int KQ = BK / 4;    // key quads a tile
+    constexpr int KQ4 = KQ / 4;
+    int kq[2], dq[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int blk = tid + 128 * j;
+      const int l = blk & 7, w = (blk >> 3) & 3, v = blk >> 5;
+      kq[j] = (l & 3) + 4 * (v % KQ4);
+      dq[j] = 8 * (v / KQ4) + (((l & 6) + (l >> 2)) ^ (2 * w));
+    }
+    for (int i = 0; i < n; ++i) {
+      const int ks = i % KST;
+      unsigned char* kt = smem + L::K0 + ks * L::STAGE;
+      sm90::mbar_wait(&k_raw[ks], (i / KST) & 1);
+      ft_split_plane(kt, kt + L::PLANE, L::PLANE / 16, tid);
+      sm90::fence_async_shared();
+      sm90::mbar_arrive(&k_full[ks]);
+
+      // V: read the raw blocks, wait for every splitter, then write V^T's
+      // hi and lo over the stage. V^T is the B operand of P V: D rows of
+      // 2 BK logical columns (hi, then lo) in panels of 32. P's A fragment
+      // holds keys 2t and 2t + 1 of each k8 slice where wgmma reads columns
+      // t and t + 4, so logical column c of a slice holds key 2c (c < 4) or
+      // 2 (c - 4) + 1: key quad kq = 2 s + par holds keys 8 s + par + 2 m
+      // (m = 0..3) at logical columns 4 kq + m.
+      const int vs = i % VST;
+      unsigned char* vt = smem + L::V0 + vs * L::STAGE;
+      sm90::mbar_wait(&v_raw[vs], (i / VST) & 1);
+      float x[2][4][4];  // block j, key m, D value e
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int r = 8 * (kq[j] >> 1) + (kq[j] & 1) + 2 * m;
+          const float4 a = *reinterpret_cast<const float4*>(
+              vt + (dq[j] >> 3) * L::KV_BOX + r * 128 +
+              (((dq[j] & 7) ^ (r & 7)) << 4));
+          x[j][m][0] = a.x;
+          x[j][m][1] = a.y;
+          x[j][m][2] = a.z;
+          x[j][m][3] = a.w;
+        }
+      sm90::named_barrier_sync(2, 128);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 4 * dq[j] + e;
+          float4 hi, lo;
+          ft_split(make_float4(x[j][0][e], x[j][1][e], x[j][2][e],
+                               x[j][3][e]),
+                   hi, lo);
+          const int ch = kq[j], cl = KQ + kq[j];   // 16-byte column chunks
+          *reinterpret_cast<float4*>(vt + (ch >> 3) * L::VT_PANEL + d * 128 +
+                                     (((ch & 7) ^ (d & 7)) << 4)) = hi;
+          *reinterpret_cast<float4*>(vt + (cl >> 3) * L::VT_PANEL + d * 128 +
+                                     (((cl & 7) ^ (d & 7)) << 4)) = lo;
+        }
+      sm90::fence_async_shared();
+      sm90::mbar_arrive(&v_full[vs]);
+    }
+  } else {  // ---- consumer: 64 q rows, 16 a warp ----
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    // key position of the warpgroup's first row (uniform), and of this
+    // lane's two rows: g (fragments 0, 1) and g + 8 (2, 3) of its warp's 16
+    const int p_wg = q_offset + q0;
+    const int row[2] = {p_wg + 16 * warp + g, p_wg + 16 * warp + g + 8};
+    const uint32_t q_s = sm90::smem_u32(smem + L::Q0);
+    const uint32_t k_s = sm90::smem_u32(smem + L::K0);
+    const uint32_t v_s = sm90::smem_u32(smem + L::V0);
+    const bool leader = tid == 0;
+
+    // fragment 4j + 2hf + i: row hf, column 8j + 2t + i
+    float o[D / 2], s[BK / 2];
+    float ph[NS][4], pl[NS][4];  // P's hi and lo as A fragments a slice
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    // per row: running max (unscaled; capped under CAP), this lane's share
+    // of the sum, the last tile's rescale factor
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float corr[2] = {1.f, 1.f};
+
+    // S = Q K_i^T as Qh Kh + Qh Kl + Ql Kh, issued and committed
+    auto qk = [&](int i) {
+      const int st = i % KST;
+      sm90::mbar_wait(&k_full[st], (i / KST) & 1);
+      sm90::fence_operands(s);
+      sm90::wgmma_fence();
+      const uint64_t dq = ft_desc(q_s), dk = ft_desc(k_s + st * L::STAGE);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {  // +32 B a k8, a box a 32
+        const uint64_t qa = dq + (kk / 4 * L::Q_BOX + kk % 4 * 32) / 16;
+        const uint64_t ka = dk + (kk / 4 * L::KV_BOX + kk % 4 * 32) / 16;
+        ft_qk<BK>(s, qa, ka, kk > 0);
+        ft_qk<BK>(s, qa, ka + L::PLANE / 16, true);
+        ft_qk<BK>(s, qa + NB * L::Q_BOX / 16, ka, true);
+      }
+      sm90::wgmma_commit();
+    };
+    // O += P V_i as Ph Vh + Ph Vl + Pl Vh, issued and committed
+    auto pv = [&](int i) {
+      const int st = i % VST;
+      sm90::mbar_wait(&v_full[st], (i / VST) & 1);
+      sm90::fence_operands(o);
+      sm90::wgmma_fence();
+      const uint64_t dv = ft_desc(v_s + st * L::STAGE);
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const int ch = kk, cl = NS + kk;  // hi's and lo's k8 slices
+        const uint64_t vh = dv + (ch / 4 * L::VT_PANEL + ch % 4 * 32) / 16;
+        const uint64_t vl = dv + (cl / 4 * L::VT_PANEL + cl % 4 * 32) / 16;
+        ft_pv<D>(o, ph[kk], vh);
+        ft_pv<D>(o, ph[kk], vl);
+        ft_pv<D>(o, pl[kk], vh);
+      }
+      sm90::wgmma_commit();
+    };
+    // cap, mask and online softmax of tile i on S's fragments: S becomes
+    // exp(S - m), m and l move, corr takes the factor for O
+    auto softmax = [&](int i) {
+      const int k0 = (t_first + i) * BK;
+      if constexpr (CAP) {  // before the mask: a masked score stays -inf
+#pragma unroll
+        for (int x = 0; x < BK / 2; ++x) s[x] = c_out * tanhf(s[x] * c_in);
+      }
+      // uniform over the warpgroup: some pair of its rows and this tile
+      const bool need_mask = k0 + BK > Sk ||
+                             (causal && k0 + BK - 1 > p_wg) ||
+                             (window > 0 && k0 <= p_wg + 63 - window);
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = k0 + 8 * j + 2 * t + (c & 1);
+            const int r = row[c >> 1];
+            const bool ok = col < Sk && (!causal || col <= r) &&
+                            (window <= 0 || col > r - window);
+            s[4 * j + c] = ok ? s[4 * j + c] : -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = m[hf];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // exponent base; 0 while the row has seen no unmasked column
+        const float base = mx == -INFINITY ? 0.f : mx * scale_log2;
+        corr[hf] = fw_exp2(m[hf] * scale_log2 - base);
+        m[hf] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int c = 2 * hf; c < 2 * hf + 2; ++c) {
+            s[4 * j + c] = fw_exp2(fmaf(s[4 * j + c], scale_log2, -base));
+            sum += s[4 * j + c];
+          }
+        l[hf] = l[hf] * corr[hf] + sum;
+      }
+    };
+    auto rescale = [&] {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+    };
+    // slice kk's A fragment (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+    // at keys 2t, 2t, 2t + 1, 2t + 1 (V^T's columns are permuted to match)
+    auto pack = [&] {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const float a[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1],
+                            s[4 * kk + 3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ph[kk][r] = sm90::to_tf32(a[r]);
+          pl[kk][r] = sm90::to_tf32(a[r] - ph[kk][r]);
+        }
+      }
+    };
+    auto fence_p = [&] {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        sm90::fence_operands(ph[kk]);
+        sm90::fence_operands(pl[kk]);
+      }
+    };
+
+    sm90::mbar_wait(q_full, 0);
+    if (n > 0) {
+      qk(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(s);
+      load_k(KST, leader && KST < n);  // stage 0 is free again
+      softmax(0);
+      pack();
+      for (int i = 1; i < n; ++i) {
+        qk(i);      // tile i's products start ...
+        rescale();  // (O is not in flight: the last P V has finished)
+        pv(i - 1);  // ... and tile i - 1's P V behind them
+        sm90::wgmma_wait<1>();  // S of tile i is done
+        sm90::fence_operands(s);
+        load_k(i + KST, leader && i + KST < n);
+        softmax(i);
+        sm90::wgmma_wait<0>();  // P V of tile i - 1 is done
+        sm90::fence_operands(o);
+        fence_p();
+        load_v(i - 1 + VST, leader && i - 1 + VST < n);
+        pack();
+      }
+      rescale();
+      pv(n - 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      fence_p();
+    }
+
+    // O / max(l, 1e-20) into Q's hi plane (no wgmma reads Q any more) as
+    // TMA's f32 boxes lie: box j / 4, 128-byte rows, chunk (2 (j % 4) +
+    // t / 2) ^ row % 8; then one TMA store a box (rows past Sq dropped)
+    unsigned char* o_s = smem + L::Q0;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float sum = l[hf];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / fmaxf(sum, 1e-20f);
+      const int r = 16 * warp + g + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(
+            o_s + j / 4 * L::Q_BOX + r * 128 +
+            (((2 * (j % 4) + (t >> 1)) ^ (r % 8)) << 4) + (t & 1) * 8) =
+            make_float2(o[4 * j + 2 * hf] * inv, o[4 * j + 2 * hf + 1] * inv);
+    }
+    sm90::fence_async_shared();
+    sm90::named_barrier_sync(1, 128);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      sm90::tma_store_4d(&map_o, o_s + x * L::Q_BOX, 32 * x, h, q0, b,
+                         leader);
+    sm90::tma_store_commit(leader);
+    sm90::tma_store_wait<0>(leader);
+  }
+}
+
+// The four f32 tensor maps (q and o: boxes of 32 D values x 1 head x 64
+// rows x 1 batch; k and v: x the kv tile's rows), then the launch. lay's
+// strides are in elements; a map takes them in bytes.
+template <int D>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v,
+                          void* o, const Layout& lay, int batches, int hq,
+                          int hkv, int sq, int sk, int causal, int window,
+                          int q_offset, float scale, float softcap,
+                          cudaStream_t stream) {
+  using L = FtLayout<D>;
+  constexpr float LOG2E = 1.4426950408889634f;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint64_t qdims[4] = {(cuuint64_t)D, (cuuint64_t)hq, (cuuint64_t)sq,
+                               (cuuint64_t)batches};
+  const cuuint64_t kdims[4] = {(cuuint64_t)D, (cuuint64_t)hkv,
+                               (cuuint64_t)sk, (cuuint64_t)batches};
+  const cuuint64_t qstr[3] = {(cuuint64_t)lay.q_h * 4, (cuuint64_t)lay.q_s * 4,
+                              (cuuint64_t)lay.q_b * 4};
+  const cuuint64_t kstr[3] = {(cuuint64_t)lay.kv_h * 4,
+                              (cuuint64_t)lay.kv_s * 4,
+                              (cuuint64_t)lay.kv_b * 4};
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err = sm90::tensor_map<4>(&mq, F32, q, qdims, qstr,
+                                        {32, 1, L::BQ, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map<4>(&mk, F32, k, kdims, kstr, {32, 1, L::BK, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map<4>(&mv, F32, v, kdims, kstr, {32, 1, L::BK, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map<4>(&mo, F32, o, qdims, qstr, {32, 1, L::BQ, 1});
+  const bool cap = softcap > 0.f;
+  auto kernel = cap ? flash_fwd_tf32x3<D, true> : flash_fwd_tf32x3<D, false>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batches * hq, (sq + L::BQ - 1) / L::BQ);
+  kernel<<<grid, L::THREADS, L::SMEM, stream>>>(
+      mq, mk, mv, mo, hq, hq / hkv, sq, sk, causal, window, q_offset,
+      cap ? LOG2E : scale * LOG2E, cap ? scale / softcap : 0.f,
+      cap ? softcap : 0.f);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tf32x3(int d, const void* q, const void* k,
+                            const void* v, void* o, const Layout& lay,
+                            int batches, int hq, int hkv, int sq, int sk,
+                            int causal, int window, int q_offset, float scale,
+                            float softcap, cudaStream_t stream) {
+  // TMA: 16-byte aligned bases, row strides of 256 bytes or more
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return cudaErrorMisalignedAddress;
+  switch (d) {
+    case 64: return launch_tf32x3<64>(q, k, v, o, lay, batches, hq, hkv, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 128: return launch_tf32x3<128>(q, k, v, o, lay, batches, hq, hkv, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    case 256: return launch_tf32x3<256>(q, k, v, o, lay, batches, hq, hkv, sq, sk, causal, window, q_offset, scale, softcap, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // the paths, as kernels/flash_attention/ops.py numbers them
-enum Path { FMA = 0, TC = 1, WGMMA = 2 };
+enum Path { FMA = 0, TC = 1, WGMMA = 2, TF32X3 = 3 };
 
 }  // namespace
 
 // q: (bhq, sq, d); k, v: (bhq / group, sk, d); o: (bhq, sq, d); all
-// contiguous; float32 for path FMA, bfloat16 for TC (d 16, 32) and WGMMA
-// (d 64, 128, 256): the caller's choice (kernels/flash_attention/ops.py
+// contiguous; float32 for paths FMA (d 16, 32) and TF32X3 (d 64, 128,
+// 256), bfloat16
+// for TC (d 16, 32) and WGMMA (d 64, 128, 256): the caller's choice (kernels/flash_attention/ops.py
 // flash_path). The kv row of q row bh is bh / group; q row i sits at key
 // position q_offset + i (>= 0). softcap > 0 caps each scaled score s at
 // softcap * tanh(s / softcap); 0 leaves it. Launches on ``stream``,
@@ -1123,12 +1644,16 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
       return (int)dispatch_wgmma(d, q, k, v, o, lay, 1, bhq, bhq / group, sq,
                                  sk, causal, window, q_offset, scale,
                                  softcap, st);
+    case TF32X3:
+      return (int)dispatch_tf32x3(d, q, k, v, o, lay, 1, bhq, bhq / group,
+                                  sq, sk, causal, window, q_offset, scale,
+                                  softcap, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The model's layout, read and written in place, bf16 only (path TC or
-// WGMMA): q: (b, sq, hq, d); k, v: (b, sk, hkv, d); o: (b, sq, hq, d); all
+// The model's layout, read and written in place (path TC or WGMMA in
+// bf16, TF32X3 in f32): q: (b, sq, hq, d); k, v: (b, sk, hkv, d); o: (b, sq, hq, d); all
 // contiguous. The kv head of q head h is h / (hq / hkv); q row i sits at
 // key position q_offset + i (>= 0); softcap as above. Launches on
 // ``stream``, allocates nothing, and returns the cudaError_t of the launch
@@ -1156,6 +1681,10 @@ extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
       return (int)dispatch_wgmma(d, q, k, v, o, lay, b, hq, hkv, sq, sk,
                                  causal, window, q_offset, scale, softcap,
                                  st);
+    case TF32X3:
+      return (int)dispatch_tf32x3(d, q, k, v, o, lay, b, hq, hkv, sq, sk,
+                                  causal, window, q_offset, scale, softcap,
+                                  st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1165,14 +1694,8 @@ extern "C" int repro_flash_attention_fwd_bshd(const void* q, const void* k,
 extern "C" int repro_flash_attention_smem(int path, int d) {
   switch (path) {
     case FMA:
-      switch (d) {
-        case 16: return (int)fma_smem_bytes<16>();
-        case 32: return (int)fma_smem_bytes<32>();
-        case 64: return (int)fma_smem_bytes<64>();
-        case 128: return (int)fma_smem_bytes<128>();
-        case 256: return (int)fma_smem_bytes<256>();
-      }
-      return -1;
+      return d == 16 ? (int)fma_smem_bytes<16>()
+                     : d == 32 ? (int)fma_smem_bytes<32>() : -1;
     case TC:
       return d == 16 ? (int)tc_smem_bytes<16>()
                      : d == 32 ? (int)tc_smem_bytes<32>() : -1;
@@ -1180,6 +1703,10 @@ extern "C" int repro_flash_attention_smem(int path, int d) {
       return d == 64 ? FwLayout<64>::SMEM
                      : d == 128 ? FwLayout<128>::SMEM
                                 : d == 256 ? FwLayout<256>::SMEM : -1;
+    case TF32X3:
+      return d == 64 ? FtLayout<64>::SMEM
+                     : d == 128 ? FtLayout<128>::SMEM
+                                : d == 256 ? FtLayout<256>::SMEM : -1;
   }
   return -1;
 }

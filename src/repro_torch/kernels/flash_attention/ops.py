@@ -4,10 +4,12 @@
 PyTorch's current stream. ``flash_path`` picks the kernel's path from the
 dtype and head dim before the launch: bf16 at D 64, 128 and 256 (every
 shipped config) runs on ``flash_fwd_wgmma`` (Hopper's wgmma fed by TMA),
-bf16 at D 16 and 32 on ``flash_fwd_tc`` (mma.sync); both read and write
-that layout in place. f32 runs on the FMA kernel (full-f32 products),
-which takes the (B*H, S, D) layout the JAX wrapper reorders to, so the
-f32 call makes those copies. No path falls back to another.
+bf16 at D 16 and 32 on ``flash_fwd_tc`` (mma.sync), f32 at D 64, 128 and
+256 on ``flash_fwd_tf32x3`` (wgmma in split TF32, fed by TMA); the three
+read and write that layout in place. f32 at D 16 and 32 (test shapes)
+runs on the FMA kernel, which takes the (B*H, S, D) layout the JAX
+wrapper reorders to, so that call makes those copies. No path falls back
+to another.
 ``flash_attention_bhsd`` launches any path on the (B*H, S, D) layout. A
 CPU tensor goes to the plain version (``ref.naive_attention``); a CUDA
 tensor goes to the kernel, or the call raises. The kernel is built at its
@@ -39,9 +41,10 @@ SOURCES = ("flash_attention.cu",)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's paths, numbered as csrc/flash_attention.cu's entry points
-# take them: "fma" f32 (full-f32 products for the oracles), "tc" bf16 at D
-# 16 and 32 (mma.sync), "wgmma" bf16 at D 64, 128 and 256 (wgmma + TMA)
-PATHS = ("fma", "tc", "wgmma")
+# take them: "fma" f32 at D 16 and 32 (FMA), "tc" bf16 at D 16 and 32
+# (mma.sync), "wgmma" bf16 at D 64, 128 and 256 (wgmma + TMA), "tf32x3" f32
+# at D 64, 128 and 256 (wgmma in split TF32 + TMA)
+PATHS = ("fma", "tc", "wgmma", "tf32x3")
 
 # kernel launches since the last reset (plain-version calls do not count),
 # in all and by path
@@ -60,19 +63,22 @@ def reset_launches() -> None:
 
 
 def flash_path(dtype, D: int, aligned: bool) -> str:
-    """The kernel path of a call: f32 -> "fma"; bf16 with D in {16, 32} ->
-    "tc"; bf16 with D in {64, 128, 256} -> "wgmma". Both bf16 paths copy
+    """The kernel path of a call: f32 with D in {16, 32} -> "fma"; f32 with
+    D in {64, 128, 256} -> "tf32x3"; bf16 with D in {16, 32} -> "tc"; bf16
+    with D in {64, 128, 256} -> "wgmma". Every path but "fma" copies
     16-byte chunks (cp.async, TMA): ``aligned`` (q, k, v and the output
-    start on 16-byte boundaries) must hold, or the call raises."""
-    if dtype == torch.float32:
-        return "fma"
-    if dtype != torch.bfloat16:
+    start on 16-byte boundaries) must hold there, or the call raises."""
+    if dtype not in _DTYPES:
         raise TypeError(f"flash_attention has no path for {dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if dtype == torch.float32 and D <= 32:
+        return "fma"
     if not aligned:
-        raise ValueError("the bf16 kernels copy 16-byte chunks: q, k, v "
-                         "must start on 16-byte boundaries")
+        raise ValueError("the tensor-core kernels copy 16-byte chunks: q, "
+                         "k, v must start on 16-byte boundaries")
+    if dtype == torch.float32:
+        return "tf32x3"
     return "tc" if D <= 32 else "wgmma"
 
 
@@ -192,8 +198,8 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _flash_bshd(q, k, v, causal: bool, window: int, q_offset: int,
                 softcap: float):
-    """bf16 kernel launch on the model layout, read and written in place
-    (the tc or wgmma path)."""
+    """Kernel launch on the model layout, read and written in place (the
+    tc, wgmma or tf32x3 path)."""
     _check(q, k, v, window, q_offset, softcap)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -237,7 +243,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"expected q (B,Sq,Hq,D), k = v (B,Sk,Hkv,D) with "
                          f"Hkv dividing Hq; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32 or q.shape[-1] > 32:   # all but "fma"
         return _flash_bshd(_aligned(q), _aligned(k), _aligned(v), causal,
                            window, q_offset, softcap)
     B, Sq, Hq, D = q.shape

@@ -18,7 +18,8 @@
   show that the kernel's algorithm computes the function.
 * ``tf32_split`` — an f32 tensor as hi + lo, both rounded to tf32 the way
   ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero, on the
-  f32 bits).
+  f32 bits); ``repro_torch.kernels.tf32``'s, shared with flash's plain
+  version of its f32 path.
 * ``ssd_tf32x3_reference`` — the CUDA kernel's numerics: the same
   decomposition, in 64-row tiles, with each of its four products taken as
   hi hi + hi lo + lo hi of the split operands (split TF32), as the tensor
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.tf32 import mm3, tf32_split  # noqa: F401
 from repro_torch.models.mamba2 import _ssd_chunked as ssd_chunked_reference
 
 
@@ -94,29 +96,6 @@ def ssd_state_passing_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
 TILE = 64   # rows of the kernel's query and key tiles
 
 
-def _tf32(a):
-    """``a`` (f32) rounded to tf32: half an ulp of a 10-bit mantissa added to
-    the magnitude, the low 13 bits cut; infinities and NaNs kept."""
-    u = a.contiguous().view(torch.int32)
-    keep = (u & 0x7F800000) == 0x7F800000
-    return torch.where(keep, u, (u + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split(a):
-    """a (f32) -> (hi, lo): hi = tf32(a), lo = tf32(a - hi)."""
-    a = a.float()
-    hi = _tf32(a)
-    return hi, _tf32(a - hi)
-
-
-def _mm3(a, b):
-    """a @ b in split TF32: hi hi + hi lo + lo hi (each product of two tf32
-    values is exact in f32)."""
-    ah, al = tf32_split(a)
-    bh, bl = tf32_split(b)
-    return ah @ bh + ah @ bl + al @ bh
-
-
 def ssd_tf32x3_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
     """``ssd_state_passing_reference`` with the CUDA kernel's products.
 
@@ -143,7 +122,7 @@ def ssd_tf32x3_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
     tri = idx[:, None] >= idx[None, :]
     same = i0[:, None] == i0[None, :]
 
-    cb = _mm3(Cc, Bc.transpose(-1, -2))                      # (B,nc,i,j)
+    cb = mm3(Cc, Bc.transpose(-1, -2))                      # (B,nc,i,j)
     li = lc.permute(0, 1, 3, 2)                              # (B,nc,H,Q)
     dj = d.permute(0, 1, 3, 2)
     diff = li[..., :, None] - li[..., None, :]               # (B,nc,H,i,j)
@@ -154,13 +133,13 @@ def ssd_tf32x3_reference(xh, dt, Bm, Cm, A, chunk: int = 256):
     off = cb[:, :, None] * (u[..., None] * v)
     m = torch.where(same, diag, off).masked_fill(~tri, 0.0)
     xp = x.permute(0, 1, 3, 2, 4)                            # (B,nc,H,Q,P)
-    y = _mm3(m, xp)                                          # (B,nc,H,i,p)
+    y = mm3(m, xp)                                          # (B,nc,H,i,p)
     w = torch.exp(ltot[:, :, None, :] - lc) * d              # (B,nc,Q,H)
     wx = w.permute(0, 1, 3, 2)[..., None] * xp               # (B,nc,H,j,p)
-    s = _mm3(wx.transpose(-1, -2), Bc[:, :, None])           # (B,nc,H,p,n)
+    s = mm3(wx.transpose(-1, -2), Bc[:, :, None])           # (B,nc,H,p,n)
     h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
     for c in range(nc):
-        inter = _mm3(Cc[:, c, None], h.transpose(-1, -2))   # (B,H,i,p)
+        inter = mm3(Cc[:, c, None], h.transpose(-1, -2))   # (B,H,i,p)
         y[:, c] = y[:, c] + torch.exp(li[:, c])[..., None] * inter
         h = torch.exp(ltot[:, c])[:, :, None, None] * h + s[:, c]
     y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * Q, H, P)[:, :S]

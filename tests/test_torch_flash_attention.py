@@ -25,6 +25,15 @@ non-causal Sq != Sk, a q_offset, granite-20b's group of 48 on one kv
 head); ``tiled_attention``'s capped bf16 arithmetic against JAX's oracle;
 on the card the kernel with a softcap on every edge and granite's MQA.
 
+The tf32x3 path (f32, D 64 / 128 / 256: split TF32 on wgmma):
+``tf32x3_attention``, the kernel's arithmetic at its kv tiles, against
+the Pallas kernel in interpret mode and JAX's oracles (ragged S, Sq != Sk,
+D 256, q_offset, softcap 1.0 and 50.0), and against a float64 oracle
+where the scaled scores reach +-30 (a single TF32 product, lo dropped,
+misses there); ``flash_path``'s f32 cases; on the card the path against
+``naive_attention`` on ``WGMMA_EDGES``, (c5)'s softcap shapes and (s)'s
+context-parallel ranks, two calls bitwise equal, both layouts equal.
+
 Tolerances are the repo's own: 2e-5 in f32, 3e-2 in bf16.
 """
 import numpy as np
@@ -33,8 +42,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    naive_attention, tiled_attention)
+    naive_attention, tf32x3_attention, tiled_attention)
 
 CASES = [  # B, S, Hq, Hkv, D, causal, window, dtype (tests/test_kernels.py)
     (2, 256, 4, 2, 64, True, 0, "float32"),
@@ -190,8 +200,10 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 
 # flash_path: (dtype, D, aligned) -> the path, or the exception it raises
-PATH_CASES = [("float32", D, al, "fma") for D in (16, 64, 256)
+PATH_CASES = [("float32", D, al, "fma") for D in (16, 32)
               for al in (True, False)] + \
+    [("float32", D, True, "tf32x3") for D in (64, 128, 256)] + \
+    [("float32", D, False, ValueError) for D in (64, 256)] + \
     [("bfloat16", D, True, "tc") for D in (16, 32)] + \
     [("bfloat16", D, True, "wgmma") for D in (64, 128, 256)] + \
     [("bfloat16", D, False, ValueError) for D in (16, 64, 128)] + \
@@ -453,7 +465,225 @@ def test_wgmma_path_matches_plain_on_card(cuda, B, Sq, Sk, Hq, Hkv, D,
         out = out.reshape(B, Hq, Sq, D).transpose(1, 2)
     torch.cuda.synchronize()
     moved = {p: n - before[p] for p, n in ops.launches_by_path.items()}
-    assert moved == {"fma": 0, "tc": 0, "wgmma": 1}
+    assert moved == {"fma": 0, "tc": 0, "wgmma": 1, "tf32x3": 0}
     ref = naive_attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=_tol("bfloat16"), rtol=_tol("bfloat16"))
+
+
+# ---- the tf32x3 path: f32 at D 64 / 128 / 256 in split TF32 ----
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window), f32: tests/test_kernels.py's f32
+# cases, recurrentgemma-9b's D 256 and a non-causal Sq != Sk, all of them
+# multiples of the Pallas kernel's 64-row blocks
+TF32X3_PALLAS = [(B, S, S, Hq, Hkv, D, causal, window)
+                 for B, S, Hq, Hkv, D, causal, window, dt in CASES
+                 if dt == "float32"] + \
+    [(1, 256, 256, 4, 1, 256, True, 0), (1, 128, 256, 4, 4, 64, False, 0),
+     (1, 128, 256, 4, 2, 128, False, 0)]
+# ragged lengths (against either tile: 64, 32 or 16 kv rows), windows that
+# bind inside a tile, a ragged Sq != Sk
+TF32X3_RAGGED = [(1, 100, 100, 4, 2, 64, True, 0),
+                 (1, 100, 100, 8, 2, 128, True, 24),
+                 (1, 77, 77, 16, 1, 256, True, 0),
+                 (1, 150, 150, 16, 1, 256, True, 40),
+                 (1, 77, 300, 16, 1, 256, False, 0),
+                 (2, 129, 129, 14, 2, 64, True, 0)]
+
+
+def _qkv_t(seed, B, Sq, Sk, Hq, Hkv, D, scale=1.0):
+    return [torch.as_tensor(x) * scale
+            for x in _qkv(seed, B, Sq, Sk, Hq, Hkv, D)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", TF32X3_PALLAS)
+def test_tf32x3_plain_matches_pallas_interpret(B, Sq, Sk, Hq, Hkv, D,
+                                               causal, window):
+    jnp, jflash, _ = _jax_side()
+    q, k, v = _qkv(15, B, Sq, Sk, Hq, Hkv, D)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=causal, window=window, block_q=64, block_k=64,
+                 interpret=True)
+    out = tf32x3_attention(*(torch.as_tensor(x) for x in (q, k, v)),
+                           causal=causal, window=window)
+    assert out.dtype == torch.float32 and out.shape == (B, Sq, Hq, D)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window",
+                         TF32X3_PALLAS + TF32X3_RAGGED)
+def test_tf32x3_plain_matches_naive_attention(B, Sq, Sk, Hq, Hkv, D, causal,
+                                              window):
+    jnp, _, jnaive = _jax_side()
+    q, k, v = _qkv(16, B, Sq, Sk, Hq, Hkv, D)
+    ref = jnaive(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=causal, window=window)
+    out = tf32x3_attention(*(torch.as_tensor(x) for x in (q, k, v)),
+                           causal=causal, window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset) at the path's head dims
+TF32X3_CAPPED = {
+    "causal": (1, 128, 128, 4, 2, 64, True, 0, 0),
+    "window": (2, 100, 100, 4, 4, 128, True, 24, 0),
+    "full_sq_ne_sk": (1, 64, 130, 8, 8, 256, False, 0, 0),
+    "q_offset": (1, 64, 128, 4, 2, 128, True, 0, 64),
+    "q_offset_window": (1, 50, 150, 16, 1, 256, True, 40, 100),
+    "mqa_group48": (1, 64, 64, 48, 1, 128, True, 0, 0),
+}
+
+
+@pytest.mark.parametrize("cap", (0.0,) + SOFTCAPS)
+@pytest.mark.parametrize("name", list(TF32X3_CAPPED))
+def test_tf32x3_plain_softcap_and_offset_match_jax(name, cap):
+    """``tf32x3_attention`` with a q_offset and softcap 0, 1.0 and 50.0
+    against JAX's ``masked_attention`` in f32, 2e-5."""
+    import jax.numpy as jnp
+    from repro.models import layers as jL
+    B, Sq, Sk, Hq, Hkv, D, causal, window, off = TF32X3_CAPPED[name]
+    q, k, v = _qkv(17, B, Sq, Sk, Hq, Hkv, D)
+    kw = dict(causal=causal, window=window, q_offset=off, softcap=cap)
+    ref = jL.masked_attention(*(jnp.asarray(x) for x in (q, k, v)), **kw)
+    out = tf32x3_attention(*(torch.as_tensor(x) for x in (q, k, v)), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+def _attention_f64(q, k, v, *, causal, window, q_offset=0, softcap=0.0):
+    """Materialized attention in float64: the truth the f32 versions are
+    held to where the scores are large."""
+    B, Sq, Hq, D = q.shape
+    Sk, G = k.shape[1], Hq // k.shape[2]
+    kr = k.double().repeat_interleave(G, dim=2)
+    vr = v.double().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr) * D ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, -torch.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vr), s
+
+
+# inputs scaled so that the scaled scores reach +-30: (B, S, Hq, Hkv, D,
+# causal, window, softcap, the scale of q and k)
+TF32X3_LARGE = [(1, 100, 4, 2, 64, True, 0, 0.0, 2.8),
+                (1, 100, 4, 1, 128, True, 24, 0.0, 3.0),
+                (1, 77, 4, 1, 256, False, 0, 0.0, 2.8),
+                (1, 100, 4, 2, 128, True, 0, 50.0, 3.0)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,cap,scale",
+                         TF32X3_LARGE)
+def test_tf32x3_plain_at_large_scores_matches_f64(monkeypatch, B, S, Hq, Hkv,
+                                                  D, causal, window, cap,
+                                                  scale):
+    """Scaled scores up to +-30, where an error in the split or the
+    exponent shows: ``tf32x3_attention`` within 2e-5 of float64, and the
+    same arithmetic with lo dropped (one TF32 product) beyond it."""
+    q, k, v = _qkv_t(18, B, S, S, Hq, Hkv, D)
+    q, k = q * scale, k * scale
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want, scores = _attention_f64(q, k, v, **kw)
+    reach = scores[scores > -torch.inf].abs().max().item()
+    assert reach >= (30.0 if cap == 0 else 0.5 * cap), reach
+    out = tf32x3_attention(q, k, v, **kw)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    split = fref.tf32_split
+    monkeypatch.setattr(fref, "tf32_split", lambda a: (
+        split(a)[0], torch.zeros_like(a, dtype=torch.float32)))
+    one = tf32x3_attention(q, k, v, **kw)
+    assert not np.allclose(one.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_cpu_f32_at_tf32x3_head_dims_takes_plain_version_without_launch():
+    q, k, v = _qkv_t(19, 1, 40, 40, 4, 2, 64)
+    before = (ops.launches, dict(ops.launches_by_path))
+    out = ops.flash_attention(q, k, v, causal=True, softcap=1.0)
+    assert (ops.launches, dict(ops.launches_by_path)) == before
+    assert torch.equal(out, naive_attention(q, k, v, softcap=1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", WGMMA_EDGES)
+def test_tf32x3_path_matches_plain_on_card(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                           causal, window, layout):
+    """f32 at D >= 64 on the wgmma path's edges: one "tf32x3" launch a
+    call, within 2e-5 of the plain version; two calls bitwise equal; the
+    (B*H, S, D) entry point equal to the model layout's bit for bit."""
+    q, k, v = (x.to(cuda) for x in _qkv_t(20, B, Sq, Sk, Hq, Hkv, D))
+    before = dict(ops.launches_by_path)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    moved = {p: n - before[p] for p, n in ops.launches_by_path.items()}
+    assert moved == {"fma": 0, "tc": 0, "wgmma": 0, "tf32x3": 1}
+    ref = naive_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    if layout == "bshd":
+        again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        t = [x.transpose(1, 2).reshape(-1, x.shape[1], D).contiguous()
+             for x in (q, k, v)]
+        again = ops.flash_attention_bhsd(*t, causal=causal, window=window,
+                                         group=Hq // Hkv)
+        again = again.reshape(B, Hq, Sq, D).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+# chip_smoke.py (c5)'s softcap shapes (scripts/torch_flash_cases.py's
+# SOFTCAP_SHAPES), (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset)
+C5_SHAPES = [(1, 1024, 1024, 28, 4, 128, True, 0, 0),
+             (1, 1024, 1024, 16, 1, 256, True, 2048, 0),
+             (1, 300, 1500, 8, 8, 64, False, 0, 0),
+             (1, 256, 1024, 28, 4, 128, True, 0, 768),
+             (1, 1024, 1024, 48, 1, 128, True, 0, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", SOFTCAPS)
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,off", C5_SHAPES)
+def test_tf32x3_softcap_matches_plain_on_card(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                              causal, window, off, cap):
+    q, k, v = (x.to(cuda) for x in _qkv_t(21, B, Sq, Sk, Hq, Hkv, D))
+    kw = dict(causal=causal, window=window, q_offset=off, softcap=cap)
+    before = ops.launches_by_path["tf32x3"]
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches_by_path["tf32x3"] == before + 1
+    torch.testing.assert_close(out, naive_attention(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
+
+
+# chip_smoke.py (s)'s context-parallel splits: (Hq, Hkv, D, S, n ranks,
+# window)
+CP_SPLITS = [(28, 4, 128, 1024, 4, 0), (28, 4, 128, 1024, 16, 0),
+             (16, 1, 256, 4096, 16, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hq,Hkv,D,S,n,window", CP_SPLITS)
+def test_tf32x3_cp_ranks_match_plain_on_card(cuda, Hq, Hkv, D, S, n, window):
+    """Each rank's query rows against the full K/V at q_offset r S / n, f32:
+    within 2e-5 of the plain version, one tf32x3 launch a rank."""
+    q, k, v = (x.to(cuda) for x in _qkv_t(22, 1, S, S, Hq, Hkv, D))
+    s = S // n
+    before = ops.launches_by_path["tf32x3"]
+    for r in range(n):
+        part = q[:, r * s:(r + 1) * s].contiguous()
+        kw = dict(causal=True, window=window, q_offset=r * s)
+        out = ops.flash_attention(part, k, v, **kw)
+        torch.testing.assert_close(out, naive_attention(part, k, v, **kw),
+                                   atol=2e-5, rtol=2e-5)
+    torch.cuda.synchronize()
+    assert ops.launches_by_path["tf32x3"] == before + n
