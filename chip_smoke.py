@@ -13,13 +13,16 @@ Drives the port in phases and exits non-zero if any fails:
                on a spill in a bf16 tensor-core kernel or in a kernel of
                either scan), and the dynamic shared memory a block of
                each path of flash and moe_gmm takes (bf16 runs on the
-               tensor cores, flash's f32 at D >= 64 too, in split TF32;
-               flash's f32 at D 16 / 32 and moe_gmm's f32 on the FMA
+               tensor cores, flash's and moe_gmm's f32 too, in split TF32,
+               where TMA can address the tensors; flash's f32 at D 16 / 32
+               and moe_gmm's f32 at shapes TMA cannot address on the FMA
                kernels) and a block of ssd_scan's chunk-parallel scan
-               takes; fails on a spill in flash_fwd_tf32x3 too, unless each
-               instantiation of the four wgmma paths (flash_fwd_wgmma,
-               flash_fwd_tf32x3: split-TF32 wgmma, gmm_wgmma, moe_gmm's
-               decode path gmm_swap_wgmma) and of ssd_scan's two kernels
+               takes; fails on a spill in flash_fwd_tf32x3 and gmm_tf32x3
+               too, unless each instantiation of the five wgmma paths
+               (flash_fwd_wgmma, flash_fwd_tf32x3: split-TF32 wgmma,
+               gmm_wgmma, moe_gmm's decode path gmm_swap_wgmma, moe_gmm's
+               f32 path gmm_tf32x3: split-TF32 wgmma) and of ssd_scan's
+               two kernels
                (ssd_cb, ssd_chunk: split-TF32 wgmma) holds HGMMA and
                UTMALDG in its SASS, and on a wgmma ptxas serialised (C7518
                in the nvcc log);
@@ -57,12 +60,18 @@ Drives the port in phases and exits non-zero if any fails:
                olmoe-1b-7b's serve shapes (decode C=8 with 32 of 64 experts in use, prefill
                C=160 and C=48 with counts from routing 1024 and 300 random
                tokens), f32 and bf16, inputs at the model's scale; tolerance
-               1e-4 (f32, TF32 off) / 3e-2 (bf16: output rounding); fails
-               if a call takes another path than ops.gmm_path gives, if a
-               row past counts[e] is not exactly zero, if two swap-path
-               calls differ in a bit, or if a swap-path call is more than
-               one bf16 ulp (and 1e-4) from the plain version of its split
-               over D; times
+               1e-4 (f32, TF32 off) / 3e-2 (bf16: output rounding); the f32
+               "tf32x3" path's edges too (C of 1, 7, 9, 16, 17, 48, 65,
+               160, 2560; D and F multiples of 4 but not 8; every split
+               over D); fails if a call takes another path than
+               ops.gmm_path gives (f32: tf32x3 but on the ragged shape), if
+               a row past counts[e] is not exactly zero, if two swap- or
+               tf32x3-path calls differ in a bit, if a swap-path call is
+               more than one bf16 ulp (and 1e-4) from the plain version of
+               its split over D, or a tf32x3 call more than 1e-4 from the
+               plain version of its own arithmetic (ref.gmm_tf32x3_
+               reference); f32 rows beside both f32 bounds (split TF32 and
+               the FMA rate); times
                kernel, plain version and torch.bmm on the capacity buffer (a
                yardstick the port never calls) beside the bound, which counts
                the rows in use and the weights of the experts in use only,
@@ -141,7 +150,8 @@ Drives the port in phases and exits non-zero if any fails:
                bf16, the same way and the same 6 prompts: the flash kernel is
                the prefill attention and moe_gmm the expert FFN; launch
                counts must be n_layers x prefills (flash) and 3 x n_layers x
-               (prefills + decode steps) (moe_gmm);
+               (prefills + decode steps) (moe_gmm), each moe_gmm launch on
+               wgmma (C > 16) or swap, none on fill, fma or tf32x3;
   (e2) oracle  the f32 engine's tokens equal a one-request-at-a-time rollout
                through prefill_fn then decode_fn at batch 1. Not the
                re-prefill oracle of (e): a re-prefill routes every earlier
@@ -156,7 +166,8 @@ Drives the port in phases and exits non-zero if any fails:
                plain versions within 1e-3, at a prefill and at 4 decode steps
                over 4 slots at different positions (capacity buffers of 8
                rows, moe_gmm at C=8, in-place cache writes), and so do the
-               caches after them;
+               caches after them; every moe_gmm launch of the phase must
+               take the tf32x3 path (its count by path printed);
   (d5) serving granite-20b (multi-query: 48 q heads on one kv head, 52
                layers, 28.2 B parameters) at full width and depth in bf16,
                as (d): every request finished, flash launched n_layers x
@@ -371,7 +382,8 @@ Drives the port in phases and exits non-zero if any fails:
                replicated decode's (4, cap, 2048) of 8 tokens under both
                capacity formulas (cap_mult 4.0: 16 rows, 2.0: 8), both
                SwiGLU products, every row counted, bf16 and f32, against
-               the plain version; times beside the bound and torch.bmm;
+               the plain version, f32 on the tf32x3 path; times beside the
+               bound (f32: both f32 bounds) and torch.bmm;
   (u) dryrun   repro_torch.launch.dryrun on qwen2-7b train_4k / prefill_32k
                / decode_32k (the cp recipe), olmoe-1b-7b train_4k /
                decode_32k (tp attention, FSDP, the all-to-all and the
@@ -465,7 +477,7 @@ from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import naive_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
-    gmm_reference, gmm_split_reference)
+    gmm_reference, gmm_split_reference, gmm_tf32x3_reference)
 from repro_torch.kernels.rglru_scan import ops as rg  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
@@ -595,6 +607,22 @@ GMM_EDGES += [("swap edge", E, C, D, F, kind, torch.bfloat16)
 # (gmm_splits): 4 experts x 2 tiles of 128 columns (F 256) -> 8 blocks a
 # tile, 4 x 8 (gate/up, C 16 and 8) -> 4, 4 x 16 (down) -> 2; 64 x 2 -> 1
 GMM_EDGES += [("swap EP edge", E, C, D, F, "random", torch.bfloat16)
+              for E, C, D, F in ((4, 16, 2048, 256), (4, 16, 2048, 1024),
+                                 (4, 8, 2048, 1024), (4, 16, 1024, 2048),
+                                 (64, 8, 512, 256))]
+# the edges of the tf32x3 path (f32, D and F multiples of 4;
+# tests/test_torch_moe_gmm.py's TF32_EDGES at small widths): C of 1, 7, 9
+# and 16 (the decode tiles), 17, 48, 65 (the 64- and 128-row tiles, N
+# narrowed to the rows in use), 160 and 2560; E of 1, 4 and 64; D and F
+# not multiples of 8; an EP-shaped call at each split over D
+GMM_EDGES += [("tf32x3 edge", E, C, D, F, kind, torch.float32)
+              for E, C, D, F in ((1, 1, 36, 44), (4, 7, 68, 132),
+                                 (2, 9, 4, 4), (64, 16, 36, 12),
+                                 (2, 17, 36, 44), (3, 48, 132, 196),
+                                 (2, 65, 100, 36), (3, 160, 68, 260),
+                                 (1, 2560, 36, 68))
+              for kind in ("random", "zero", "full", "one")]
+GMM_EDGES += [("tf32x3 EP edge", E, C, D, F, "random", torch.float32)
               for E, C, D, F in ((4, 16, 2048, 256), (4, 16, 2048, 1024),
                                  (4, 8, 2048, 1024), (4, 16, 1024, 2048),
                                  (64, 8, 512, 256))]
@@ -883,6 +911,19 @@ def check_f32_flash_paths(what: str, smi: str) -> dict:
     return paths
 
 
+def check_f32_gmm_paths(what: str, smi: str) -> dict:
+    """moe_gmm's launches by path since the last reset, after an f32 run:
+    there must be some, and every one must have taken the tf32x3 path (a
+    model's f32 calls are all TMA-addressable)."""
+    paths = dict(gmm.launches_by_path)
+    print(f"[{what}] moe_gmm launches by path {paths} [{smi}]")
+    if not paths["tf32x3"] or any(n for p, n in paths.items()
+                                  if p != "tf32x3"):
+        fail(f"{what}: moe_gmm took {paths}; every f32 launch must take "
+             f"tf32x3")
+    return paths
+
+
 def phase_kernel(dev, smi: str) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1098,11 +1139,18 @@ def phase_softcap(dev, smi: str) -> list[dict]:
     return rows
 
 
-def gmm_bound(E, C, D, F, counts, dt) -> tuple[float, str]:
+def gmm_bound(E, C, D, F, counts, dt, fma: bool = False
+              ) -> tuple[float, str]:
     """Least time for this call: its operations over the peak rate of the
-    type against its bytes over the memory rate (gmm_work)."""
+    type against its bytes over the memory rate (gmm_work). f32 products
+    are taken at the split-TF32 rate (three TF32 products at 495 TFLOP/s),
+    as the tf32x3 path takes them; ``fma``: at the f32 FMA rate (67
+    TFLOP/s)."""
     ops, nbytes = gmm_work(E, C, D, F, counts, dt)
-    t_ops, t_bytes = ops / PEAK_OPS[dt], nbytes / HBM_BYTES_PER_S
+    rate = PEAK_OPS[dt]
+    if dt == torch.float32 and not fma:
+        rate = TF32_OPS_PER_S / SPLIT_TF32
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1131,7 +1179,17 @@ def gmm_times(x, w, counts) -> dict:
            "bound_ms": bound_ms, "bound_by": bound_by}
     row.update(share=bound_ms / row["graph_ms"],
                graph_ratio=row["graph_ms"] / row["library_graph_ms"])
+    if x.dtype == torch.float32:
+        fma_ms, _ = gmm_bound(E, C, D, w.shape[2], counts, x.dtype, fma=True)
+        row.update(fma_bound_ms=fma_ms, fma_share=fma_ms / row["graph_ms"])
     return row
+
+
+def gmm_f32_bounds(row: dict) -> str:
+    """An f32 row's graph time against both f32 bounds, as printed."""
+    return (f"split-TF32 bound {row['bound_ms']:.4f} ms "
+            f"({100 * row['share']:.1f}%), FMA-rate bound "
+            f"{row['fma_bound_ms']:.4f} ms ({100 * row['fma_share']:.1f}%)")
 
 
 def phase_gmm(dev, smi: str) -> list[dict]:
@@ -1150,11 +1208,12 @@ def phase_gmm(dev, smi: str) -> list[dict]:
         err = (out.float() - ref.float()).abs().max().item()
         tol = GMM_TOL[dt]
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        splits = gmm.gmm_splits(E, C, D, F, sms) if path == "swap" else 1
+        split_path = path in ("swap", "tf32x3")
+        splits = gmm.gmm_splits(E, C, D, F, sms) if split_path else 1
         name = (f"{label} E={E} C={C} D={D} F={F} {DT_NAME[dt]} "
                 f"rows in use {int(counts.sum())}, experts in use "
                 f"{int((counts > 0).sum())}"
-                f"{f', splits {splits}' if path == 'swap' else ''}")
+                f"{f', splits {splits}' if split_path else ''}")
         want = gmm.gmm_path(dt, C, D, F, all(
             t.data_ptr() % 16 == 0 for t in (x, w, out)))
         if path != want:
@@ -1164,15 +1223,23 @@ def phase_gmm(dev, smi: str) -> list[dict]:
         if torch.where(unused, out.float(), 0.0).abs().max().item() != 0.0:
             fail(f"moe_gmm left a nonzero row past counts on {name}")
         split_err = None
-        if path == "swap":
+        if split_path:
             if not torch.equal(out, gmm_call(x, w, counts)[0]):
-                fail(f"moe_gmm's swap path differs between two calls on "
+                fail(f"moe_gmm's {path} path differs between two calls on "
                      f"{name}")
+        if path == "swap":
             split_ref = gmm_split_reference(x, w, counts, splits).float()
             split_err = (out.float() - split_ref).abs().max().item()
             if not torch.allclose(out.float(), split_ref, **SPLIT_ULP_TOL):
                 fail(f"moe_gmm's swap path is more than one bf16 ulp from "
                      f"the plain version of its split on {name} (max abs "
+                     f"err {split_err:.3g})")
+        if path == "tf32x3":
+            own = gmm_tf32x3_reference(x, w, counts, splits)
+            split_err = (out - own).abs().max().item()
+            if not torch.allclose(out, own, atol=tol, rtol=tol):
+                fail(f"moe_gmm's tf32x3 path is more than {tol} from the "
+                     f"plain version of its arithmetic on {name} (max abs "
                      f"err {split_err:.3g})")
         row = {"case": name, "path": path, "max_abs_err": err, "tol": tol,
                "ok": bool(ok), "splits": splits, "split_err": split_err}
@@ -1188,9 +1255,12 @@ def phase_gmm(dev, smi: str) -> list[dict]:
                   f"ms (graph {row['library_graph_ms']:.4f} ms), "
                   f"kernel/bmm {row['ratio']:.2f}x (graph "
                   f"{row['graph_ratio']:.2f}x), {row['tflops']:.1f} TFLOP/s, "
-                  f"{row['tbps']:.3f} TB/s, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']}), {100 * row['share']:.1f}% of it in "
-                  f"the graph, max_abs_err {err:.3g} [{smi}]")
+                  f"{row['tbps']:.3f} TB/s, " + (
+                      gmm_f32_bounds(row) + " in the graph"
+                      if dt == torch.float32 else
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                      f"{100 * row['share']:.1f}% of it in the graph")
+                  + f", max_abs_err {err:.3g} [{smi}]")
         else:
             print(f"[gmm] {name}: {path} path, max_abs_err {err:.3g}")
         if not ok:
@@ -1326,6 +1396,10 @@ def phase_ep(dev, smi: str) -> dict:
                 before = gmm.launches
                 out, path = gmm_call(x, w, counts)
                 launched += gmm.launches - before
+                want = gmm.gmm_path(dt, C, din, dout, True)
+                if path != want:
+                    fail(f"(t) moe_gmm took the {path} path at E_loc={e} "
+                         f"C={C} D={din} F={dout} {DT_NAME[dt]}, not {want}")
                 ref = gmm_reference(x, w, counts)
                 err = (out.float() - ref.float()).abs().max().item()
                 tol = GMM_TOL[dt]
@@ -1340,10 +1414,13 @@ def phase_ep(dev, smi: str) -> dict:
                       f"(graph {row['graph_ms']:.4f} ms), plain "
                       f"{row['plain_ms']:.4f} ms, bmm "
                       f"{row['library_ms']:.4f} ms (graph "
-                      f"{row['library_graph_ms']:.4f} ms), bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                      f"{100 * row['share']:.1f}% of it in the graph, "
-                      f"max_abs_err {err:.3g} [{smi}]")
+                      f"{row['library_graph_ms']:.4f} ms), " + (
+                          gmm_f32_bounds(row) + " in the graph"
+                          if dt == torch.float32 else
+                          f"bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']}), {100 * row['share']:.1f}% "
+                          f"of it in the graph")
+                      + f", max_abs_err {err:.3g} [{smi}]")
                 rows.append(row)
     return {"rows": rows, "launches": launched}
 
@@ -1899,7 +1976,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
               f"prefill capacities {caps}, {wide} launches with C > 16 "
               f"[{smi}]")
         if gmm_paths["wgmma"] != wide or gmm_paths["fill"] or \
-                gmm_paths["fma"] or \
+                gmm_paths["fma"] or gmm_paths["tf32x3"] or \
                 gmm_paths["swap"] != expect["moe_gmm"] - wide:
             fail(f"{arch}: moe_gmm took {gmm_paths}; the {wide} launches "
                  f"with C > 16 must all take wgmma, the "
@@ -2086,6 +2163,8 @@ def phase_oracle(dev, api16, params16, n_layers: int = 0,
     errs = check_plain_path(api, params, dev, 128) \
         if moe or plain_path else {}
     check_f32_flash_paths(f"{cfg.name} f32 oracle", nvidia_smi())
+    if moe:
+        check_f32_gmm_paths(f"{cfg.name} f32 oracle", nvidia_smi())
     del params
     return errs
 
@@ -3472,7 +3551,8 @@ def main() -> int:
     print("[build] dynamic shared memory a block, moe_gmm: " + ", ".join(
         f"{p} C={c} {gmm.smem_bytes(p, c)} B" for p, c in (
             ("fma", 160), ("swap", 8), ("swap", 16), ("fill", 8),
-            ("fill", 160), ("wgmma", 160))))
+            ("fill", 160), ("wgmma", 160), ("tf32x3", 8), ("tf32x3", 16),
+            ("tf32x3", 48), ("tf32x3", 160))))
     # moe_gmm's prefill path: one instantiation without clusters, one with
     wg_kernels = [k for k in build_report["moe_gmm"]
                   if k["kernel"].startswith("gmm_wgmma")]
@@ -3494,6 +3574,16 @@ def main() -> int:
                   f"{k['spill_loads']} B")
     build_report["moe_gmm_swap_sass"] = check_hopper(
         builds["moe_gmm"], "gmm_swap_wgmma", 2)
+    # moe_gmm's f32 path (split TF32): 8, 16, 64 and 128 token rows a tile
+    for k in build_report["moe_gmm"]:
+        if k["kernel"].startswith("gmm_tf32x3"):
+            c = int(re.search(r"<(\d+)", k["kernel"]).group(1))
+            print(f"[build] moe_gmm {k['kernel']}: {k['registers']} "
+                  f"registers, {gmm.smem_bytes('tf32x3', c)} B dynamic "
+                  f"shared memory, spills {k['spill_stores']} / "
+                  f"{k['spill_loads']} B")
+    build_report["moe_gmm_tf32x3_sass"] = check_hopper(
+        builds["moe_gmm"], "gmm_tf32x3", 4)
     # ssd_scan: C B^T (ssd_cb) and the chunk-parallel scan (ssd_chunk), each
     # in f32 and bf16, products on wgmma in split TF32
     for k in build_report["ssd_scan"]:

@@ -2,7 +2,7 @@
 """Tile sweep of the port's tensor-core kernels on one NVIDIA card.
 
     python3 scripts/torch_tile_sweep.py [--kernels flash tf32x3 moe_gmm swap
-                                         ssd]
+                                         gmm_tf32x3 ssd]
 
 Builds variants of ``src/repro_torch/csrc/flash_attention.cu`` (its
 ``flash_fwd_wgmma`` path, bf16 at D >= 64: q rows a block at D <= 128
@@ -16,7 +16,12 @@ each head dim, ``FT_KST_D*`` / ``FT_VST_D*``, whose 32 KB each share
 stages a store ``WG_OBOXES``, and the grid walk: one persistent block an
 SM or one block a tile; and its ``gmm_swap_wgmma`` decode path: TMA ring
 stages ``SW_STAGES``, each at every split over D, the one ``gmm_splits``
-picks marked) and of ``ssd_scan.cu``
+picks marked; and its ``gmm_tf32x3`` f32 path: the TMA ring's stages of
+the decode tiles (C <= 16) ``TF_ST_DECODE``, of the 64-row tile
+``TF_ST_64`` and of the wide tile ``TF_ST_128``, the wide tile's token
+rows ``TF_WIDE_BC`` (128, or C > 64 in 64-row tiles too), the decode
+tiles at every split over D; f32 x and w, the f32 time of ``torch.bmm``
+beside them) and of ``ssd_scan.cu``
 (the rule that splits a
 one-chunk call's query tiles over two blocks: as shipped, never, or
 whenever the chunk has two query tiles or more, at any grid; and, as a
@@ -58,6 +63,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
 OUT = ROOT / "build" / "tile_sweep"
 WGMMA = PATHS.index("wgmma")
 SWAP = PATHS.index("swap")
+GMM_TF32X3_PATH = PATHS.index("tf32x3")
 FLASH_WGMMA = fa.PATHS.index("wgmma")
 FLASH_TF32X3 = fa.PATHS.index("tf32x3")
 # flash's wgmma path: (FW_ROWS, FW_BK_D64, FW_BK_D128, FW_STAGES); the
@@ -105,6 +111,15 @@ SWAP_SHAPES = [("decode gate/up", 64, 8, 2048, 1024, "decode"),
                ("EP C=16 down", 4, 16, 1024, 2048, "full"),
                ("EP C=8 gate/up", 4, 8, 2048, 1024, "full"),
                ("EP C=8 down", 4, 8, 1024, 2048, "full")]
+
+# moe_gmm's tf32x3 path: (TF_ST_DECODE, TF_ST_64, TF_ST_128, TF_WIDE_BC);
+# the first is the source's own. More than 5 decode stages leave no two
+# blocks an SM, more than 6 / 4 do not fit the 64- / 128-row tile's block
+GMM_TF32X3 = [(3, 6, 4, 128), (2, 6, 4, 128), (4, 6, 4, 128),
+              (5, 6, 4, 128), (3, 5, 4, 128), (3, 6, 3, 128),
+              (3, 6, 4, 64)]
+# its shapes: the decode ones (split over D) and the prefill ones, in f32
+TF32X3_SHAPES = SWAP_SHAPES + GMM_SHAPES
 
 # ssd_scan: variants as (source line, its replacement); the first is the
 # source's own
@@ -168,6 +183,20 @@ def swap_source(stages: int) -> str:
     return text
 
 
+def gmm_tf32x3_source(var) -> str:
+    text = (CSRC / "moe_gmm.cu").read_text()
+    decode, st64, st128, wide = var
+    text, n = re.subn(r"constexpr int TF_ST_DECODE = \w+, TF_ST_64 = \w+, "
+                      r"TF_ST_128 = \w+;",
+                      f"constexpr int TF_ST_DECODE = {decode}, TF_ST_64 = "
+                      f"{st64}, TF_ST_128 = {st128};", text)
+    assert n == 1, "TF_ST_*"
+    text, n = re.subn(r"constexpr int TF_WIDE_BC = \w+;",
+                      f"constexpr int TF_WIDE_BC = {wide};", text)
+    assert n == 1, "TF_WIDE_BC"
+    return text
+
+
 def ssd_source(edits) -> str:
     text = (CSRC / "ssd_scan.cu").read_text()
     for line, repl in edits:
@@ -224,7 +253,8 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", nargs="+", default=["flash", "moe_gmm"],
-                    choices=["flash", "tf32x3", "moe_gmm", "swap", "ssd"])
+                    choices=["flash", "tf32x3", "moe_gmm", "swap",
+                             "gmm_tf32x3", "ssd"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_tile_sweep: needs an NVIDIA card", file=sys.stderr)
@@ -246,6 +276,10 @@ def main() -> int:
     if "swap" in args.kernels:
         jobs += [(f"swap_stages{s}", "moe_gmm.cu", swap_source(s),
                   r"gmm_swap_wgmma") for s in SWAP_STAGES]
+    if "gmm_tf32x3" in args.kernels:
+        jobs += [("gtf_decode{}_st64x{}_st128x{}_wide{}".format(*v),
+                  "moe_gmm.cu", gmm_tf32x3_source(v), r"gmm_tf32x3")
+                 for v in GMM_TF32X3]
     if "ssd" in args.kernels:
         jobs += [(name, "ssd_scan.cu", ssd_source(edits), r"ssd_chunk<float>")
                  for name, edits in SSD.items()]
@@ -376,6 +410,46 @@ def main() -> int:
                            f"{ms:.4f} ms ({100 * b_ms / ms:.1f}% of the "
                            f"bound, err {err:.3g}, rc {rc})")
         print(f"[swap] {name}: {info}: " + "; ".join(row))
+    cases = []
+    for label, E, C, D, Fd, kind in TF32X3_SHAPES if "gmm_tf32x3" in \
+            args.kernels else ():
+        x = torch.randn((E, C, D), generator=gen, device=dev)
+        w = torch.randn((E, D, Fd), generator=gen, device=dev) * D ** -0.5
+        cnt = cs.gmm_counts(kind, E, C, gen, dev)
+        bound_ms, bound_by = cs.gmm_bound(E, C, D, Fd, cnt, torch.float32)
+        cases.append((label, x, w, cnt, gmm_reference(x, w, cnt), bound_ms))
+        print(f"[gmm_tf32x3] {label}: bmm f32 "
+              f"{graph_ms(lambda: torch.bmm(x, w)):.4f} ms, split-TF32 "
+              f"bound {bound_ms:.4f} ms ({bound_by}), splits "
+              f"{gmm_splits(E, C, D, Fd, sms)} on {sms} SMs")
+    for name, (lib, info) in built.items():
+        if not name.startswith("gtf_"):
+            continue
+        if lib is None:
+            print(f"[gmm_tf32x3] {name}: build failed: {info}")
+            continue
+        fn = ctypes.CDLL(str(lib)).repro_moe_gmm
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        row = []
+        for label, x, w, cnt, ref, b_ms in cases:
+            E, C, D = x.shape
+            Fd = w.shape[2]
+            chosen = gmm_splits(E, C, D, Fd, sms)
+            for splits in (1, 2, 4, 8) if C <= 16 else (1,):
+                o = torch.empty((E, C, Fd), device=dev)
+                call = lambda: fn(  # noqa: E731
+                    x.data_ptr(), w.data_ptr(), cnt.data_ptr(), o.data_ptr(),
+                    GMM_TF32X3_PATH, splits, E, C, D, Fd, stream())
+                rc = call()
+                torch.cuda.synchronize()
+                err = (o - ref).abs().max().item()
+                ms = graph_ms(call)
+                row.append(f"{label} splits {splits}"
+                           f"{' (chosen)' if splits == chosen else ''} "
+                           f"{ms:.4f} ms ({100 * b_ms / ms:.1f}% of the "
+                           f"bound, err {err:.3g}, rc {rc})")
+        print(f"[gmm_tf32x3] {name}: {info}: " + "; ".join(row))
     cases = []
     for dt in (torch.float32, torch.bfloat16) if "ssd" in args.kernels \
             else ():

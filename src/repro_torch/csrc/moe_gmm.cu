@@ -106,10 +106,42 @@
 // row, so an ldmatrix's 8 row addresses hit 8 distinct bank groups; the
 // C tile is staged through shared memory for 16-byte stores.
 //
-// fma (f32): gmm_fwd, the FMA kernel of the first port, kept for the f32
-// oracle phases (their 1e-4 tolerance needs full-f32 products; tensor
-// cores would mean TF32). Each thread owns a strided TM x TN output tile,
-// the next D tile is fetched into registers while the current one is
+// tf32x3 (f32, D and F multiples of 4, 16-byte aligned bases: every f32
+// call of a model): gmm_tf32x3, built from sm90.cuh. The f32 oracle phases
+// hold the port to 1e-4, and wgmma's tf32 form drops an f32's low 13
+// mantissa bits (about three digits), so each operand is split a = hi +
+// lo, hi = tf32(a), lo = tf32(a - hi) (cvt.rna), and a b is taken as hi hi
+// + hi lo + lo hi in f32 accumulators: within about 2^-21 of |a b|, as
+// ssd_scan.cu and flash's f32 path do. tf32 wgmma takes K-major operands
+// only, and w is (E, D, F) with F contiguous, so the product runs with the
+// operands swapped at every C, out^T = w^T x^T: w^T is the A operand from
+// registers, each consumer thread reading its m64k8 fragment straight from
+// the raw 128-byte-swizzled TMA box of w (32 columns x 32 D rows; a
+// warp's 16 rows are spread over the box's chunks so that a fragment load
+// hits 32 distinct banks) and splitting it in registers; x (D contiguous)
+// is the K-major B operand, split once a stage by three splitter warps
+// into a hi plane over the raw tile and a lo plane beside it. That keeps
+// the 64-row operand off shared memory, which bounds flash's f32 kernel. A
+// tile is 128 columns of one expert (two consumer warpgroups of 64) x 8,
+// 16, 64 or 128 token rows (wgmma's N; a tile of 64 or 128 rows with
+// fewer rows in use takes N = 32 or 64), D in stages of 32 through a TMA
+// ring fed by one producer thread (setmaxnreg: consumers 232 / 96,
+// producer and splitters 40). Decode (C <= 16) is all bytes: two blocks an
+// SM, TF_ST_DECODE stages each, and where E x tiles leaves SMs idle (EP:
+// 4 experts) the D sum splits over a cluster as on the swap path
+// (ops.py gmm_splits, partials through st.async, added in rank order).
+// Prefill (C > 16) is bound by the split-TF32 products: one block an SM,
+// the accumulators stored straight to out (rows past counts[e] zero). A
+// tile with no row in use writes its zeros without loading. Measured on
+// an H100 80GB HBM3 at 700 W (scripts/torch_gmm_times.py, CUDA-graph
+// device time; PERF.md §6): one card's decode 0.093-0.095 ms against the
+// FMA kernel's 0.090-0.092 (86% of the bytes bound), the T=1024 prefill
+// 0.44-0.46 ms (torch.bmm in f32: 1.06), EP 16's all-to-all buffer 0.41
+// (bmm 1.01-1.02), its replicated decode at C = 16 0.018 (bmm 0.039).
+//
+// fma (f32 shapes TMA cannot address, which no model has): gmm_fwd, the
+// FMA kernel of the first port. Each thread owns a strided TM x TN output
+// tile, the next D tile is fetched into registers while the current one is
 // computed, the C tile is as tall as the buffer needs (8 to 64 rows).
 //
 // Built by nvcc into a shared library with a plain C entry point and
@@ -1051,8 +1083,481 @@ cudaError_t launch_swap(const void* x, const void* w, const int* counts,
   return cudaGetLastError();
 }
 
+// ---- f32: split TF32 on wgmma with the operands swapped, fed by TMA ----
+
+constexpr int TF_BN = 128;      // weight (output) columns a tile: 2 x 64
+constexpr int TF_BK = 32;       // D a stage: one 128-byte swizzle row of f32
+constexpr int TF_BOX = 32;      // columns of a w box (128 bytes)
+constexpr int TF_THREADS = 384; // consumer warpgroups 0 and 1; warpgroup 2:
+                                // the producer warp, three splitter warps
+constexpr int TF_SPLITTERS = 96;
+// token rows a tile where C > 64 (64 or 128), and the TMA ring's stages at
+// C <= 16 (two blocks an SM), at 64 rows and at 128 (one block an SM); from
+// scripts/torch_tile_sweep.py --kernels gmm_tf32x3
+constexpr int TF_WIDE_BC = 128;
+constexpr int TF_ST_DECODE = 3, TF_ST_64 = 6, TF_ST_128 = 4;
+
+template <int BC>
+struct TfLayout {  // byte offsets in the 1024-byte aligned dynamic smem
+  static constexpr bool DECODE = BC <= 16;  // split over D, two blocks an SM
+  static constexpr int STAGES =
+      DECODE ? TF_ST_DECODE : BC == 64 ? TF_ST_64 : TF_ST_128;
+  static constexpr int BOX_BYTES = TF_BOX * TF_BK * 4;  // a 32 x 32 w box
+  static constexpr int W_BYTES = TF_BN / TF_BOX * BOX_BYTES;
+  static constexpr int X_PLANE = BC * 128;  // BC token rows of 32 D values
+  static constexpr int X_BYTES = 2 * X_PLANE;  // hi (raw x lands there), lo
+  static constexpr int RS = BC + 2;  // floats a received partial column
+  static constexpr int W0 = 0;
+  static constexpr int X0 = W0 + STAGES * W_BYTES;
+  static constexpr int R0 = X0 + STAGES * X_BYTES;
+  static constexpr int BAR0 = R0 + (DECODE ? TF_BN * RS * 4 : 0);
+  static constexpr int BYTES = BAR0 + (3 * STAGES + 1) * 8;
+  static constexpr int SMEM = BYTES + 1024;             // + the alignment
+  static constexpr int MINB = DECODE ? 2 : 1;           // blocks an SM
+  // registers a thread after setmaxnreg: 128 x PRODUCER + 256 x CONSUMER
+  // within what the launch bounds give the block (80 or 168 a thread)
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = DECODE ? 96 : 232;
+  static_assert(BC == 8 || BC == 16 || BC == 64 || BC == 128, "token rows");
+  static_assert(X_PLANE % 1024 == 0, "x planes start on 1024-byte atoms");
+  static_assert(MINB * (SMEM + 1024) <= 233472, "shared memory");
+};
+
+// d (64 x N) += A (64 x 8, tf32 in registers) B (8 x N, K-major)
+template <int N>
+__device__ __forceinline__ void tf_mma(float (&d)[N / 2], const float (&a)[4],
+                                       uint64_t db) {
+  if constexpr (N == 8)
+    sm90::wgmma_m64n8k8_tf32_rs(d, a, db);
+  else if constexpr (N == 16)
+    sm90::wgmma_m64n16k8_tf32_rs(d, a, db);
+  else if constexpr (N == 32)
+    sm90::wgmma_m64n32k8_tf32_rs(d, a, db);
+  else if constexpr (N == 64)
+    sm90::wgmma_m64n64k8_tf32_rs(d, a, db);
+  else
+    sm90::wgmma_m64n128k8_tf32_rs(d, a, db);
+}
+
+// a stage's products on the first N token rows of a BC-row tile (the
+// first N / 2 accumulators: columns past N stay zero): each k8 slice hi hi
+// + hi lo + lo hi, x's hi plane at ``dx``, its lo plane ``lo16`` further
+template <int N, int BC>
+__device__ __forceinline__ void tf_stage(float (&acc)[BC / 2],
+                                         float (&ah)[4][4], float (&al)[4][4],
+                                         uint64_t dx, int lo16) {
+  static_assert(N <= BC, "token rows");
+  float(&d)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(&acc);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // +32 B a k8 slice
+    const uint64_t bh = dx + 2 * kk, bl = bh + lo16;
+    tf_mma<N>(d, ah[kk], bh);
+    tf_mma<N>(d, ah[kk], bl);
+    tf_mma<N>(d, al[kk], bh);
+  }
+}
+
+// the descriptor of an x plane at ``saddr``, opaque to the compiler, so
+// that the k8 slices' descriptors (this one plus offset / 16) are formed
+// where they are used and not hoisted out of the D loop
+__device__ __forceinline__ uint64_t tf_desc(uint32_t saddr) {
+  uint64_t d = sm90::desc_sw128(saddr, 16, 1024);
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// a[i] -> hi[i] = tf32(a[i]), lo[i] = tf32(a[i] - hi[i]) (cvt.rna)
+__device__ __forceinline__ void tf_split(const float (&a)[4], float (&hi)[4],
+                                         float (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = sm90::to_tf32(a[i]);
+    lo[i] = sm90::to_tf32(a[i] - hi[i]);
+  }
+}
+
+// keeps the fragments in their registers until the products reading them
+// are done (after a wgmma wait)
+__device__ __forceinline__ void tf_fence(float (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sm90::fence_operands(a[i]);
+}
+
+// out[e] rows [c0, c0 + BC) (those below C) x columns [n0, n0 + 128) a
+// cluster of ``splits`` blocks (1 where BC > 16), block ``rank`` summing D
+// tiles split_lo(rank) .. split_lo(rank + 1) of the product out^T = w^T
+// x^T in split TF32. Warpgroup wg owns w^T rows (tile columns) 64 wg ..
+// + 64 as wgmma's A operand from registers: each thread reads its m64k8
+// fragment from the raw TMA box of w and splits it into hi and lo; x^T
+// (BC token rows, zeros past C) is the K-major B operand, split once a
+// stage by the splitter warps into its hi plane (over the raw tile) and
+// lo plane. Each k8 slice is hi hi + hi lo + lo hi. Where BC <= 16 each
+// block sends each peer its f32 partial of the peer's columns (st.async,
+// as gmm_swap_wgmma does) and the owner adds them in rank order; where BC
+// > 16 the accumulators are stored as they are.
+template <int BC>
+__global__ void __launch_bounds__(TF_THREADS, TfLayout<BC>::MINB)
+gmm_tf32x3(const __grid_constant__ CUtensorMap map_x,
+           const __grid_constant__ CUtensorMap map_w,
+           const int* __restrict__ counts, float* __restrict__ out, int C,
+           int D, int F, int splits) {
+  using L = TfLayout<BC>;
+  constexpr int ST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_tf[];
+  unsigned char* smem =
+      smem_tf + ((1024 - (sm90::smem_u32(smem_tf) & 1023)) & 1023);
+  // recv[(p sw + c) RS + r]: rank p's partial of this rank's column c,
+  // token row r (BC <= 16)
+  float* recv = reinterpret_cast<float*>(smem + L::R0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR0);
+  uint64_t* split = full + ST;   // the splitters have split x's tile
+  uint64_t* empty = split + ST;
+  uint64_t* received = empty + ST;
+
+  // warp-uniform to the compiler (blockIdx, arguments, or broadcast from
+  // lane 0), so that the branches around the wgmma are too
+  const int rank = blockIdx.x % splits;  // = %cluster_ctarank
+  const int n0 = blockIdx.x / splits * TF_BN;
+  const int c0 = blockIdx.y * BC;
+  const int e = blockIdx.z;
+  const int nk = (D + TF_BK - 1) / TF_BK;
+  const int k_lo = split_lo(rank, splits, nk);
+  const int k_hi = split_lo(rank + 1, splits, nk);
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int count =
+      __shfl_sync(0xffffffffu, max(0, min(counts[e], C)), 0);
+  const int sw = TF_BN / splits;      // columns this rank stores
+  const int cs = n0 + rank * sw;      // the first of them
+  const int per_row = sw / 4;         // 4-column chunks of a row
+  const int rows = min(BC, C - c0);   // rows of this tile that exist
+  // token rows the products take: all BC where BC <= 16, else the rows in
+  // use rounded up to 32, 64 or BC (a tile with few rows in use, as the
+  // last tile of an expert often is, does less work)
+  const int used = min(count, c0 + BC) - c0;
+  const int nb = BC <= 16 ? BC : used <= 32 ? 32 : used <= 64 ? 64 : BC;
+  float* op = out + (size_t)e * C * F;
+
+  if (c0 >= count) {  // the same in every block of the cluster: zeros, no
+                      // loads, nothing sent
+    for (int i = threadIdx.x; i < rows * per_row; i += TF_THREADS) {
+      const int r = c0 + i / per_row, col = cs + i % per_row * 4;
+      if (col < F)
+        *reinterpret_cast<float4*>(op + (size_t)r * F + col) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(&full[s], 1);              // the producer's expect_tx
+      sm90::mbar_init(&split[s], TF_SPLITTERS);  // each splitter thread
+      sm90::mbar_init(&empty[s], 8);             // each consumer warp
+    }
+    if constexpr (L::DECODE) {
+      sm90::mbar_init(received, 1);    // this thread's expect_tx
+      sm90::mbar_arrive_expect_tx(received, (splits - 1) * sw * BC * 4);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  // the peers may send once every block's receive barrier is set up: the
+  // wait comes after the products
+  if constexpr (L::DECODE)
+    if (splits > 1) sm90::cluster_arrive_relaxed();
+
+  if (wg == 2) {  // ---- the producer warp and the splitter warps ----
+    sm90::setmaxnreg_dec<L::PRODUCER_REGS>();
+    const int t2 = threadIdx.x - 256;
+    int stage = 0;
+    uint32_t phase = 0;
+    if (t2 == 0) {  // one thread issues every load
+      sm90::prefetch_tensor_map(&map_x);
+      sm90::prefetch_tensor_map(&map_w);
+      // boxes of w past F are not loaded (their columns are not stored)
+      const int boxes = min(TF_BN / TF_BOX, (F - n0 + TF_BOX - 1) / TF_BOX);
+      phase = 1;  // the ring starts empty: the first waits pass
+      for (int kt = k_lo; kt < k_hi; ++kt) {
+        sm90::mbar_wait(&empty[stage], phase);
+        sm90::mbar_arrive_expect_tx(&full[stage],
+                                    L::X_PLANE + boxes * L::BOX_BYTES);
+        sm90::tma_load_3d(smem + L::X0 + stage * L::X_BYTES, &map_x,
+                          &full[stage], kt * TF_BK, c0, e);
+        for (int b = 0; b < boxes; ++b)
+          sm90::tma_load_3d(
+              smem + L::W0 + stage * L::W_BYTES + b * L::BOX_BYTES, &map_w,
+              &full[stage], n0 + b * TF_BOX, kt * TF_BK, e);
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (t2 >= 32) {  // x's raw tile -> hi over it, lo beside it
+      for (int kt = k_lo; kt < k_hi; ++kt) {
+        sm90::mbar_wait(&full[stage], phase);
+        unsigned char* xs = smem + L::X0 + stage * L::X_BYTES;
+        for (int c = t2 - 32; c < nb * 8; c += TF_SPLITTERS) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + 16 * c);
+          const float a[4] = {v.x, v.y, v.z, v.w};
+          float hi[4], lo[4];
+          tf_split(a, hi, lo);
+          *reinterpret_cast<float4*>(xs + 16 * c) =
+              make_float4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<float4*>(xs + L::X_PLANE + 16 * c) =
+              make_float4(lo[0], lo[1], lo[2], lo[3]);
+        }
+        sm90::fence_async_shared();
+        sm90::mbar_arrive(&split[stage]);
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    if constexpr (L::DECODE)
+      if (splits > 1) sm90::cluster_wait();
+  } else {  // ---- consumers: warpgroups 0 and 1, 64 columns each ----
+    sm90::setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const bool warp_leader = lane == 0;
+    // Row g + 8 h of the warp's 16 (of the warpgroup's 64 w^T rows) is
+    // column 4 ch[h] + g % 4 of w box 2 wg + warp / 2, chunk ch[h] = 2
+    // (warp % 2) + h + 4 (g / 4): the 32 lanes of a fragment load then read
+    // 32 distinct banks of the swizzled box (D row t + 4 q, chunk ch ^ (t +
+    // 4 q)). off[h][q]: this thread's byte offset of row g + 8 h at D row t
+    // + 4 q of the stage's first k8 slice (+1024 a slice).
+    int ch[2], off[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ch[h] = 2 * (warp & 1) + h + 4 * (g >> 2);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int d = t + 4 * q;
+        off[h][q] = (2 * wg + warp / 2) * L::BOX_BYTES + d * 128 +
+                    ((ch[h] ^ d) << 4) + (g & 3) * 4;
+      }
+    }
+    float acc[BC / 2];
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) acc[i] = 0.f;
+    // A fragments of a stage's four k8 slices, hi and lo; two sets where
+    // one stage's products run while the next stage's fragments load
+    float ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ah0[i][j] = al0[i][j] = ah1[i][j] = al1[i][j] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    // the products of stage ``stage``, issued and committed: its fragments
+    // read and split into (ah, al), x's planes through descriptors
+    auto products = [&](float (&ah)[4][4], float (&al)[4][4]) {
+      sm90::mbar_wait(&full[stage], phase);
+      sm90::mbar_wait(&split[stage], phase);
+      const float* ws =
+          reinterpret_cast<const float*>(smem + L::W0 + stage * L::W_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float a[4] = {ws[(off[0][0] + 1024 * kk) / 4],
+                            ws[(off[1][0] + 1024 * kk) / 4],
+                            ws[(off[0][1] + 1024 * kk) / 4],
+                            ws[(off[1][1] + 1024 * kk) / 4]};
+        tf_split(a, ah[kk], al[kk]);
+      }
+      const uint64_t dx =
+          tf_desc(sm90::smem_u32(smem + L::X0 + stage * L::X_BYTES));
+      constexpr int lo16 = L::X_PLANE / 16;
+      sm90::wgmma_fence();
+      if constexpr (BC <= 16) {
+        tf_stage<BC, BC>(acc, ah, al, dx, lo16);
+      } else if (nb == 32) {
+        tf_stage<32, BC>(acc, ah, al, dx, lo16);
+      } else if (BC == 64 || nb == 64) {
+        tf_stage<64, BC>(acc, ah, al, dx, lo16);
+      } else {
+        if constexpr (BC == 128) tf_stage<128, BC>(acc, ah, al, dx, lo16);
+      }
+      sm90::wgmma_commit();
+    };
+    auto advance = [&] {
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    sm90::fence_operands(acc);
+    if constexpr (L::DECODE) {  // bytes-bound: one set of fragments, each
+                                // stage's products done before the next
+      for (int kt = k_lo; kt < k_hi; ++kt) {
+        products(ah0, al0);
+        sm90::wgmma_wait<0>();
+        tf_fence(ah0);
+        tf_fence(al0);
+        sm90::mbar_arrive(&empty[stage], warp_leader);
+        advance();
+      }
+    } else {
+      int prev = 0;
+      for (int kt = k_lo; kt < k_hi; kt += 2) {
+        products(ah0, al0);
+        sm90::wgmma_wait<1>();  // the previous stage's products are done
+        tf_fence(ah1);
+        tf_fence(al1);
+        sm90::mbar_arrive(&empty[prev], warp_leader && kt > k_lo);
+        prev = stage;
+        advance();
+        if (kt + 1 < k_hi) {
+          products(ah1, al1);
+          sm90::wgmma_wait<1>();
+          tf_fence(ah0);
+          tf_fence(al0);
+          sm90::mbar_arrive(&empty[prev], warp_leader);
+          prev = stage;
+          advance();
+        }
+      }
+      sm90::wgmma_wait<0>();
+      tf_fence(ah0);
+      tf_fence(al0);
+      tf_fence(ah1);
+      tf_fence(al1);
+    }
+    sm90::fence_operands(acc);
+
+    // acc[4j + 2h + i]: out^T row (tile column) col(h), column (token row)
+    // 8 j + 2 (lane % 4) + i of the tile
+    auto col = [&](int h) {
+      return 64 * wg + 32 * (warp / 2) + 4 * ch[h] + (g & 3);
+    };
+    if constexpr (L::DECODE) {
+      if (splits > 1) sm90::cluster_wait();
+      // token rows in pairs, 8 bytes, to slot ``rank`` of the column's owner
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = col(h), owner = c / sw;
+        float* dst = recv + (rank * sw + c % sw) * L::RS + 2 * t;
+#pragma unroll
+        for (int j = 0; j < BC / 8; ++j) {
+          const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+          if (owner == rank)
+            *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(a, b);
+          else
+            sm90::st_async_f32x2(sm90::cluster_map(dst + 8 * j, owner), a, b,
+                                 sm90::cluster_map(received, owner));
+        }
+      }
+      sm90::named_barrier_sync(1, 256);  // this block's partial is in recv
+      if (splits > 1) sm90::mbar_wait_cluster(received, 0);  // the peers'
+      for (int i = tid + 128 * wg; i < rows * per_row; i += 256) {
+        const int r = i / per_row, c4 = i % per_row * 4, c = cs + c4;
+        if (c >= F) continue;
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        if (r < count) {  // the ranks' partials, added in rank order
+          for (int p = 0; p < splits; ++p) {
+            const float* src = recv + (p * sw + c4) * L::RS + r;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) s[k] += src[k * L::RS];
+          }
+        }
+        *reinterpret_cast<float4*>(op + (size_t)r * F + c) =
+            make_float4(s[0], s[1], s[2], s[3]);
+      }
+    } else {  // rows past counts[e] zero; rows past C and columns past F
+              // not written
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = n0 + col(h);
+        if (f >= F) continue;
+#pragma unroll
+        for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = c0 + 8 * j + 2 * t + i;
+            if (r < C)
+              op[(size_t)r * F + f] = r < count ? acc[4 * j + 2 * h + i] : 0.f;
+          }
+      }
+    }
+  }
+}
+
+template <int BC>
+cudaError_t launch_tf32x3(const void* x, const void* w, const int* counts,
+                          void* out, int E, int C, int D, int F, int splits,
+                          cudaStream_t stream) {
+  using L = TfLayout<BC>;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const uint64_t e = E, c = C, d = D, f = F;
+  CUtensorMap mx, mw;
+  cudaError_t err = sm90::tensor_map<3>(&mx, F32, x, {d, c, e},
+                                        {d * 4, c * d * 4}, {TF_BK, BC, 1});
+  if (err == cudaSuccess)
+    err = sm90::tensor_map<3>(&mw, F32, w, {f, d, e}, {f * 4, d * f * 4},
+                              {TF_BOX, TF_BK, 1});
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gmm_tf32x3<BC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((F + TF_BN - 1) / TF_BN) * splits;
+  const int c_tiles = (C + BC - 1) / BC;
+  if (blocks > 0x7fffffff || c_tiles > 65535) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)c_tiles, (unsigned)E);
+  cfg.blockDim = dim3(TF_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  float* o = static_cast<float*>(out);
+  void* args[] = {&mx, &mw, &counts, &o, &C, &D, &F, &splits};
+  err = cudaLaunchKernelExC(&cfg, (const void*)gmm_tf32x3<BC>, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// token rows a tile of the tf32x3 path: decode's 8 or 16 (split over D),
+// 64, or the wide tile
+int tf_rows(int C) {
+  return C <= 8 ? 8 : C <= 16 ? 16 : C <= 64 ? 64 : TF_WIDE_BC;
+}
+
+cudaError_t launch_tf(const void* x, const void* w, const int* counts,
+                      void* out, int E, int C, int D, int F, int splits,
+                      cudaStream_t stream) {
+  switch (tf_rows(C)) {
+    case 8:
+      return launch_tf32x3<8>(x, w, counts, out, E, C, D, F, splits, stream);
+    case 16:
+      return launch_tf32x3<16>(x, w, counts, out, E, C, D, F, splits, stream);
+    case 64:
+      return launch_tf32x3<64>(x, w, counts, out, E, C, D, F, splits, stream);
+    case 128:
+      return launch_tf32x3<128>(x, w, counts, out, E, C, D, F, splits,
+                                stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int tf_smem(int C) {
+  switch (tf_rows(C)) {
+    case 8: return TfLayout<8>::SMEM;
+    case 16: return TfLayout<16>::SMEM;
+    case 64: return TfLayout<64>::SMEM;
+    case 128: return TfLayout<128>::SMEM;
+  }
+  return -1;
+}
+
 // the paths, as kernels/moe_gmm/ops.py numbers them
-enum Path { FMA = 0, SWAP = 1, WGMMA = 2, FILL = 3 };
+enum Path { FMA = 0, SWAP = 1, WGMMA = 2, FILL = 3, TF32X3 = 4 };
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -1061,10 +1566,11 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // x: (E, C, D); w: (E, D, F); counts: (E,) int32; out: (E, C, F); x, w and
-// out contiguous, float32 for path FMA and bfloat16 for the others (the
-// caller's choice: kernels/moe_gmm/ops.py gmm_path); ``splits``: the SWAP
-// path's blocks along D (1, 2, 4 or 8: ops.py gmm_splits), 1 on the
-// others. Launches on ``stream``, allocates nothing, and returns the
+// out contiguous, float32 for paths FMA and TF32X3 and bfloat16 for the
+// others (the caller's choice: kernels/moe_gmm/ops.py gmm_path);
+// ``splits``: the blocks along D of the SWAP path and of TF32X3 at C <= 16
+// (1, 2, 4 or 8: ops.py gmm_splits), 1 on the others. Launches on
+// ``stream``, allocates nothing, and returns the
 // cudaError_t of the launch (0 on success); a path that cannot take the
 // shape refuses it (cudaErrorInvalidValue) and launches nothing.
 extern "C" int repro_moe_gmm(const void* x, const void* w, const void* counts,
@@ -1073,12 +1579,13 @@ extern "C" int repro_moe_gmm(const void* x, const void* w, const void* counts,
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > SW_MAX_SPLITS || (splits & (splits - 1)) ||
-      (splits != 1 && path != SWAP))
+      (splits != 1 && !((path == SWAP || path == TF32X3) && C <= 16)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* cnt = static_cast<const int*>(counts);
-  const bool tma = D % 8 == 0 && F % 8 == 0 && aligned16(x) &&
-                   aligned16(w) && aligned16(out);
+  const bool aligned = aligned16(x) && aligned16(w) && aligned16(out);
+  const bool tma = D % 8 == 0 && F % 8 == 0 && aligned;  // bf16 rows
+  const bool tma_f32 = D % 4 == 0 && F % 4 == 0 && aligned;
   switch (path) {
     case FMA:
       if ((C + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
@@ -1096,6 +1603,9 @@ extern "C" int repro_moe_gmm(const void* x, const void* w, const void* counts,
     case WGMMA:
       if (C <= 16 || !tma) return (int)cudaErrorInvalidValue;
       return (int)launch_wgmma(x, w, cnt, out, E, C, D, F, st);
+    case TF32X3:
+      if (!tma_f32) return (int)cudaErrorInvalidValue;
+      return (int)launch_tf(x, w, cnt, out, E, C, D, F, splits, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1114,15 +1624,18 @@ extern "C" int repro_moe_gmm_smem(int path, int C) {
                     : (int)tc_smem_bytes<16, 64>();
     case WGMMA:
       return C <= 16 ? -1 : WgLayout<WG_BN>::SMEM;
+    case TF32X3:
+      return tf_smem(C);
   }
   return -1;
 }
 
-// The swap path's tiling, which kernels/moe_gmm/tiling.py repeats for the
-// wrapper and the plain version (ops.build checks the two agree): 0 ->
-// output columns a tile, 1 -> D a stage, 2 -> the largest cluster; -1
-// otherwise.
-extern "C" int repro_moe_gmm_swap_tiling(int which) {
+// The tiling of the swap and tf32x3 paths, which kernels/moe_gmm/tiling.py
+// repeats for the wrapper and the plain versions (ops.build checks the two
+// agree): 0 -> the swap path's output columns a tile, 1 -> its D a stage,
+// 2 -> the largest cluster, 3 -> the tf32x3 path's output columns a tile,
+// 4 -> its D a stage; -1 otherwise.
+extern "C" int repro_moe_gmm_tiling(int which) {
   switch (which) {
     case 0:
       return SW_BN;
@@ -1130,6 +1643,10 @@ extern "C" int repro_moe_gmm_swap_tiling(int which) {
       return SW_BK;
     case 2:
       return SW_MAX_SPLITS;
+    case 3:
+      return TF_BN;
+    case 4:
+      return TF_BK;
   }
   return -1;
 }

@@ -12,10 +12,10 @@
 //           accumulators, A and B in shared memory or A in registers (the
 //           m16n8k16 A fragment of each warp's 16 rows),
 //           m64n{16,32,64}k8 tf32 products (K-major A and B in shared
-//           memory: tf32 has no transposed form), m64n{64,128,256}k8 tf32
-//           products with A in registers (the m16n8k8 tf32 A fragment) and
-//           the tf32 rounding of an f32, fence / commit_group /
-//           wait_group;
+//           memory: tf32 has no transposed form),
+//           m64n{8,16,32,64,128,256}k8 tf32 products with A in registers
+//           (the m16n8k8 tf32 A fragment) and the tf32 rounding of an f32,
+//           fence / commit_group / wait_group;
 //   clusters: the block's rank, a cluster-wide barrier, TMA loads
 //           multicast to several blocks' shared memory, arrivals on a
 //           peer block's mbarrier, a cluster barrier in two halves,
@@ -804,6 +804,62 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"((uint32_t)accumulate));
+}
+
+// d (64 x 8, f32) += A (64 x 8, tf32 in registers: the f32 bits of each
+// warp's 16 rows, a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3]
+// (g + 8, t + 4) for lane 4 g + t) B (8 x 8, K-major in shared memory
+// through a descriptor)
+__device__ __forceinline__ void wgmma_m64n8k8_tf32_rs(float (&d)[4],
+                                                      const float (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(db),
+        "r"(1));
+}
+
+// d (64 x 16, f32) += A (64 x 8, tf32 in registers, as
+// wgmma_m64n8k8_tf32_rs) B (8 x 16, K-major in shared memory through a
+// descriptor)
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8],
+                                                       const float (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(db),
+        "r"(1));
+}
+
+// d (64 x 32, f32) += A (64 x 8, tf32 in registers, as
+// wgmma_m64n8k8_tf32_rs) B (8 x 32, K-major in shared memory through a
+// descriptor)
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                       const float (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(db),
+        "r"(1));
 }
 
 // d (64 x 64, f32) += A (64 x 8, tf32 in registers: the f32 bits of

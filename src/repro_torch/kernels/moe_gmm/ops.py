@@ -7,8 +7,8 @@ version (``ref.gmm_reference``); a CUDA tensor goes to the kernel, or the
 call raises. The kernel is built at its first launch
 (``repro_torch.kernels.build``). ``gmm_path`` picks the kernel's path
 from the call's dtype, shape and alignment alone, and ``gmm_splits`` the
-swap path's split over D from its shape and the card's SM count; no path
-falls back to another.
+split over D of the swap path and of the tf32x3 path at C <= 16 from the
+shape and the card's SM count; no path falls back to another.
 """
 from __future__ import annotations
 
@@ -21,17 +21,20 @@ from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.moe_gmm.ref import gmm_reference
 from repro_torch.kernels.moe_gmm.tiling import (MAX_SPLITS, SWAP_COLS,
-                                               SWAP_DEPTH)
+                                               SWAP_DEPTH, TF32_COLS,
+                                               TF32_DEPTH)
 from repro_torch.roofline.work import charged, gmm_work
 
 SOURCES = ("moe_gmm.cu",)
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's paths, numbered as csrc/moe_gmm.cu's entry point takes them:
-# "fma" f32 (full-f32 products for the oracles), "swap" bf16 C <= 16
-# through TMA (wgmma with the operands swapped, split over D), "wgmma"
-# bf16 C > 16 through TMA, "fill" bf16 where TMA cannot address the
-# tensors (mma.sync, 8- or 16-row tiles filled element by element)
-PATHS = ("fma", "swap", "wgmma", "fill")
+# "fma" f32 where TMA cannot address the tensors (FMA products), "swap"
+# bf16 C <= 16 through TMA (wgmma with the operands swapped, split over
+# D), "wgmma" bf16 C > 16 through TMA, "fill" bf16 where TMA cannot
+# address the tensors (mma.sync, 8- or 16-row tiles filled element by
+# element), "tf32x3" f32 through TMA (wgmma in split TF32, the operands
+# swapped, split over D at C <= 16)
+PATHS = ("fma", "swap", "wgmma", "fill", "tf32x3")
 
 # kernel launches since the last reset (plain-version calls do not count),
 # in all and by path
@@ -50,12 +53,13 @@ def reset_launches() -> None:
 
 
 def gmm_path(dtype, C: int, D: int, F: int, aligned: bool) -> str:
-    """The kernel path of a call: f32 -> "fma"; bf16 where TMA can
-    address x, w and out (D and F multiples of 8: 16-byte row strides;
-    ``aligned``: every base 16-byte aligned) -> "swap" for C <= 16,
+    """The kernel path of a call: f32 where TMA can address x, w and out
+    (D and F multiples of 4: 16-byte row strides; ``aligned``: every base
+    16-byte aligned) -> "tf32x3", other f32 calls -> "fma"; bf16 where
+    TMA can address them (D and F multiples of 8) -> "swap" for C <= 16,
     "wgmma" above; other bf16 calls -> "fill"."""
     if dtype == torch.float32:
-        return "fma"
+        return "tf32x3" if aligned and D % 4 == 0 and F % 4 == 0 else "fma"
     if dtype != torch.bfloat16:
         raise TypeError(f"moe_gmm has no path for {dtype}")
     if not (aligned and D % 8 == 0 and F % 8 == 0):
@@ -65,9 +69,10 @@ def gmm_path(dtype, C: int, D: int, F: int, aligned: bool) -> str:
 
 def gmm_splits(E: int, C: int, D: int, F: int, sms: int) -> int:
     """Blocks (a cluster) that split the D sum of each (expert, 128-column
-    tile) on the swap path: the largest of 1, 2, 4, 8 that keeps every
-    block on an SM of its own (E x tiles x splits <= ``sms``) and at least
-    one D tile (64) a block; 1 for C > 16 (the other paths do not split)."""
+    tile) on the swap path and on the tf32x3 path at C <= 16: the largest
+    of 1, 2, 4, 8 that keeps every block on an SM of its own (E x tiles x
+    splits <= ``sms``) and at least 64 of D a block (one bf16 D tile, two
+    f32 ones); 1 for C > 16 (no path splits there)."""
     if C > 16:
         return 1
     blocks = E * -(-F // SWAP_COLS)
@@ -103,14 +108,15 @@ def build():
             fn.restype = ctypes.c_int
             built.lib.repro_moe_gmm_smem.argtypes = [ctypes.c_int] * 2
             built.lib.repro_moe_gmm_smem.restype = ctypes.c_int
-            tiling = built.lib.repro_moe_gmm_swap_tiling
+            tiling = built.lib.repro_moe_gmm_tiling
             tiling.argtypes, tiling.restype = [ctypes.c_int], ctypes.c_int
-            got = tuple(tiling(i) for i in range(3))
-            if got != (SWAP_COLS, SWAP_DEPTH, MAX_SPLITS):
+            got = tuple(tiling(i) for i in range(5))
+            want = (SWAP_COLS, SWAP_DEPTH, MAX_SPLITS, TF32_COLS, TF32_DEPTH)
+            if got != want:
                 raise RuntimeError(
-                    f"moe_gmm.cu tiles the swap path as {got} (columns, "
-                    f"depth, cluster), tiling.py as "
-                    f"{(SWAP_COLS, SWAP_DEPTH, MAX_SPLITS)}")
+                    f"moe_gmm.cu tiles the swap and tf32x3 paths as {got} "
+                    f"(swap columns, depth, cluster, tf32x3 columns, "
+                    f"depth), tiling.py as {want}")
             _built = built
     return _built
 
@@ -168,7 +174,7 @@ def grouped_matmul(x, w, counts):
     path = gmm_path(x.dtype, C, D, F, all(
         t.data_ptr() % 16 == 0 for t in (x, w, out)))
     splits = gmm_splits(E, C, D, F, _sm_count(x.device)) \
-        if path == "swap" else 1
+        if path in ("swap", "tf32x3") else 1
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), counts.data_ptr(),

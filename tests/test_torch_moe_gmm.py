@@ -14,8 +14,14 @@ multiples of 8, the fill path's 8- and 16-row tiles) included, each on the
 path ``gmm_path`` picks; the ``wgmma`` path (bf16, C > 16) and the
 ``swap`` path (bf16, C <= 16) on their own edges at ``chip_smoke.py``'s
 ``GMM_TOL``, the swap path also within one bf16 ulp of the split's plain
-version. The wrapper's choice of path (``ops.gmm_path``) and of the swap
-path's split (``ops.gmm_splits``) are pure functions, tested here.
+version. The f32 "tf32x3" path (split TF32 on wgmma) has its own plain
+version, ``gmm_tf32x3_reference``, held here against the Pallas kernel in
+interpret mode and the JAX oracle at 1e-4 (every split over D of the
+decode tile included), and against float64 at olmoe's D = 2048, where it
+must come closer than a plain TF32 product; on the card the path is held
+on its edges (``TF32_EDGES``) to the plain version at 1e-4. The wrapper's
+choice of path (``ops.gmm_path``) and of the split over D
+(``ops.gmm_splits``) are pure functions, tested here.
 
 Tolerances are the repo's own: 1e-4 in f32, 1e-1 in bf16 (``GMM_TOL``:
 3e-2 in bf16 for the wgmma edges, on weights at std D^-1/2).
@@ -28,9 +34,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.moe_gmm import ops  # noqa: E402
-from repro_torch.kernels.moe_gmm.ref import (gmm_reference,  # noqa: E402
-                                             gmm_split_reference)
-from repro_torch.kernels.moe_gmm.tiling import split_bounds  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
+    gmm_reference, gmm_split_reference, gmm_tf32x3_reference)
+from repro_torch.kernels.moe_gmm.tiling import (TF32_DEPTH,  # noqa: E402
+                                               split_bounds)
+from repro_torch.kernels.tf32 import tf32_round  # noqa: E402
 
 CASES = [  # E, C, D, F, dtype (tests/test_kernels.py)
     (4, 32, 16, 24, "float32"),
@@ -97,6 +105,52 @@ SPLITS = (1, 2, 4, 8)
 SPLIT_CASES = [(E, C, D, F, dtype) for E, C, D, F in
                ((2, 16, 520, 64), (4, 16, 2048, 256))
                for dtype in ("bfloat16", "float32")]
+# the tf32x3 path (f32 where TMA can address the tensors: D and F
+# multiples of 4): C of 1, 7, 8, 9, 16 (the decode tiles, split over D),
+# 17, 48, 64 (the 64-row tile), 65, 160 and 2560 (the 128-row tile); E of
+# 1, 4 and 64; D and F multiples of 4 but not of 8, and of 32 and 128 only
+# in part; olmoe-1b-7b's products on one card (decode, T=300 and T=1024
+# prefills) and under EP 16 (replicated decode, the all-to-all buffer)
+TF32_EDGES = [  # E, C, D, F
+    (1, 1, 36, 44),
+    (4, 7, 68, 132),
+    (3, 8, 100, 260),
+    (2, 9, 4, 4),
+    (64, 16, 36, 12),
+    (1, 16, 2048, 136),
+    (2, 17, 36, 44),
+    (3, 48, 132, 196),
+    (2, 64, 64, 128),
+    (2, 65, 100, 36),
+    (3, 160, 68, 260),
+    (1, 2560, 36, 68),
+    (64, 8, 2048, 1024),
+    (64, 8, 1024, 2048),
+    (64, 48, 2048, 1024),
+    (64, 160, 2048, 1024),
+    (64, 160, 1024, 2048),
+    (4, 16, 2048, 1024),
+    (4, 16, 1024, 2048),
+    (4, 8, 2048, 1024),
+    (4, 2560, 2048, 1024),
+    (4, 2560, 1024, 2048),
+]
+TF32_COUNTS = ("random", "zero", "full", "one")
+# the plain tf32x3 version's CPU edges against the JAX oracle: C of 1, 7,
+# 9, 16 (split over D), 17, 48, 65, 160, 2560; D of 4, 36 and 100 (not
+# multiples of the 32-deep tile), 520 (every split has tiles to add)
+TF32_CPU_EDGES = [  # E, C, D, F, splits
+    (1, 1, 36, 44, 1),
+    (4, 7, 68, 132, 2),
+    (2, 9, 4, 4, 1),
+    (3, 16, 520, 12, 8),
+    (2, 16, 100, 20, 4),
+    (2, 17, 36, 44, 1),
+    (3, 48, 132, 36, 1),
+    (2, 65, 100, 36, 1),
+    (3, 160, 68, 20, 1),
+    (1, 2560, 36, 12, 1),
+]
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the swap path against the split's plain version on the card: at most one
 # bf16 ulp (rtol 2^-7), and 1e-4 for sums that cancel
@@ -115,7 +169,9 @@ def _inputs(seed, E, C, D, F, counts):
     w = rng.normal(size=(E, D, F)).astype(np.float32)
     cnt = {"random": rng.integers(0, C + 1, size=(E,)),
            "zero": np.zeros((E,)),
-           "full": np.full((E,), C)}[counts].astype(np.int32)
+           "full": np.full((E,), C),
+           "one": np.where(np.arange(E) == E - 1, C, 0)}[counts].astype(
+               np.int32)
     cnt[0] = 0          # every case has an empty expert
     return x, w, cnt
 
@@ -238,6 +294,74 @@ def test_split_plain_matches_reference_at_depth(E, C, D, F, dtype, counts,
         atol=_tol(dtype), rtol=_tol(dtype))
 
 
+def _tf32x3_plain(x, w, cnt, splits):
+    return gmm_tf32x3_reference(*(torch.as_tensor(a) for a in (x, w, cnt)),
+                                splits)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("counts", TF32_COUNTS)
+@pytest.mark.parametrize("E,C,D,F,dtype", CASES)
+def test_tf32x3_plain_matches_pallas_interpret(E, C, D, F, dtype, counts,
+                                               splits):
+    """The tf32x3 path's arithmetic (split TF32, 32-deep D tiles, the split
+    over D) in f32 against the Pallas kernel in interpret mode and the JAX
+    oracle, within f32's 1e-4, on tests/test_kernels.py's shapes."""
+    x, w, cnt = _inputs(0, E, C, D, F, counts)
+    out = _tf32x3_plain(x, w, cnt, splits)
+    assert out.dtype == torch.float32 and out.shape == (E, C, F)
+    for kind in ("pallas", "oracle"):
+        np.testing.assert_allclose(
+            out.numpy(), _jax_out(kind, E, C, D, F, "float32", counts, 0),
+            atol=1e-4, rtol=1e-4)
+    rows = np.arange(C)[None, :, None] >= cnt[:, None, None]
+    assert not np.any(np.where(rows, out.numpy(), 0.0))
+
+
+@pytest.mark.parametrize("counts", TF32_COUNTS)
+@pytest.mark.parametrize("E,C,D,F,splits", TF32_CPU_EDGES)
+def test_tf32x3_plain_matches_reference_on_edges(E, C, D, F, splits, counts):
+    """The same on the tf32x3 path's edges, against the JAX oracle."""
+    x, w, cnt = _inputs(6, E, C, D, F, counts)
+    out = _tf32x3_plain(x, w, cnt, splits)
+    np.testing.assert_allclose(
+        out.numpy(), _jax_out("oracle", E, C, D, F, "float32", counts, 6),
+        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+def test_tf32x3_plain_beats_plain_tf32_at_depth(splits):
+    """At olmoe's d_model (D = 2048) the split-TF32 sum lies within 1e-5
+    of the float64 product, and closer than a plain TF32 product (each
+    operand rounded to tf32 once) by a factor of 100 or more."""
+    E, C, D, F = 2, 16, 2048, 64
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(E, C, D)).astype(np.float32)
+    w = (rng.normal(size=(E, D, F)) * D ** -0.5).astype(np.float32)
+    cnt = np.array([C, 11], np.int32)
+    exact = np.einsum("ecd,edf->ecf", x.astype(np.float64),
+                      w.astype(np.float64))
+    exact[1, 11:] = 0.0
+    got = _tf32x3_plain(x, w, cnt, splits).numpy().astype(np.float64)
+    xt, wt = (tf32_round(torch.as_tensor(a)).double().numpy() for a in (x, w))
+    plain = np.einsum("ecd,edf->ecf", xt, wt)
+    plain[1, 11:] = 0.0
+    err, err_tf32 = np.abs(got - exact).max(), np.abs(plain - exact).max()
+    assert err <= 1e-5 and 100 * err < err_tf32, (err, err_tf32)
+
+
+def test_tf32x3_split_uses_32_deep_tiles():
+    assert TF32_DEPTH == 32
+    assert split_bounds(520, 8, TF32_DEPTH) == [
+        (0, 64), (64, 128), (128, 192), (192, 256), (256, 320), (320, 384),
+        (384, 448), (448, 520)]
+    assert split_bounds(100, 4, TF32_DEPTH) == [(0, 32), (32, 64), (64, 96),
+                                                (96, 100)]
+    assert split_bounds(100, 8, TF32_DEPTH) == [
+        (0, 0), (0, 32), (32, 32), (32, 64), (64, 64), (64, 96), (96, 96),
+        (96, 100)]
+
+
 @pytest.mark.parametrize("D,splits,bounds", [
     (64, 1, [(0, 64)]),
     (72, 2, [(0, 64), (64, 72)]),
@@ -273,9 +397,17 @@ def test_splits_fill_the_card_from_the_shape(E, C, D, F, sms, splits):
 
 
 @pytest.mark.parametrize("dtype,C,D,F,aligned,path", [
-    (torch.float32, 8, 2048, 1024, True, "fma"),
-    (torch.float32, 160, 2048, 1024, True, "fma"),
+    (torch.float32, 8, 2048, 1024, True, "tf32x3"),
+    (torch.float32, 160, 2048, 1024, True, "tf32x3"),
     (torch.float32, 21, 37, 45, False, "fma"),
+    (torch.float32, 1, 4, 4, True, "tf32x3"),
+    (torch.float32, 16, 36, 44, True, "tf32x3"),
+    (torch.float32, 2560, 1024, 2048, True, "tf32x3"),
+    (torch.float32, 8, 2048, 1024, False, "fma"),
+    (torch.float32, 160, 2048, 1024, False, "fma"),
+    (torch.float32, 16, 37, 64, True, "fma"),
+    (torch.float32, 48, 64, 45, True, "fma"),
+    (torch.float32, 21, 37, 45, True, "fma"),
     (torch.bfloat16, 1, 64, 128, True, "swap"),
     (torch.bfloat16, 8, 2048, 1024, True, "swap"),
     (torch.bfloat16, 16, 37, 45, False, "fill"),
@@ -311,6 +443,18 @@ def test_cpu_calls_count_no_path():
     before = dict(ops.launches_by_path)
     _port(x, w, cnt, "bfloat16")
     assert ops.launches_by_path == before
+
+
+def test_cpu_f32_calls_count_no_path():
+    """An f32 call on the CPU, at a shape the tf32x3 path takes on the
+    card, goes to the plain version and counts no launch on any path."""
+    x, w, cnt = _inputs(1, 2, 24, 16, 8, "random")
+    before, paths = ops.launches, dict(ops.launches_by_path)
+    out = _port(x, w, cnt, "float32")
+    assert ops.launches == before and ops.launches_by_path == paths
+    np.testing.assert_allclose(
+        out.numpy(),
+        gmm_reference(*(torch.as_tensor(a) for a in (x, w, cnt))).numpy())
 
 
 def test_launch_path_refuses_cpu_tensors():
@@ -497,3 +641,98 @@ def test_swap_path_refuses_what_tma_cannot_address(cuda, E, C, D, F,
                             torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err != 0 and not out.any()
+
+
+def _card_f32(seed, E, C, D, F, counts, device):
+    """f32 x ~ N(0, 1), w ~ N(0, 1 / D) and int32 counts, drawn on the card
+    as ``_card_inputs`` draws them."""
+    x, w, cnt = _card_inputs(seed, E, C, D, F, counts, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    return (torch.randn((E, C, D), generator=gen, device=device),
+            torch.randn((E, D, F), generator=gen, device=device) * D ** -0.5,
+            cnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", TF32_COUNTS + ("decode",))
+@pytest.mark.parametrize("E,C,D,F", TF32_EDGES)
+def test_tf32x3_path_matches_plain_on_card(cuda, E, C, D, F, counts):
+    """One "tf32x3" launch (its split over D as ``gmm_splits`` picks it for
+    this card), within f32's 1e-4 of the plain version and of the plain
+    version of its own arithmetic; rows >= counts[e] exactly zero; two
+    calls bitwise equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, cnt = _card_f32(10, E, C, D, F, counts, cuda)
+    before, paths = ops.launches, dict(ops.launches_by_path)
+    out = ops.grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert ops.launches_by_path["tf32x3"] == paths["tf32x3"] + 1
+    assert out.dtype == torch.float32 and out.shape == (E, C, F)
+    splits = ops.gmm_splits(E, C, D, F, ops._sm_count(cuda))
+    tol = GMM_TOL[torch.float32]
+    torch.testing.assert_close(out, gmm_reference(x, w, cnt), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(out, gmm_tf32x3_reference(x, w, cnt, splits),
+                               atol=tol, rtol=tol)
+    rows = torch.arange(C, device=cuda)[None, :, None] >= cnt[:, None, None]
+    assert not out.masked_select(rows).any()
+    again = ops.grouped_matmul(x, w, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", SPLITS)
+def test_tf32x3_path_takes_every_split_on_card(cuda, splits):
+    """The entry point at each split of one EP-shaped f32 call (4 experts,
+    C 16, D 2048, F 256): within 1e-4 of the plain version of that split,
+    and the same bits when run twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, C, D, F = 4, 16, 2048, 256
+    x, w, cnt = _card_f32(11, E, C, D, F, "random", cuda)
+    lib = ops.build().lib
+    outs = []
+    for _ in range(2):
+        out = torch.empty((E, C, F), device=cuda)
+        err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), cnt.data_ptr(),
+                                out.data_ptr(), ops.PATHS.index("tf32x3"),
+                                splits, E, C, D, F,
+                                torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        outs.append(out)
+    torch.testing.assert_close(outs[0],
+                               gmm_tf32x3_reference(x, w, cnt, splits),
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,D,F,splits,shift", [
+    (2, 8, 38, 64, 1, 0),      # D not a multiple of 4
+    (2, 16, 64, 46, 1, 0),     # F not a multiple of 4
+    (2, 32, 64, 64, 1, 1),     # x's base off 16 bytes
+    (2, 17, 64, 64, 2, 0),     # a split over D at C > 16
+    (2, 8, 2048, 64, 3, 0),    # not a cluster of 1, 2, 4 or 8
+])
+def test_tf32x3_path_refuses_what_tma_cannot_address(cuda, E, C, D, F,
+                                                     splits, shift):
+    """The entry point refuses the tf32x3 path (and a split it does not
+    take) instead of running another kernel; the wrapper sends such
+    shapes to the fma path."""
+    x, w, cnt = _card_f32(12, E, C, D, F, "full", cuda)
+    xs = torch.empty(E * C * D + shift, device=cuda)[shift:].view(E, C, D)
+    xs.copy_(x)
+    lib = ops.build().lib
+    out = torch.zeros((E, C, F), device=cuda)
+    err = lib.repro_moe_gmm(xs.data_ptr(), w.data_ptr(), cnt.data_ptr(),
+                            out.data_ptr(), ops.PATHS.index("tf32x3"), splits,
+                            E, C, D, F,
+                            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0 and not out.any()
+    if splits == 1:
+        assert ops.gmm_path(torch.float32, C, D, F,
+                            xs.data_ptr() % 16 == 0) == "fma"
