@@ -13,8 +13,8 @@ Differences from the kernel implementation, modeled explicitly:
 * throttling is admission-based (quantum bytes declared per job: JAX reads
   them from ``compiled.cost_analysis()``, the port's callers declare them
   until a torch cost estimate exists) rather than perf-counter-reactive;
-* straggler mitigation: per-quantum deadline monitor with optional
-  speculative backup dispatch of idempotent quanta onto idle lanes.
+* stragglers: a quantum slower than ``straggler_factor`` x its job's
+  running mean is recorded in ``stragglers``.
 
 Virtual gangs (DESIGN.md §2.4): ``submit_vgang`` flattens a formed
 ``vgang.formation.VirtualGang`` onto disjoint lane blocks (the same
@@ -29,6 +29,17 @@ running gang's regime.
 Works with any callables. The executor itself is device-agnostic: the
 GPU lane model (one CUDA stream per lane, a quantum ends when its stream
 synchronizes) lives in ``repro_torch.device``.
+
+While ``obs.spans`` is on, each worker records ``executor.rt_quantum``
+from the pick to the quantum's end (the return of ``job.fn`` and the
+lane's retirement: the instance's ``finish`` on its last lane), with meta
+``job``, ``idx`` and the absolute ``release``, ``barrier`` (past the
+gang-isolation barrier), ``start`` (admitted) and ``prev_finish`` (the
+same job's previous instance, or None), so that backlog, dispatch and
+run make up the response; ``executor.be_quantum`` around ``be.fn``; and,
+for each best-effort charge the regulator denies, the instant
+``executor.be_denied`` with the absolute ``stalled_until``. Every worker
+names its lane to the recorder.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ from repro_torch.core.gang import RTTask, Thread, _ids
 from repro_torch.core.glock import GangScheduler
 from repro_torch.core.throttle import BandwidthRegulator
 from repro_torch.core.tracing import Trace
+from repro_torch.obs import spans as _spans
 
 # job uids share the RTTask counter so that virtual-gang members —
 # whose RTJobs reuse the member task's uid (submit_vgang) — can never
@@ -104,7 +116,6 @@ class GangExecutor:
     def __init__(self, n_lanes: int, *, enabled: bool = True,
                  regulation_interval_s: float = 0.010,
                  straggler_factor: float = 3.0,
-                 backup_dispatch: bool = False,
                  budget_policy=None, reclaim: bool = False,
                  watchdog_s: Optional[float] = None,
                  watchdog_factor: Optional[float] = None,
@@ -169,7 +180,6 @@ class GangExecutor:
         self._wake = threading.Condition(self._lock)
         self._stop = False
         self.straggler_factor = straggler_factor
-        self.backup_dispatch = backup_dispatch
         self.stragglers: List[Tuple[str, int, float]] = []
         self.response_times: Dict[str, List[float]] = {}
         # per-name obs.metrics counters (executor.* series); the
@@ -673,8 +683,24 @@ class GangExecutor:
         return first
 
     # ------------------------------------------------------------------
+    def _span_rt(self, lane: int, job: RTJob, inst: _JobInstance,
+                 t_pick: float, t_barrier: float, t_run: float,
+                 t_end: float) -> None:
+        """Record one RT quantum that just ended (recorder on)."""
+        t0 = self._t0
+        prev = self._instances[job.uid][inst.index - 1].finish \
+            if inst.index else None
+        _spans.RECORDER.add(
+            "executor.rt_quantum", lane, t0 + t_pick, t0 + t_end,
+            {"job": job.name, "idx": inst.index,
+             "release": t0 + inst.release, "barrier": t0 + t_barrier,
+             "start": t0 + t_run,
+             "prev_finish": None if prev is None else t0 + prev})
+
     def _worker(self, lane: int):
         prev: Optional[Thread] = None
+        rec = _spans.RECORDER
+        _spans.set_lane(lane)
         while True:
             with self._lock:
                 if self._stop:
@@ -684,6 +710,7 @@ class GangExecutor:
             picked = self.sched.pick_next_task_rt(lane, prev, nxt)
             prev = None
             if picked is not None:
+                t_pick = self._now() if rec.on else 0.0
                 job = self._jobs[picked.task.uid]
                 # NOTE: no budget write here. Budgets are applied from
                 # the gang-change hook under g.lock (_apply_budgets); a
@@ -738,6 +765,8 @@ class GangExecutor:
                     prev = picked
                     continue
                 t1 = self._now()
+                if rec.on:
+                    self._span_rt(lane, job, inst, t_pick, t0, t_run, t1)
                 dur = t1 - t_run
                 key = job.name
                 with self._lock:
@@ -777,12 +806,21 @@ class GangExecutor:
                     t0 = self._now()
                     be.fn(lane)
                     t1 = self._now()
+                    if rec.on:
+                        rec.add("executor.be_quantum", lane,
+                                self._t0 + t0, self._t0 + t1,
+                                {"job": be.name})
                     with self._lock:
                         self.trace.record(lane, be.name,
                                           t0 * 1e3, t1 * 1e3)
                         self._be_q[be.name].value += 1
                     ran_be = True
                     break
+                if rec.on:
+                    rec.add("executor.be_denied", lane, self._t0 + now,
+                            self._t0 + now,
+                            {"job": be.name, "stalled_until": self._t0
+                             + self.reg.cores[lane].stalled_until})
             if not ran_be:
                 # idle lane: sleep on the condition variable until the next
                 # RT release is due, a quantum retires, or a gang hand-off

@@ -42,6 +42,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper
+from repro_torch.obs import spans as obs_spans
 from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import (Rules, constrain, make_rules,
                                             mesh_shape, multi_device)
@@ -440,18 +441,21 @@ class ModelApi:
         f32 and {"k", "v"} (n_groups, B, S, Hkv, D). The MoE aux losses
         are dropped, as in JAX. vlm takes batch["patches"] too; audio takes
         batch["frames"] (B, F, D) and returns the tree of
-        ``whisper.run_decoder_train``."""
-        cfg = self.cfg
-        if cfg.family == "audio":
-            return self._whisper_prefill(params, batch)
-        ctx = self._ctx("prefill", batch["tokens"])
-        params = self._top(params)
-        x = self._embed_in(params, batch, ctx)
-        x, caches, _ = self._run_blocks(params, x, ctx)
-        x = constrain(T.final_norm(cfg, params, x), ctx.rules,
-                      ("batch", None, None))
-        logits = T.lm_logits(cfg, params, x[:, -1:, :], ctx)
-        return logits, caches
+        ``whisper.run_decoder_train``. The call is the span
+        ``model.prefill_fn`` while ``obs.spans`` is on: the host's time
+        to enqueue the step's work."""
+        with obs_spans.span("model.prefill_fn"):
+            cfg = self.cfg
+            if cfg.family == "audio":
+                return self._whisper_prefill(params, batch)
+            ctx = self._ctx("prefill", batch["tokens"])
+            params = self._top(params)
+            x = self._embed_in(params, batch, ctx)
+            x, caches, _ = self._run_blocks(params, x, ctx)
+            x = constrain(T.final_norm(cfg, params, x), ctx.rules,
+                          ("batch", None, None))
+            logits = T.lm_logits(cfg, params, x[:, -1:, :], ctx)
+            return logits, caches
 
     @_on_mesh
     @torch.no_grad()
@@ -463,16 +467,19 @@ class ModelApi:
         length are never read: ``decode_attention`` masks kpos > pos); for
         audio the tree of ``prefill_fn`` with "self" grown to (L, B, Smax,
         H, D). vlm embeds the tokens only, as in JAX. Updated in place.
-        Returns (logits (B, 1, V) f32, caches)."""
-        cfg = self.cfg
-        if cfg.family == "audio":
-            return self._whisper_decode(params, caches, tokens, pos)
-        ctx = self._ctx("decode", positions=pos)
-        params = self._top(params)
-        x = T.embed_tokens(cfg, params, tokens, self.compute_dtype(), ctx)
-        x, caches, _ = self._run_blocks(params, x, ctx, caches)
-        x = T.final_norm(cfg, params, x)
-        return T.lm_logits(cfg, params, x, ctx), caches
+        Returns (logits (B, 1, V) f32, caches). The call is the span
+        ``model.decode_fn`` while ``obs.spans`` is on."""
+        with obs_spans.span("model.decode_fn"):
+            cfg = self.cfg
+            if cfg.family == "audio":
+                return self._whisper_decode(params, caches, tokens, pos)
+            ctx = self._ctx("decode", positions=pos)
+            params = self._top(params)
+            x = T.embed_tokens(cfg, params, tokens, self.compute_dtype(),
+                               ctx)
+            x, caches, _ = self._run_blocks(params, x, ctx, caches)
+            x = T.final_norm(cfg, params, x)
+            return T.lm_logits(cfg, params, x, ctx), caches
 
     def _top(self, params):
         """The leaves outside the layer stacks gathered for compute."""

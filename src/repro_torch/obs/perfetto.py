@@ -20,9 +20,13 @@ Track layout:
   budget vs. used per core, donation-pool level under reclaim, and
   cumulative glock hold time (built by ``export_sim`` from the
   regulator's window history and the engines' gang-change log).
+* pid ``PID_SPANS`` — "host spans": the ``obs.spans`` recorder's spans,
+  one thread a lane ("lane N"; tid N + 1, tid 0 for spans recorded off
+  any lane), nested "X" events (an instant has dur 0).
 
-``segments_from_json`` inverts the core tracks exactly (the round-trip
-test in tests/test_obs.py relies on it), and ``validate_chrome_trace``
+``segments_from_json`` and ``spans_from_json`` invert the core and the
+span tracks exactly (the round-trip tests in tests/test_obs.py and
+tests/test_torch_perfetto.py rely on them), and ``validate_chrome_trace``
 is a dependency-free structural validator used by CI's smoke job.
 """
 from __future__ import annotations
@@ -30,8 +34,11 @@ from __future__ import annotations
 import json
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from repro_torch.obs.spans import Span
+
 PID_CORES = 1
 PID_COUNTERS = 2
+PID_SPANS = 3
 MS = 1000.0      # trace unit (ms) -> chrome unit (us)
 
 # Perfetto's fixed color-name palette (cname); picked for contrast:
@@ -61,11 +68,17 @@ def _classify(label: str, rt_names: Sequence[str]) -> Tuple[str, str]:
 def export_trace(trace, rt_names: Sequence[str] = (),
                  counters: Optional[Dict[str, List[Tuple[float, Dict]]]]
                  = None,
-                 title: str = "repro") -> Dict:
+                 title: str = "repro",
+                 spans: Sequence[Span] = (),
+                 spans_origin: Optional[float] = None) -> Dict:
     """Chrome-trace dict for a ``core.tracing.Trace``.
 
     ``counters`` maps track name -> [(t_ms, {series: value}), ...];
     each becomes one "C" counter track (Perfetto stacks the series).
+    ``spans`` (``obs.spans.Span``, monotonic seconds) become the "host
+    spans" group, at ``spans_origin`` (the executor's ``_t0``, where the
+    trace's time 0 lies; default: the earliest span's start). Spans that
+    start before it are left out.
     """
     trace.finish_view()
     ev: List[Dict] = [
@@ -99,7 +112,38 @@ def export_trace(trace, rt_names: Sequence[str] = (),
                 ev.append({"ph": "C", "pid": PID_COUNTERS, "tid": 0,
                            "name": track, "ts": t * MS,
                            "args": dict(values)})
+    if spans:
+        ev.extend(_span_events(spans, spans_origin, title))
     return {"traceEvents": ev, "displayTimeUnit": "ms"}
+
+
+def _span_events(spans: Sequence[Span], origin: Optional[float],
+                 title: str) -> List[Dict]:
+    if origin is None:
+        origin = min(s.t0 for s in spans)
+    ev: List[Dict] = [
+        {"ph": "M", "pid": PID_SPANS, "tid": 0, "name": "process_name",
+         "args": {"name": f"{title}: host spans"}},
+        {"ph": "M", "pid": PID_SPANS, "tid": 0, "name": "process_sort_index",
+         "args": {"sort_index": 2}}]
+    for ln in sorted({s.lane for s in spans},
+                     key=lambda x: -1 if x is None else x):
+        ev.append({"ph": "M", "pid": PID_SPANS,
+                   "tid": 0 if ln is None else ln + 1,
+                   "name": "thread_name",
+                   "args": {"name": "off lane" if ln is None
+                            else f"lane {ln}"}})
+    for s in spans:
+        if s.t0 < origin:
+            continue
+        # args carry the exact monotonic endpoints, for spans_from_json
+        ev.append({"ph": "X", "pid": PID_SPANS,
+                   "tid": 0 if s.lane is None else s.lane + 1,
+                   "name": s.name, "cat": s.name.split(".")[0],
+                   "ts": (s.t0 - origin) * 1e6, "dur": (s.t1 - s.t0) * 1e6,
+                   "args": {"t0_s": s.t0, "t1_s": s.t1, "lane": s.lane,
+                            "meta": dict(s.meta)}})
+    return ev
 
 
 # ---- counter-track builders (regulator history + gang-change log) ----
@@ -170,6 +214,7 @@ def validate_chrome_trace(data) -> List[str]:
     of problems (empty = valid). Dependency-free on purpose — CI runs
     this without jsonschema."""
     probs: List[str] = []
+    per_lane: Dict = {}     # host spans' (t0_s, t1_s, index) by tid
     if not isinstance(data, dict) or "traceEvents" not in data:
         return ["top level must be an object with a traceEvents array"]
     evs = data["traceEvents"]
@@ -211,6 +256,29 @@ def validate_chrome_trace(data) -> List[str]:
                     for v in args.values()):
                 probs.append(f"{where}: counter args must be a non-empty "
                              f"dict of numbers")
+        if ph == "X" and e.get("pid") == PID_SPANS:
+            args = e.get("args")
+            if not isinstance(args, dict) or not all(
+                    isinstance(args.get(k), (int, float))
+                    for k in ("t0_s", "t1_s")) \
+                    or args["t1_s"] < args["t0_s"]:
+                probs.append(f"{where}: a host span needs args t0_s <= "
+                             f"t1_s")
+            else:
+                per_lane.setdefault(e.get("tid"), []).append(
+                    (args["t0_s"], args["t1_s"], i))
+    for tid, items in per_lane.items():
+        # the spans of one lane nest: each starts and ends inside every
+        # span open when it starts
+        items.sort(key=lambda x: (x[0], -x[1]))
+        open_ends: List[float] = []
+        for t0, t1, i in items:
+            while open_ends and open_ends[-1] <= t0:
+                open_ends.pop()
+            if open_ends and t1 > open_ends[-1]:
+                probs.append(f"traceEvents[{i}]: host span overlaps the "
+                             f"span open on its lane (tid {tid})")
+            open_ends.append(t1)
     return probs
 
 
@@ -231,6 +299,15 @@ def segments_from_json(data) -> List[Tuple[int, str, float, float]]:
             out.append((e["tid"], e["name"], t0, t1))
     out.sort(key=lambda r: (r[0], r[2]))
     return out
+
+
+def spans_from_json(data) -> List[Span]:
+    """Invert the host-span tracks: ``obs.spans.Span`` tuples in the
+    order they were exported."""
+    return [Span(e["name"], e["args"]["lane"], e["args"]["t0_s"],
+                 e["args"]["t1_s"], e["args"]["meta"])
+            for e in data["traceEvents"]
+            if e.get("ph") == "X" and e.get("pid") == PID_SPANS]
 
 
 def write_chrome_trace(path: str, data: Dict) -> None:

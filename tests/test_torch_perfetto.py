@@ -137,3 +137,55 @@ def test_executor_trace_roundtrip():
     cats = {e["name"]: e["cat"] for e in data["traceEvents"]
             if e["ph"] == "X"}
     assert cats.get("dnn") == "gang" and cats.get("hog") == "be"
+
+
+def test_executor_host_spans_roundtrip():
+    """The recorder's spans of an executor run export as the "host spans"
+    group of the same trace (a thread a lane, nested "X" events), invert
+    exactly, and a span that overlaps its lane's open span is refused."""
+    from repro_torch.obs import spans, spans_from_json
+    from repro_torch.obs.perfetto import PID_SPANS
+
+    def rt(lane, idx):
+        with spans.span("model.decode_fn"):
+            time.sleep(0.002)
+
+    def be(lane):
+        time.sleep(0.0005)
+
+    ex = GangExecutor(n_lanes=2, regulation_interval_s=0.01)
+    ex.submit_rt(RTJob("dnn", rt, lanes=(0,), prio=10, period_s=0.01,
+                       budget_bytes=1e3, n_jobs=15))
+    ex.submit_be(BEJob("hog", be, lanes=(0, 1), bytes_per_quantum=1e3))
+    spans.drain()
+    spans.enable()
+    try:
+        ex.run(0.3)
+    finally:
+        spans.disable()
+    items = spans.drain()
+    assert {"executor.rt_quantum", "executor.be_quantum",
+            "executor.be_denied", "model.decode_fn"} <= {s.name for s in items}
+    data = json.loads(json.dumps(export_trace(
+        ex.trace, rt_names=["dnn"], title="executor", spans=items,
+        spans_origin=ex._t0)))
+    assert validate_chrome_trace(data) == []
+    assert spans_from_json(data) == items
+    assert segments_from_json(data) == sorted(
+        ((s.core, s.label, s.t0, s.t1)
+         for s in ex.trace.segments if s.label is not None),
+        key=lambda t: (t[0], t[2]))
+    threads = {e["tid"]: e["args"]["name"] for e in data["traceEvents"]
+               if e["ph"] == "M" and e["pid"] == PID_SPANS
+               and e["name"] == "thread_name"}
+    assert threads == {1: "lane 0", 2: "lane 1"}
+    inner = next(e for e in data["traceEvents"]
+                 if e.get("name") == "model.decode_fn")
+    outer = next(e for e in data["traceEvents"]
+                 if e.get("name") == "executor.rt_quantum"
+                 and e["ts"] <= inner["ts"] < e["ts"] + e["dur"])
+    assert inner["tid"] == outer["tid"] == 1
+    bad = dict(inner, args=dict(inner["args"],
+                                t1_s=outer["args"]["t1_s"] + 1.0))
+    data["traceEvents"].append(bad)
+    assert any("overlaps" in p for p in validate_chrome_trace(data))
