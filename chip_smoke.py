@@ -133,6 +133,20 @@ Drives the port in phases and exits non-zero if any fails:
                (torch.compile'd; the library time, never called by the
                port) beside the bound; the f32 cases also kernel and
                FlexAttention in CUDA graphs beside both f32 bounds;
+  (c6) kernel  holds mamba2's prefill glue, ssm_conv_act (the causal convs
+               of x, B and C with SiLU, softplus of dt, the conv states)
+               and ssm_gate_norm (the D skip, the gate and the gated
+               RMSNorm), against their plain versions (models.mamba2.
+               _conv_act / _gate_norm) at mamba2-1.3b's widths (d_inner
+               4096, N 128, 64 heads of 64): (d3)'s batch-1 prefills (S 32,
+               200, 1024, 300) in f32 and bf16 and the benchmark's B 8 S
+               2048 in bf16, one launch a call, at tests/test_torch_ssm_
+               glue.py's bounds (the conv within the plain version's bf16
+               rounding and within one rounding of a float64 conv, the
+               states exact; the norm within four steps of the dtype, in
+               bf16 under 1e-3 of the elements differing); times kernel
+               and plain version back to back and the kernel in a CUDA
+               graph beside its bytes bound at 3.35 TB/s;
   (d) serving  qwen2-7b at full width and depth in bf16, random weights from
                a seed drawn on the card, served through repro_torch.launch.
                serve.run (GangExecutor -> ServingEngine -> dense transformer
@@ -197,7 +211,10 @@ Drives the port in phases and exits non-zero if any fails:
                and 300 tokens at batch 1 and concatenates their state
                caches; then each quantum decodes until every sequence has
                16 new tokens. ssd_scan must launch n_layers x prefills
-               times, the other kernels never;
+               times, the glue 2 x n_layers x prefills (ssm_conv_act and
+               ssm_gate_norm), the other kernels never; then, alone, 12
+               decode steps must launch no kernel and 4 prefills 4 x 96
+               glue and 4 x 48 scan launches;
   (e3) oracle  at full width in f32: the logits through the kernel equal
                those of the same calls with ssd_scan swapped for its plain
                version within 1e-3, at the 4 prefills and at 4 decode steps
@@ -412,7 +429,9 @@ Drives the port in phases and exits non-zero if any fails:
                width and depth, f32, one 200-token prompt each: logits and
                every cache leaf equal to the same prefill without a mesh
                (atol 1e-3 as (c3), 1e-5 as (c4)), exactly 48 ssd_scan, 26
-               rglru_scan and 12 flash_attention launches a prefill; then
+               rglru_scan and 12 flash_attention launches a prefill, and
+               no glue launch (on a mesh mamba2 keeps the glue's plain
+               ops); then
                a reduced recurrentgemma training state, one step in on the
                mesh, saved and restored through the mesh-aware
                checkpoint/ckpt.py onto the mesh and onto one device, bit
@@ -428,10 +447,12 @@ dim is 64 or more).
 Each serving and training phase sets the kernels' launch counts to 0
 just before it drives the path and reads them just after; ssd_scan must
 launch 0 times on every path but mamba2-1.3b's, rglru_scan on all but
-recurrentgemma-9b's, moe_gmm on all but olmoe-1b-7b's. Before the last line it prints
+recurrentgemma-9b's, moe_gmm on all but olmoe-1b-7b's, the glue (ssm_glue)
+on all but mamba2-1.3b's prefills off a mesh. Before the last line it prints
 one JSON object {"kernels": [...]} with each kernel's launches on the serve
 paths, error, times and bound (``ms`` from calls back to back, and for the
-two scans also ``graph_ms``, the device time in a CUDA graph); the last
+two scans and the two glue kernels also ``graph_ms``, the device time in a
+CUDA graph); the last
 line is {"ok": true, "device": {...}}. Details go to build/chip_smoke.json.
 """
 from __future__ import annotations
@@ -482,6 +503,7 @@ from repro_torch.kernels.rglru_scan import ops as rg  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_reference  # noqa: E402
+from repro_torch.kernels.ssm_glue import ops as glue  # noqa: E402
 from repro_torch.launch import serve, sweep  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.sweep import (random_gang_taskset,  # noqa: E402
@@ -498,6 +520,8 @@ from repro_torch.obs.perfetto import (export_trace,  # noqa: E402
                                       write_chrome_trace)
 from repro_torch.roofline import report as RR  # noqa: E402
 from repro_torch.roofline.op_analysis import analyze  # noqa: E402
+from repro_torch.roofline.work import (ssm_conv_act_work,  # noqa: E402
+                                       ssm_gate_norm_work)
 from repro_torch.roofline.work import (flash_work, gmm_work,  # noqa: E402
                                        rglru_work, ssd_work)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -697,6 +721,15 @@ RG_REPORTED = ("serve", 1, 1024, 4096, "model", False, torch.float32)
 # the gang runs of the state-cache families: batch-1 prefills of these
 # prompts in the first quantum, then the batched decode step as the RT job
 GANG_PROMPTS = (32, 200, 1024, 300)
+# (c6) mamba2's prefill glue: (B, S, dtype) at mamba2-1.3b's widths, (d3)'s
+# batch-1 prefills in both dtypes and the benchmark's B 8 prompts; timed
+# rows also in a CUDA graph, the last one reported
+GLUE_CASES = [(1, S, dt) for dt in (torch.float32, torch.bfloat16)
+              for S in (32, 200, 1024, 300)] + [(8, 2048, torch.bfloat16)]
+GLUE_TIMED = ((1, 1024, torch.float32), (1, 1024, torch.bfloat16),
+              (8, 2048, torch.bfloat16))
+GLUE_REPORTED = (8, 2048, torch.bfloat16)
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}
 GANG_NEW = 16
 GANG_ORACLE_NEW = 8
 MAMBA_ARCH = "mamba2-1.3b"
@@ -1791,6 +1824,133 @@ def phase_rglru(dev, smi: str) -> list[dict]:
     return rows
 
 
+def glue_inputs(B: int, S: int, dt, gen, dev) -> tuple[tuple, tuple]:
+    """Operands of the two glue kernels at mamba2-1.3b's widths (d_inner
+    4096, N 128, 64 heads of 64): the in projections of unit scale, conv
+    weights of std 0.5, dt of std 0.1 and dt_bias about -4; y and x of
+    the scan unit normal in f32, z unit, D and the norm's weight 1 + 0.1
+    N(0, 1)."""
+    def r(*shape, scale=1.0, shift=0.0, d=dt):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(d)
+    DI, N, H, P = 4096, 128, 64, 64
+    conv = (r(B, S, DI), r(B, S, N), r(B, S, N), r(B, S, H, scale=0.1),
+            r(4, DI, scale=0.5), r(4, N, scale=0.5), r(4, N, scale=0.5),
+            r(H, shift=-4.0))
+    norm = (r(B, S, H, P, d=torch.float32), r(B, S, H, P, d=torch.float32),
+            r(B, S, DI), r(H, scale=0.1, shift=1.0),
+            r(DI, scale=0.1, shift=1.0))
+    return conv, norm
+
+
+def check_conv_act(got, want, args, name: str) -> float:
+    """tests/test_torch_ssm_glue.py's bounds: x, B and C within the plain
+    version's bf16 rounding of its products and partial sums (7 u m, m
+    the sum of the terms' magnitudes, plus one rounding of each side) and
+    within one rounding of silu of a float64 conv; dt' within 2 f32 ulps;
+    the conv states exact. Returns the largest |kernel - plain|."""
+    xin, Bm, Cm, dtv, wx, wb, wc, _ = args
+    u = UNIT_ROUNDOFF[xin.dtype]
+    B, S, DI = xin.shape
+    gx = got[0].reshape(B, S, DI)
+    err = 0.0
+    for g, p, x, w in ((gx, want[0].reshape(B, S, DI), xin, wx),
+                       (got[1], want[1], Bm, wb), (got[2], want[2], Cm, wc)):
+        xp = torch.cat([torch.zeros_like(x[:, :3]), x], 1).double()
+        terms = [xp[:, i:i + S] * w[i].double() for i in range(4)]
+        exact, m = sum(terms), sum(t.abs() for t in terms)
+        oracle = F.silu(exact)
+        g, p = g.double(), p.double()
+        err = max(err, (g - p).abs().max().item())
+        if not bool(((g - p).abs() <= u * (8 * m + g.abs() + p.abs())
+                     + 1e-30).all()) or not bool(
+                ((g - oracle).abs() <= u * oracle.abs() + 2.0 ** -21 * m
+                 + 1e-30).all()):
+            fail(f"(c6) ssm_conv_act {name}: beyond the rounding bounds "
+                 f"(max |kernel - plain| {err})")
+        del xp, terms, exact, m, oracle
+    err = max(err, (got[3] - want[3]).abs().max().item())
+    if not torch.allclose(got[3], want[3], rtol=2.0 ** -22, atol=0.0):
+        fail(f"(c6) ssm_conv_act {name}: dt' differs from the plain "
+             f"version's beyond 2 f32 ulps")
+    for a, b in zip(got[4], want[4]):
+        if a.dtype != xin.dtype or not torch.equal(a, b):
+            fail(f"(c6) ssm_conv_act {name}: a conv state differs")
+    return err
+
+
+def check_gate_norm(got, want, name: str) -> float:
+    """tests/test_torch_ssm_glue.py's bounds: within four steps of the
+    dtype (2^-5 of the value in bf16, 1e-6 in f32), and in bf16 under
+    1e-3 of the elements differing at all. Returns the largest
+    |kernel - plain|."""
+    bf16 = want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype != want.dtype or not torch.allclose(
+            got.float(), want.float(), rtol=2.0 ** -5 if bf16 else 1e-6,
+            atol=1e-30):
+        fail(f"(c6) ssm_gate_norm {name}: beyond four steps of the dtype "
+             f"(max |kernel - plain| {err})")
+    if bf16 and float((got != want).float().mean()) >= 1e-3:
+        fail(f"(c6) ssm_gate_norm {name}: {float((got != want).float().mean())}"
+             f" of the elements differ (at most 1e-3)")
+    return err
+
+
+def phase_glue(dev, smi: str) -> list[dict]:
+    """(c6): each glue kernel against its plain version on GLUE_CASES, one
+    launch a call; the timed cases back to back, in a CUDA graph and
+    beside the bytes bound (roofline.work's formulas at 3.35 TB/s)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rows = []
+    for case in GLUE_CASES:
+        B, S, dt = case
+        conv, norm = glue_inputs(B, S, dt, gen, dev)
+        name = f"B={B} S={S} {DT_NAME[dt]}"
+        for kname, fn, plain, args, nbytes in (
+                ("ssm_conv_act", glue.ssm_conv_act, glue.conv_act_plain,
+                 conv, ssm_conv_act_work(B, S, 4096, 128, 64, 4, dt)[1]),
+                ("ssm_gate_norm",
+                 lambda *a: glue.ssm_gate_norm(*a, 1e-5),
+                 lambda *a: MB._gate_norm(*a, 1e-5), norm,
+                 ssm_gate_norm_work(B, S, 4096, 64, dt)[1])):
+            before = glue.launches
+            got = fn(*args)
+            torch.cuda.synchronize()
+            if glue.launches != before + 1:
+                fail(f"(c6) {kname} {name}: {glue.launches - before} "
+                     f"launches a call")
+            want = plain(*args)
+            err = (check_conv_act(got, want, args, name)
+                   if kname == "ssm_conv_act"
+                   else check_gate_norm(got, want, name))
+            del got, want
+            row = {"kernel": kname, "case": name, "max_abs_err": err,
+                   "ok": True}
+            if case in GLUE_TIMED:
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                row.update(ms=time_ms(lambda: fn(*args)),
+                           plain_ms=time_ms(lambda: plain(*args)),
+                           graph_ms=graph_ms(lambda: fn(*args)),
+                           library_ms=None, bound_ms=bound_ms,
+                           bound_by="bytes",
+                           reported=case == GLUE_REPORTED)
+                row["bound_share"] = bound_ms / row["graph_ms"]
+                print(f"[glue] {kname} {name}: kernel {row['ms']:.4f} ms "
+                      f"(calls back to back), {row['graph_ms']:.4f} ms (CUDA "
+                      f"graph, device only), plain {row['plain_ms']:.4f} "
+                      f"ms, bound {bound_ms:.4f} ms (bytes, {nbytes} B), "
+                      f"{100 * row['bound_share']:.1f}% of the bound on the "
+                      f"device time, max_abs_err {err:.3g} [{smi}]")
+            else:
+                print(f"[glue] {kname} {name}: max_abs_err {err:.3g}")
+            rows.append(row)
+        del conv, norm
+    torch.cuda.empty_cache()
+    return rows
+
+
 def batch_caches(caches, lens, max_seq: int) -> dict:
     """Batch-1 prefill caches -> one batched decode cache, as the engine
     fills its slots: every attention leaf ("k", "v": (L, 1, S_i, Hkv, D))
@@ -1855,7 +2015,7 @@ def rollout_oracle(api, params, prompt, n_new: int, dev,
 
 
 KERNELS = {"flash_attention": fa, "moe_gmm": gmm, "ssd_scan": ssd,
-           "rglru_scan": rg}
+           "rglru_scan": rg, "ssm_glue": glue}
 
 
 def reset_launches() -> None:
@@ -1943,7 +2103,7 @@ def phase_serving(dev, smi: str, arch: str, duration: float) -> dict:
     decode_steps = res["engine"].decode_steps + 1   # + the warm-up's step
     expect = {"flash_attention": cfg.n_layers * prefills,
               "moe_gmm": 3 * cfg.n_layers * (prefills + decode_steps)
-              if moe else 0, "ssd_scan": 0, "rglru_scan": 0}
+              if moe else 0, "ssd_scan": 0, "rglru_scan": 0, "ssm_glue": 0}
     print(f"[serve] {arch} launches {launches} (expected {expect}: "
           f"{prefills} prefills, {decode_steps} decode steps); "
           f"decode quantum response p50 {np.percentile(lat, 50):.3f} ms, "
@@ -2052,14 +2212,17 @@ def plain_ssd_scan(xh, dt, Bm, Cm, A, *, chunk):
 
 def through_plain(fn):
     """fn() run with each kernel's wrapper swapped for its plain version."""
-    saved = M.grouped_matmul, L.flash_attention, MB.ssd_scan, RG.rglru_scan
-    M.grouped_matmul, L.flash_attention, MB.ssd_scan, RG.rglru_scan = \
-        gmm_reference, naive_attention, plain_ssd_scan, rglru_scan_reference
+    saved = (M.grouped_matmul, L.flash_attention, MB.ssd_scan,
+             RG.rglru_scan, MB.ssm_conv_act, MB.ssm_gate_norm)
+    (M.grouped_matmul, L.flash_attention, MB.ssd_scan, RG.rglru_scan,
+     MB.ssm_conv_act, MB.ssm_gate_norm) = (
+        gmm_reference, naive_attention, plain_ssd_scan, rglru_scan_reference,
+        glue.conv_act_plain, MB._gate_norm)
     try:
         return fn()
     finally:
-        M.grouped_matmul, L.flash_attention, MB.ssd_scan, \
-            RG.rglru_scan = saved
+        (M.grouped_matmul, L.flash_attention, MB.ssd_scan, RG.rglru_scan,
+         MB.ssm_conv_act, MB.ssm_gate_norm) = saved
 
 
 def check_plain_path(api, params, dev, max_seq: int) -> dict:
@@ -2261,14 +2424,17 @@ def gang_expect(cfg, n_prefills: int) -> dict:
     recurrent layer (ssd_scan for Mamba2, rglru_scan for RG-LRU) and one
     flash for each attention layer, which for Whisper is each encoder
     layer and twice each decoder layer (self and cross; ``layer_kinds``
-    lists the decoder's only); a decode step launches no kernel."""
+    lists the decoder's only), and for Mamba2 the two glue kernels around
+    each scan (ssm_conv_act, ssm_gate_norm); a decode step launches no
+    kernel."""
     kinds = cfg.layer_kinds()
     n_attn = kinds.count("attn")
     if cfg.family == "audio":
         n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
     return {"flash_attention": n_attn * n_prefills,
             "moe_gmm": 0, "ssd_scan": kinds.count("ssm") * n_prefills,
-            "rglru_scan": kinds.count("rec") * n_prefills}
+            "rglru_scan": kinds.count("rec") * n_prefills,
+            "ssm_glue": 2 * kinds.count("ssm") * n_prefills}
 
 
 def stub_inputs(cfg, seed: int, dev) -> dict:
@@ -2381,21 +2547,29 @@ def phase_gang(dev, smi: str, arch: str, duration: float,
     # work that ends in a synchronize
     caches = L.tree_map(lambda _, t: t.clone(), state["caches"])
     steps = []
+    reset_launches()
     for i in range(12):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         api.decode_fn(params, caches, state["tok"], lens + GANG_NEW + i)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
+    if any(read_launches().values()):
+        fail(f"{arch}: 12 decode steps alone launched {read_launches()}, "
+             f"expected none")
     n_long = max(prompt_lens)
     longest = batches[prompt_lens.index(n_long)]
     pre = []
+    reset_launches()
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         api.prefill_fn(params, longest)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
+    if read_launches() != gang_expect(cfg, 4):
+        fail(f"{arch}: 4 prefills alone launched {read_launches()}, "
+             f"expected {gang_expect(cfg, 4)}")
     step_ms = float(np.median(steps[2:]))
     prefill_ms = float(np.median(pre[1:]))
     print(f"[{arch}] alone: decode step (4 sequences) median {step_ms:.3f} "
@@ -3382,7 +3556,8 @@ def phase_serve_train(dev, smi: str) -> dict:
         flash_paths = check_flash_paths(f"serve+train {mode}",
                                         launches["flash_attention"], smi)
         expect = {"flash_attention": serve_cfg.n_layers * res["prefills"],
-                  "moe_gmm": 0, "ssd_scan": 0, "rglru_scan": 0}
+                  "moe_gmm": 0, "ssd_scan": 0, "rglru_scan": 0,
+                  "ssm_glue": 0}
         q, r, t = res["decode_ms"], res["response_ms"], res["train_ms"]
         busy = res["busy_ms"]
         ov = stream_overlap(res["intervals"], "serve-decode", "train-be")
@@ -3526,7 +3701,7 @@ def main() -> int:
                   f"{k['spill_stores']} B stored / {k['spill_loads']} B "
                   f"loaded")
             if (re.search(r"_(tc|wgmma|tf32x3)[<I]", k["kernel"]) or
-                    name in ("ssd_scan", "rglru_scan")) and \
+                    name in ("ssd_scan", "rglru_scan", "ssm_glue")) and \
                     k["spill_stores"] + k["spill_loads"]:
                 fail(f"kernel {k['kernel']} spills registers")
     fa_smem = {f"{p} D={d}": fa.smem_bytes(p, d) for p in fa.PATHS
@@ -3614,6 +3789,7 @@ def main() -> int:
     gmm_rows = timed("c2", phase_gmm, dev, smi)
     ssd_rows = timed("c3", phase_ssd, dev, smi)
     rg_rows = timed("c4", phase_rglru, dev, smi)
+    glue_rows = timed("c6", phase_glue, dev, smi)
     cp_rep = timed("s", phase_cp, dev, smi)
     ep_rep = timed("t", phase_ep, dev, smi)
     sv = timed("d", phase_serving, dev, smi, "qwen2-7b", duration=6.0)
@@ -3692,7 +3868,11 @@ def main() -> int:
         "flash_attention": next(r for r in rows if r.get("reported")),
         "moe_gmm": next(r for r in gmm_rows if r.get("reported")),
         "ssd_scan": next(r for r in ssd_rows if r.get("reported")),
-        "rglru_scan": next(r for r in rg_rows if r.get("reported"))}
+        "rglru_scan": next(r for r in rg_rows if r.get("reported")),
+        "ssm_conv_act": next(r for r in glue_rows if r.get("reported") and
+                             r["kernel"] == "ssm_conv_act"),
+        "ssm_gate_norm": next(r for r in glue_rows if r.get("reported") and
+                              r["kernel"] == "ssm_gate_norm")}
     serve_train = {k: sum(st_rep[m]["launches"][k]
                           for m, _, _ in SERVE_TRAIN_MODES) for k in KERNELS}
     by_path = {"qwen2-7b": sv["launches"], "olmoe-1b-7b": sv2["launches"],
@@ -3716,7 +3896,15 @@ def main() -> int:
     kernels = [kernel_entry(name, f"src/repro_torch/csrc/{name}.cu",
                             replaces[name],
                             {p: n[name] for p, n in by_path.items()},
-                            reported[name]) for name in KERNELS]
+                            reported[name]) for name in replaces]
+    # the glue's launches, one of each kernel a Mamba2 layer's prefill; no
+    # TPU kernel: XLA fuses the JAX package's glue
+    kernels += [kernel_entry(name, "src/repro_torch/csrc/ssm_glue.cu",
+                             "none (src/repro/models/mamba2.py, fused by "
+                             "XLA)", {p: n["ssm_glue"] // 2
+                                      for p, n in by_path.items()},
+                             reported[name])
+                for name in ("ssm_conv_act", "ssm_gate_norm")]
     # flash's launches on the serve and gang runs by kernel path
     runs = [sv, sv2, sv7, sv8, sv3, sv4, sv5, sv6] + \
         [st_rep[m] for m, _, _ in SERVE_TRAIN_MODES]
@@ -3729,6 +3917,7 @@ def main() -> int:
               "kernel_rows": rows, "softcap_rows": softcap_rows,
               "gmm_rows": gmm_rows,
               "ssd_rows": ssd_rows, "rglru_rows": rg_rows,
+              "glue_rows": glue_rows,
               "reported_cases": {n: r["case"] for n, r in reported.items()},
               "serve": sv, "serve_olmoe": sv2, "serve_granite": sv7,
               "serve_minitron": sv8, "softcap_model": softcap_model,
@@ -3751,7 +3940,8 @@ def main() -> int:
     print(f"kernels: [flash_attention: pass ({len(rows)} shapes, "
           f"{len(softcap_rows)} softcap cases), moe_gmm: "
           f"pass ({len(gmm_rows)} shapes), ssd_scan: pass ({len(ssd_rows)} "
-          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes)]; "
+          f"shapes), rglru_scan: pass ({len(rg_rows)} shapes), ssm_glue: "
+          f"pass ({len(glue_rows)} kernel shapes)]; "
           f"{GRANITE_ARCH} and {MINITRON_ARCH} serving: pass (peak "
           f"{sv7['peak_gb']:.1f} / {sv8['peak_gb']:.1f} GB); softcapped "
           f"model: pass; {VLM_ARCH} and {AUDIO_ARCH} gangs: pass; dave2: "

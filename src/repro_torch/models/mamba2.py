@@ -12,7 +12,12 @@ on the card the hand-written CUDA kernel, on the CPU its plain version
 ``_ssd_chunked`` (JAX's ``_ssd_chunked``, defined here). Train mode
 calls ``_ssd_chunked`` itself, under autograd, on either device. The
 scan's inputs are f32, as ``_ssd_chunked`` casts them, so y stays f32 up
-to the ``D_skip`` term in a bf16 model too. Decode
+to the ``D_skip`` term in a bf16 model too. At prefill the elementwise
+glue on each side of the scan (the causal convs with SiLU and softplus
+before it; the D skip, the gate and the gated RMSNorm after it) is one
+kernel each on the card (``kernels.ssm_glue.ops``), and their plain
+versions ``_conv_act`` / ``_gate_norm`` on the CPU; decode, train and the
+mesh run those plain versions. Decode
 is the O(1) recurrent update in torch ops (the JAX package has no Pallas
 kernel for it). JAX promotes bf16 x f32 to f32 inside its einsums; torch
 does not mix dtypes, so the casts to f32 are written out.
@@ -37,6 +42,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssm_glue.ops import ssm_conv_act, ssm_gate_norm
 from repro_torch.models import layers as L
 from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import constrain
@@ -215,6 +221,35 @@ def write_state(leaf, new):
         leaf.copy_(new)
 
 
+def _conv_act(xin, Bm, Cm, dt, conv_x, conv_B, conv_C, dt_bias,
+              state: Optional[dict] = None):
+    """The glue before the scan, in torch ops (``ssm_conv_act``'s plain
+    version): the causal convs of x, B and C (from the conv states in
+    ``state``, a decode step's cache, or from zeros), SiLU in f32 rounded
+    back to each one's dtype, and softplus(dt + dt_bias) in f32. Returns
+    (x, B, C, dt', (the new conv states of x, B and C))."""
+    state = state if state is not None else {}
+    xin, cx = _causal_conv(xin, conv_x, state.get("conv_x"))
+    Bm, cB = _causal_conv(Bm, conv_B, state.get("conv_B"))
+    Cm, cC = _causal_conv(Cm, conv_C, state.get("conv_C"))
+    xin = F.silu(xin.float()).to(xin.dtype)
+    Bm = F.silu(Bm.float()).to(Bm.dtype)
+    Cm = F.silu(Cm.float()).to(Cm.dtype)
+    dt = F.softplus(dt.float() + dt_bias.float())
+    return xin, Bm, Cm, dt, (cx, cB, cC)
+
+
+def _gate_norm(y, xh, z, D_skip, gn, eps: float):
+    """The glue after the scan, in torch ops (``ssm_gate_norm``'s plain
+    version): y (B,S,H,P) f32 plus the D skip of xh (B,S,H,P), gated by
+    silu(z) (B,S,H*P) in f32, rounded to z's dtype, then RMSNorm with
+    weight ``gn`` (mamba2's gated norm: norm(y * silu(z)))."""
+    y = y + D_skip.float()[None, None, :, None] * xh.float()
+    y = y.reshape(z.shape)
+    y = y * F.silu(z.float())
+    return L.rms_norm(y.to(z.dtype), gn, eps)
+
+
 def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     """x: (B,S,D). Returns (x_out, cache).
 
@@ -224,9 +259,7 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     updated in place and the same dict is returned."""
     cfg = ctx.cfg
     s = cfg.ssm
-    D = cfg.d_model
-    di = s.d_inner(D)
-    H = s.n_heads(D)
+    H = s.n_heads(cfg.d_model)
     P = s.head_dim
     Bsz, S, _ = x.shape
 
@@ -242,39 +275,38 @@ def ssm_block_apply(ctx, p, x, cache: Optional[dict] = None):
     Cm = L.dense(h, p["in_C"])
     dt = L.dense(h, p["in_dt"])
 
-    conv_cache = cache if cache is not None else {}
-    xin, cx = _causal_conv(xin, p["conv_x"], conv_cache.get("conv_x"))
-    Bm, cB = _causal_conv(Bm, p["conv_B"], conv_cache.get("conv_B"))
-    Cm, cC = _causal_conv(Cm, p["conv_C"], conv_cache.get("conv_C"))
-    xin = F.silu(xin.float()).to(xin.dtype)
-    Bm = F.silu(Bm.float()).to(Bm.dtype)
-    Cm = F.silu(Cm.float()).to(Cm.dtype)
-
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-
-    xh = constrain(xin.reshape(Bsz, S, H, P), ctx.rules,
-                   ("batch", None, "ssm_heads", None))
-
-    if ctx.mode == "decode":
-        assert cache is not None and S == 1
-        y = _decode_step(ctx, cache["h"], dt, Bm, Cm, xh, A)
-        for name, new in (("conv_x", cx), ("conv_B", cB), ("conv_C", cC)):
-            write_state(cache[name], new)
-        new_cache = cache
+    if ctx.mode == "prefill" and cache is None and \
+            not isinstance(xin, DTensor):
+        # the glue on each side of the scan in one kernel each on the card
+        # (their plain versions on the CPU); on a mesh the plain ops below
+        xh, Bm, Cm, dt, (cx, cB, cC) = ssm_conv_act(
+            xin, Bm, Cm, dt, p["conv_x"], p["conv_B"], p["conv_C"],
+            p["dt_bias"])
+        y, h_fin = ssd_scan(xh, dt, Bm, Cm, A, chunk=min(s.chunk, S))
+        y = ssm_gate_norm(y, xh, z, p["D_skip"], p["gn"], cfg.norm_eps)
+        new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC, "h": h_fin}
     else:
-        scan = _ssd_chunked if ctx.mode == "train" else ssd_scan
-        y, h_fin = _scan_on_mesh(ctx, scan, xh.float(), dt, Bm.float(),
-                                 Cm.float(), A, min(s.chunk, S))
-        new_cache = None
-        if ctx.mode == "prefill":
-            new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC,
-                         "h": h_fin}
-
-    y = y + p["D_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(Bsz, S, di)
-    # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = y * F.silu(z.float())
-    y = L.rms_norm(y.to(x.dtype), p["gn"], cfg.norm_eps)
+        xin, Bm, Cm, dt, (cx, cB, cC) = _conv_act(
+            xin, Bm, Cm, dt, p["conv_x"], p["conv_B"], p["conv_C"],
+            p["dt_bias"], cache)
+        xh = constrain(xin.reshape(Bsz, S, H, P), ctx.rules,
+                       ("batch", None, "ssm_heads", None))
+        if ctx.mode == "decode":
+            assert cache is not None and S == 1
+            y = _decode_step(ctx, cache["h"], dt, Bm, Cm, xh, A)
+            for name, new in (("conv_x", cx), ("conv_B", cB),
+                              ("conv_C", cC)):
+                write_state(cache[name], new)
+            new_cache = cache
+        else:
+            scan = _ssd_chunked if ctx.mode == "train" else ssd_scan
+            y, h_fin = _scan_on_mesh(ctx, scan, xh.float(), dt, Bm.float(),
+                                     Cm.float(), A, min(s.chunk, S))
+            new_cache = None
+            if ctx.mode == "prefill":
+                new_cache = {"conv_x": cx, "conv_B": cB, "conv_C": cC,
+                             "h": h_fin}
+        y = _gate_norm(y, xh, z, p["D_skip"], p["gn"], cfg.norm_eps)
     out = constrain(L.dense(y, p["out"]), ctx.rules, ("batch", "seq", None))
     return x + out, new_cache

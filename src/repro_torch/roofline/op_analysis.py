@@ -54,6 +54,7 @@ from repro_torch.kernels.flash_attention import ops as _fa
 from repro_torch.kernels.moe_gmm import ops as _gmm
 from repro_torch.kernels.rglru_scan import ops as _rg
 from repro_torch.kernels.ssd_scan import ops as _ssd
+from repro_torch.kernels.ssm_glue import ops as _glue
 from repro_torch.models.layers import DOTS
 from repro_torch.roofline import work
 
@@ -78,7 +79,7 @@ _SCATTERS = {"index_put", "index_put_", "index_copy", "index_copy_",
              "scatter", "scatter_", "index_add", "index_add_",
              "scatter_add", "scatter_add_"}
 _CONV = torch.ops.aten.convolution.default
-_KERNEL_MODULES = (_fa, _gmm, _ssd, _rg)
+_KERNEL_MODULES = (_fa, _gmm, _ssd, _rg, _glue)
 
 
 def _nbytes(tree) -> int:

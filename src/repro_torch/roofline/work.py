@@ -96,6 +96,25 @@ def rglru_work(B, S, C, with_h0, dt) -> Tuple[int, int]:
             dt.itemsize * 3 * B * S * C + 4 * B * C * (2 if with_h0 else 1))
 
 
+def ssm_conv_act_work(B, S, DI, N, H, W, dt) -> Tuple[int, int]:
+    """Mamba2's glue before the scan (``ssm_conv_act``). Operations: none
+    counted, as the analysis counts none for the plain version's
+    elementwise ops (``op_analysis._flops``). Bytes: x, B, C and dt read
+    once in ``dt`` and written once in f32, the conv weights and dt_bias
+    read, the conv state (the last W - 1 rows of x, B and C) written."""
+    C = DI + 2 * N
+    return 0, (B * S * (C + H) * (dt.itemsize + 4)
+               + dt.itemsize * (W * C + H + B * (W - 1) * C))
+
+
+def ssm_gate_norm_work(B, S, DI, H, dt) -> Tuple[int, int]:
+    """Mamba2's glue after the scan (``ssm_gate_norm``). Operations: none
+    counted (as ``ssm_conv_act_work``). Bytes: y and x read once in f32, z
+    read and the output written once in ``dt``, D and the norm's weight
+    read."""
+    return 0, B * S * DI * (8 + 2 * dt.itemsize) + dt.itemsize * (H + DI)
+
+
 def current():
     """The analysis running in this thread, or None."""
     return getattr(_local, "analysis", None)
